@@ -1,0 +1,147 @@
+"""The whole PQ slice, JAX package against port, at a small size: a JAX
+``ProductQuantizer`` carried into the port through ``convert``, then both
+packages' ``PQIndex.add`` and ``search`` (with and without rerank) on the
+same corpus, and checkpoints loaded across packages in both directions.
+d = 32, m = 4; k = 64 gives u8 codes, k = 16 auto-packed 4-bit codes.
+Search parity uses the tie-aware tiers of ``test_torch_pq``. Reranked
+distances are exact distances in the expanded form
+``||q||^2 + ||c||^2 - 2 q.c``, whose fp32 error between two summation
+orders is about 1e-6 * (||q||^2 + ||c||^2), near 7e-4 in d^2 at this
+data's norms; with every reranked distance above 0.5 that is held at an
+absolute 1e-3 on the distances.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import vq_tpu
+import vq_tpu_torch
+from vq_tpu_torch.convert import from_state, state_of
+from test_torch_pq import assert_search_parity
+
+_RERANK_TOL = {"rtol": 1e-5, "atol": 1e-3}  # expanded-form exact distances
+
+
+@pytest.fixture(scope="module", params=[64, 16], ids=["u8", "packed4"])
+def slice_setup(request):
+    k = request.param
+    rng = np.random.default_rng(20 + k)
+    centres = rng.standard_normal((40, 32)).astype(np.float32) * 3
+    corpus = (centres[rng.integers(0, 40, 3000)]
+              + rng.standard_normal((3000, 32)).astype(np.float32))
+    queries = corpus[rng.integers(0, 3000, 9)] + 0.1
+    jpq = vq_tpu.ProductQuantizer(corpus[:1500], 4, k, max_iters=6, seed=5)
+    tpq = from_state("pq", {"distance": jpq.distance_metric},
+                     {"codebooks": np.asarray(jpq.codebooks)})
+    jidx = vq_tpu.PQIndex(jpq, keep_corpus=True)
+    tidx = vq_tpu_torch.PQIndex(tpq, keep_corpus=True)
+    for part in (corpus[:1000], corpus[1000:]):  # two adds: appends concatenate
+        jidx.add(part)
+        tidx.add(part)
+    return jidx, tidx, queries, k
+
+
+def test_convert_carries_codebooks(slice_setup):
+    jidx, tidx, _, k = slice_setup
+    np.testing.assert_array_equal(
+        tidx.pq.codebooks.numpy(), np.asarray(jidx.pq.codebooks)
+    )
+    assert tidx.pack_bits == jidx.pack_bits == (4 if k == 16 else 8)
+
+
+def test_add_codes_match(slice_setup):
+    jidx, tidx, _, _ = slice_setup
+    np.testing.assert_array_equal(tidx._codes.numpy(), np.asarray(jidx._codes))
+
+
+@pytest.mark.parametrize("k,rerank", [(10, 0), (10, 50), (1, 0), (5, 200)])
+def test_search_matches_jax(slice_setup, k, rerank):
+    jidx, tidx, q, _ = slice_setup
+    want = jidx.search(q, k=k, rerank=rerank)
+    got = tidx.search(q, k=k, rerank=rerank)
+    assert_search_parity(got, want, **(_RERANK_TOL if rerank else {}))
+
+
+def test_reconstruct_matches_jax(slice_setup):
+    jidx, tidx, _, _ = slice_setup
+    ids = np.array([0, 7, 2999, 1500])
+    np.testing.assert_array_equal(
+        tidx.reconstruct(ids).numpy(), np.asarray(jidx.reconstruct(ids))
+    )
+
+
+def test_jax_checkpoint_loads_in_port(slice_setup, tmp_path):
+    jidx, _, q, _ = slice_setup
+    path = jidx.save(str(tmp_path / "jax_index"))
+    loaded = vq_tpu_torch.PQIndex.load(path)
+    assert loaded.ntotal == jidx.ntotal and loaded.pack_bits == jidx.pack_bits
+    assert_search_parity(
+        loaded.search(q, k=10, rerank=30), jidx.search(q, k=10, rerank=30),
+        **_RERANK_TOL,
+    )
+
+
+def test_port_checkpoint_loads_in_jax(slice_setup, tmp_path):
+    jidx, tidx, q, _ = slice_setup
+    path = tidx.save(str(tmp_path / "port_index"))
+    loaded = vq_tpu.PQIndex.load(path)
+    np.testing.assert_array_equal(np.asarray(loaded._codes), tidx._codes.numpy())
+    assert_search_parity(tidx.search(q, k=10), loaded.search(q, k=10))
+    pq_path = vq_tpu_torch.save(str(tmp_path / "port_pq"), tidx.pq)
+    jpq = vq_tpu.utils.load(pq_path)
+    np.testing.assert_array_equal(np.asarray(jpq.codebooks), tidx.pq.codebooks.numpy())
+
+
+def test_state_round_trip(slice_setup):
+    _, tidx, q, _ = slice_setup
+    again = from_state(*state_of(tidx))
+    assert torch.equal(again._codes, tidx._codes)
+    assert torch.equal(again._corpus, tidx._corpus)
+    ids, d = again.search(q, k=10)
+    want_ids, want_d = tidx.search(q, k=10)
+    assert torch.equal(ids, want_ids) and torch.equal(d, want_d)
+
+
+def test_remove_and_merge_match_jax(slice_setup):
+    jidx, tidx, q, _ = slice_setup
+    jpq, tpq = jidx.pq, tidx.pq
+    ja, jb = vq_tpu.PQIndex(jpq), vq_tpu.PQIndex(jpq)
+    ta, tb = vq_tpu_torch.PQIndex(tpq), vq_tpu_torch.PQIndex(tpq)
+    corpus = tidx._corpus.numpy()
+    for a, b in ((ja, jb), (ta, tb)):
+        a.add(corpus[:1200])
+        b.add(corpus[1200:2000])
+        assert a.remove_ids([0, 5, 5, 1199]) == 3
+        assert a.merge_from(b) == 800 and b.ntotal == 0
+    np.testing.assert_array_equal(ta._codes.numpy(), np.asarray(ja._codes))
+    assert_search_parity(ta.search(q, k=10), ja.search(q, k=10))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, vq_tpu_torch, vq_tpu_torch.ops._build, "
+        "vq_tpu_torch.convert, vq_tpu_torch.utils\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vq_tpu.')) or m == 'vq_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_port_doctests():
+    import doctest
+    import importlib
+    import pkgutil
+
+    names = ["vq_tpu_torch"] + [
+        info.name for info in pkgutil.walk_packages(vq_tpu_torch.__path__, "vq_tpu_torch.")
+    ]
+    attempted = 0
+    for name in names:
+        res = doctest.testmod(importlib.import_module(name), verbose=False)
+        assert res.failed == 0, f"{res.failed} doctest(s) failed in {name}"
+        attempted += res.attempted
+    assert attempted > 0

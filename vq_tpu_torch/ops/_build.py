@@ -1,0 +1,119 @@
+"""Builds the CUDA kernels in ``vq_tpu_torch/csrc`` on first use and loads
+them with ctypes.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds).
+The library lands in ``build/vq_tpu_torch/<hash>/`` beside the package's
+checkout, keyed by a hash of the sources and flags, so an edited kernel
+is rebuilt and an unchanged one is loaded as it is. Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()``.
+
+``-fmad=false`` keeps nvcc from contracting a multiply and an add into
+one FMA; the kernels also spell every rounding out with ``__fmul_rn`` /
+``__fadd_rn``, so their arithmetic matches the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "vq_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    # x, x_is_bf16, cb, cc, codes, n, m, k, s, kc, rows_per_block, stream
+    "vq_pq_encode": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _P),
+    # x, cb, cc, psums, pcounts, pinertia, sums, counts, inertia,
+    # n, m, k, s, kc, rows_per_block, chunks, stream
+    "vq_pq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _LL, _I, _I, _I, _I, _LL, _I, _P),
+    # tables, codes_t, qn2, offsets, vals, ids, nq, m, k, kpad, n, tile,
+    # fetch, mode, pack_bits, tab_in_smem, ntiles, stream
+    "vq_adc_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,
+                    _I, _I, _I, _I, _I, _P),
+}
+
+
+class NvccError(RuntimeError):
+    """nvcc is missing or refused the kernel sources."""
+
+
+class _Library:
+    """The loaded kernel library, built at most once per process."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self.build_seconds: Optional[float] = None
+        self.path: Optional[Path] = None
+        self.log = ""
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load()
+            return self._lib
+
+    def _load(self) -> ctypes.CDLL:
+        sources = sorted(CSRC.glob("*.cu"))
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sorted(CSRC.glob("*.cu*")):
+            digest.update(src.name.encode())
+            digest.update(src.read_bytes())
+        out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+        lib_path = out_dir / "libvq_kernels.so"
+        t0 = time.perf_counter()
+        if not lib_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"libvq_kernels.{os.getpid()}.so"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            self.log = proc.stdout + proc.stderr
+            (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + self.log)
+            if proc.returncode != 0:
+                raise NvccError(
+                    f"nvcc failed ({proc.returncode}):\n{self.log[-4000:]}"
+                )
+            os.replace(tmp, lib_path)  # atomic: a concurrent build is harmless
+        self.build_seconds = time.perf_counter() - t0
+        self.path = lib_path
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        return lib
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise NvccError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+            "kernels of vq_tpu_torch are built from source on first use"
+        )
+    return found
+
+
+LIBRARY = _Library()

@@ -1,0 +1,401 @@
+"""The hand-written CUDA kernels of the PQ slice, each beside its plain
+PyTorch version — the port of the three Pallas kernels that PQ train,
+encode and flat ADC search reach in ``vq_tpu/ops/pallas_kernels.py``:
+
+* K3 :func:`pq_lloyd_accumulate_fused` (``csrc/pq_lloyd.cu``) — one Lloyd
+  pass of PQ training for all subspaces;
+* K4 :func:`pq_encode_fused` (``csrc/pq_encode.cu``) — exact PQ encode;
+* K5 :func:`adc_scan_topk_fused` (``csrc/adc_topk.cu``) — flat ADC scan
+  with a per-tile top-``fetch``.
+
+Each wrapper keeps the JAX entry's name. A tensor on the CPU goes to the
+plain version (``*_plain``), which is the arithmetic the kernel is held
+to; a CUDA tensor launches the kernel, and a launch the runtime refuses
+raises. Nothing falls back. Each wrapper counts its launches in a plain
+int attribute, ``launches``, so a run can show which kernels it went
+through. The source notes in ``csrc/`` say what bounds each kernel on the
+card and what its design does about it.
+
+The argmin of K3 and K4 is the TPU kernels' ``int2`` rule
+(``_int_argmin``): the minimum of an orderable int32 key, then the lowest
+index among equal keys. NaN never wins, -0.0 equals +0.0, and exact ties
+go to the lowest index. ``torch.argmin`` lets NaN win, so nothing here
+uses it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from vq_tpu_torch.errors import InvalidParameter
+
+__all__ = [
+    "orderable_key",
+    "key_to_f32",
+    "int_argmin",
+    "pq_encode_fused",
+    "pq_encode_plain",
+    "pq_lloyd_accumulate_fused",
+    "pq_lloyd_accumulate_plain",
+    "adc_scan_topk_fused",
+    "adc_scan_topk_plain",
+    "adc_tile",
+]
+
+_INT_MAX = 0x7FFFFFFF
+_INF_KEY = 0x7F800000  # orderable_key(+inf)
+TOP_LANES = 128  # candidate lanes per tile, as on the TPU
+_THREADS = 256  # rows per tile in K3 and K4 (csrc/common.cuh kThreads)
+_SMEM_BYTES = 48 * 1024  # shared memory a block uses without opting in
+_TARGET_BLOCKS = 132 * 8  # SMs x resident 256-thread blocks
+_PARTIAL_BYTES = 256 << 20  # K3's per-block partial sums, at most
+_ADC_MODES = {"sum": 0, "l2": 1, "dot": 2}
+_PLAIN_ROWS = 16_384  # row block of the plain K3/K4 ([B, m, k] scores)
+
+
+# ---------------------------------------------------------------------------
+# The int2 argmin rule (pallas_kernels.py::_orderable_key / _int_argmin).
+# ---------------------------------------------------------------------------
+
+
+def orderable_key(scores: torch.Tensor) -> torch.Tensor:
+    """Monotone f32 -> i32 map: integer order equals float order, NaN
+    keys above +inf, and -0.0 shares +0.0's key."""
+    b = scores.contiguous().view(torch.int32)
+    key = torch.where(b < 0, b ^ _INT_MAX, b)
+    return torch.where(key == -1, torch.zeros_like(key), key)
+
+
+def key_to_f32(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`orderable_key` (an involution)."""
+    return torch.where(key < 0, key ^ _INT_MAX, key).contiguous().view(torch.float32)
+
+
+def int_argmin(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(min_score f32, argmin i32)`` over the last axis under int2."""
+    key = orderable_key(scores)
+    mkey = key.amin(-1, keepdim=True)
+    col = torch.arange(key.shape[-1], device=key.device, dtype=torch.int32)
+    idx = torch.where(key == mkey, col, _INT_MAX).amin(-1)
+    return key_to_f32(mkey[..., 0]), idx.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Shared plumbing.
+# ---------------------------------------------------------------------------
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (all on one card), False for CPU tensors."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise InvalidParameter(
+            "device", "all operands must lie on one device, got "
+            + ", ".join(str(t.device) for t in tensors)
+        )
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise InvalidParameter("device", f"no kernel or plain version for {dev}")
+
+
+def _launch(fn, *args) -> None:
+    """Call C entry ``fn`` on PyTorch's current stream; raise on a refused
+    launch. The kernel runs after this returns: temporaries the wrapper
+    drops go back to PyTorch's caching allocator, which hands their memory
+    only to work queued later on the same stream, so they stay valid for
+    the kernel."""
+    from vq_tpu_torch.ops._build import LIBRARY
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(LIBRARY.get(), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+
+
+def _centroid_chunk(k: int, s: int, extra_bytes: int) -> int:
+    """Centroids of one subspace staged in shared memory at a time."""
+    kc = (_SMEM_BYTES - extra_bytes) // ((s + 1) * 4)
+    if kc < 1:
+        raise InvalidParameter(
+            "codebooks", f"sub_dim {s} leaves no room for one centroid in "
+            "shared memory"
+        )
+    return min(k, kc)
+
+
+def _rows_per_block(n: int, m: int, cap_blocks: Optional[int] = None) -> int:
+    """Rows each (row range, subspace) block owns: enough blocks to fill
+    the card, in whole 256-row tiles."""
+    chunks = max(1, _TARGET_BLOCKS // max(m, 1))
+    if cap_blocks is not None:
+        chunks = max(1, min(chunks, cap_blocks))
+    rows = -(-n // chunks)
+    return -(-rows // _THREADS) * _THREADS
+
+
+def _check_pq_operands(x: torch.Tensor, codebooks: torch.Tensor):
+    if codebooks.ndim != 3:
+        raise InvalidParameter(
+            "codebooks", f"must be [m, k, sub_dim], got {codebooks.ndim}-D"
+        )
+    m, k, s = codebooks.shape
+    if x.ndim != 2 or x.shape[1] != m * s:
+        raise InvalidParameter(
+            "x", f"expected [n, {m * s}], got {tuple(x.shape)}"
+        )
+    return m, k, s
+
+
+def _scores_plain(xs: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """``cc - 2 * dot`` for ``xs [B, m, s]`` against ``cb [m, k, s]``,
+    with the dot summed over ``s`` in ascending order one rounded
+    multiply and add at a time — the kernels' exact arithmetic."""
+    dot = torch.zeros(
+        (xs.shape[0], cb.shape[0], cb.shape[1]), dtype=torch.float32,
+        device=xs.device,
+    )
+    for e in range(cb.shape[2]):
+        dot = dot + xs[:, :, e, None] * cb[None, :, :, e]
+    return cc[None] - 2.0 * dot
+
+
+# ---------------------------------------------------------------------------
+# K4: exact PQ encode (replaces pallas_kernels.py::_pq_encode_kernel).
+# ---------------------------------------------------------------------------
+
+
+def pq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: ``x [n, m*s]`` -> codes ``[n, m]`` i32."""
+    m, k, s = _check_pq_operands(x, codebooks)
+    cb = codebooks.to(torch.float32)
+    cc = (cb * cb).sum(-1)
+    out = torch.empty((x.shape[0], m), dtype=torch.int32, device=x.device)
+    for b0 in range(0, x.shape[0], _PLAIN_ROWS):
+        xs = x[b0:b0 + _PLAIN_ROWS].to(torch.float32).reshape(-1, m, s)
+        out[b0:b0 + _PLAIN_ROWS] = int_argmin(_scores_plain(xs, cb, cc))[1]
+    return out
+
+
+def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Exact PQ encode: ``x [n, m*s]`` (f32 or bf16; f16 is upcast) against
+    ``codebooks [m, k, s]`` -> codes ``[n, m]`` i32 under the int2 rule."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    cb = codebooks.to(torch.float32)
+    if not _on_card(x, cb):
+        return pq_encode_plain(x, cb)
+    m, k, s = _check_pq_operands(x, cb)
+    x, cb = x.contiguous(), cb.contiguous()
+    cc = (cb * cb).sum(-1).contiguous()
+    n = x.shape[0]
+    codes = torch.empty((n, m), dtype=torch.int32, device=x.device)
+    if n == 0:
+        return codes
+    _launch(
+        "vq_pq_encode", x.data_ptr(), int(x.dtype == torch.bfloat16),
+        cb.data_ptr(), cc.data_ptr(), codes.data_ptr(), n, m, k, s,
+        _centroid_chunk(k, s, 0), _rows_per_block(n, m),
+    )
+    pq_encode_fused.launches += 1
+    return codes
+
+
+pq_encode_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: fused PQ Lloyd accumulate (replaces _pq_lloyd_acc_kernel).
+# ---------------------------------------------------------------------------
+
+
+def pq_lloyd_accumulate_plain(x: torch.Tensor, codebooks: torch.Tensor):
+    """Plain version of K3 -> ``(sums [m, k, s], counts [m, k], inertia [])``."""
+    m, k, s = _check_pq_operands(x, codebooks)
+    cb = codebooks.to(torch.float32)
+    cc = (cb * cb).sum(-1)
+    dev = x.device
+    sums = torch.zeros((m * k, s), dtype=torch.float32, device=dev)
+    counts = torch.zeros((m * k,), dtype=torch.int64, device=dev)
+    inertia = torch.zeros((), dtype=torch.float32, device=dev)
+    offs = torch.arange(m, device=dev) * k
+    for b0 in range(0, x.shape[0], _PLAIN_ROWS):
+        xs = x[b0:b0 + _PLAIN_ROWS].to(torch.float32).reshape(-1, m, s)
+        smin, idx = int_argmin(_scores_plain(xs, cb, cc))
+        flat = (idx.to(torch.int64) + offs).reshape(-1)
+        sums.index_add_(0, flat, xs.reshape(-1, s))
+        counts += torch.bincount(flat, minlength=m * k)
+        t = smin + (xs * xs).sum(-1)
+        inertia = inertia + torch.where(torch.isnan(t), t, t.clamp_min(0.0)).sum()
+    return sums.reshape(m, k, s), counts.reshape(m, k).to(torch.float32), inertia
+
+
+def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor):
+    """One Lloyd pass over ``x [n, m*s]`` for all m subspaces ->
+    ``(sums [m, k, s], counts [m, k], inertia [])``, all f32.
+
+    On the card the result is deterministic from run to run; against the
+    plain version counts are exact and sums and inertia differ by fp32
+    summation order only (``csrc/pq_lloyd.cu``)."""
+    x = x.to(torch.float32)
+    cb = codebooks.to(torch.float32)
+    if not _on_card(x, cb):
+        return pq_lloyd_accumulate_plain(x, cb)
+    m, k, s = _check_pq_operands(x, cb)
+    x, cb = x.contiguous(), cb.contiguous()
+    n, dev = x.shape[0], x.device
+    sums = torch.zeros((m, k, s), dtype=torch.float32, device=dev)
+    counts = torch.zeros((m, k), dtype=torch.float32, device=dev)
+    inertia = torch.zeros((), dtype=torch.float32, device=dev)
+    if n == 0:
+        return sums, counts, inertia
+    cc = (cb * cb).sum(-1).contiguous()
+    kc = _centroid_chunk(k, s, 2 * _THREADS * 4)
+    rpb = _rows_per_block(n, m, _PARTIAL_BYTES // (m * k * s * 4))
+    chunks = -(-n // rpb)
+    psums = torch.empty((chunks, m, k, s), dtype=torch.float32, device=dev)
+    pcounts = torch.empty((chunks, m, k), dtype=torch.int32, device=dev)
+    pinertia = torch.empty((chunks, m), dtype=torch.float32, device=dev)
+    _launch(
+        "vq_pq_lloyd", x.data_ptr(), cb.data_ptr(), cc.data_ptr(),
+        psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
+        n, m, k, s, kc, rpb, chunks,
+    )
+    pq_lloyd_accumulate_fused.launches += 1
+    return sums, counts, inertia
+
+
+pq_lloyd_accumulate_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: flat ADC scan + per-tile top-k (replaces _adc_scan_topk_kernel).
+# ---------------------------------------------------------------------------
+
+
+def adc_tile(n: int) -> int:
+    """Corpus columns per K5 tile: a power of two in [128, 2048]."""
+    return min(2048, max(TOP_LANES, 1 << max(int(n) - 1, 1).bit_length()))
+
+
+def _check_adc(tables, codes_t, fetch, mode, qn2, offsets, pack_bits):
+    if not 1 <= int(fetch) <= TOP_LANES:
+        raise InvalidParameter("fetch", f"must be in [1, {TOP_LANES}]")
+    if mode not in _ADC_MODES:
+        raise InvalidParameter("mode", f"unknown mode {mode!r}")
+    if mode == "l2" and (qn2 is None or offsets is None):
+        raise InvalidParameter("mode", "mode='l2' requires qn2 and offsets")
+    if int(pack_bits) not in (1, 2, 4, 8):
+        raise InvalidParameter("pack_bits", "must be 1, 2, 4, or 8")
+    if tables.ndim != 3 or tables.shape[2] > 256:
+        raise InvalidParameter("tables", "expected [Q, m, k] with k <= 256")
+    m = tables.shape[1]
+    want = m if pack_bits == 8 else -(-m * int(pack_bits) // 8)
+    if codes_t.ndim != 2 or codes_t.shape[0] != want:
+        raise InvalidParameter(
+            "codes_t", f"must have {want} rows, got {tuple(codes_t.shape)}"
+        )
+
+
+def _unpack_t(codes_t: torch.Tensor, m: int, pack_bits: int) -> torch.Tensor:
+    """``[rows, n]`` u8 -> ``[m, n]`` int64 codes (the kernel's unpack)."""
+    c = codes_t.to(torch.int64)
+    if pack_bits == 8:
+        return c
+    per = 8 // pack_bits
+    i = torch.arange(m, device=c.device)
+    return (c[i // per] >> ((i % per) * pack_bits)[:, None]) & ((1 << pack_bits) - 1)
+
+
+def adc_scan_topk_plain(
+    tables, codes_t, fetch: int, *, mode: str = "sum", qn2=None,
+    offsets=None, pack_bits: int = 8, tile: Optional[int] = None,
+):
+    """Plain version of K5, bit-identical to it: same summation order,
+    same mode arithmetic, same (key, column) order inside each tile."""
+    _check_adc(tables, codes_t, fetch, mode, qn2, offsets, pack_bits)
+    q, m, k = tables.shape
+    n = codes_t.shape[1]
+    tile = adc_tile(n) if tile is None else int(tile)
+    kpad = 128 if k <= 128 else 256
+    tab = torch.nn.functional.pad(tables.to(torch.float32), (0, kpad - k))
+    codes = _unpack_t(codes_t, m, int(pack_bits)) & (kpad - 1)
+    acc = torch.zeros((q, n), dtype=torch.float32, device=tables.device)
+    for i in range(m):
+        acc = acc + tab[:, i, :][:, codes[i]]
+    if mode == "l2":
+        t = (qn2.to(torch.float32)[:, None] - 2.0 * acc) + offsets.to(torch.float32)[None, :]
+        acc = torch.where(torch.isnan(t), t, t.clamp_min(0.0))
+    elif mode == "dot":
+        acc = -acc
+    ntiles = -(-n // tile)
+    key = torch.full((q, ntiles * tile), _INF_KEY, dtype=torch.int32, device=acc.device)
+    key[:, :n] = orderable_key(acc)
+    skey, pos = torch.sort(key.view(q, ntiles, tile), dim=-1, stable=True)
+    lanes = min(TOP_LANES, tile)
+    skey, pos = skey[..., :lanes], pos[..., :lanes]
+    lane = torch.arange(lanes, device=acc.device)
+    hit = (skey < _INF_KEY) & (lane < int(fetch))
+    base = torch.arange(ntiles, device=acc.device)[:, None] * tile
+    vals = torch.full((q, ntiles, TOP_LANES), float("inf"), device=acc.device)
+    ids = torch.full((q, ntiles, TOP_LANES), -1, dtype=torch.int32, device=acc.device)
+    vals[..., :lanes] = torch.where(hit, key_to_f32(skey), float("inf"))
+    ids[..., :lanes] = torch.where(hit, (pos + base).to(torch.int32), -1)
+    return vals.reshape(q, -1), ids.reshape(q, -1)
+
+
+def adc_scan_topk_fused(
+    tables, codes_t, fetch: int, *, mode: str = "sum", qn2=None,
+    offsets=None, pack_bits: int = 8, tile: Optional[int] = None,
+):
+    """Per-tile top-``fetch`` ADC candidates without materializing
+    ``[Q, n]``.
+
+    ``tables [Q, m, k<=256]`` f32; ``codes_t [m, n]`` u8 codes transposed
+    (``[ceil(m*b/8), n]`` when sub-byte packed with ``pack_bits`` b). Returns
+    ``(vals [Q, T*128], ids [Q, T*128])``: tile ``t`` of ``tile`` columns
+    holds its best ``fetch`` in lanes ``[t*128, t*128+fetch)``, ascending
+    (value, id), padded with inf / -1; merge with one stable sort. Modes:
+    ``"sum"`` (PQ), ``"l2"`` (``max(qn2 - 2*sum + offsets, 0)``, pass
+    ``qn2 [Q]`` and ``offsets [n]``) and ``"dot"`` (``-sum``)."""
+    _check_adc(tables, codes_t, fetch, mode, qn2, offsets, pack_bits)
+    operands = [tables, codes_t] + ([qn2, offsets] if mode == "l2" else [])
+    if not _on_card(*operands):
+        return adc_scan_topk_plain(
+            tables, codes_t, fetch, mode=mode, qn2=qn2, offsets=offsets,
+            pack_bits=pack_bits, tile=tile,
+        )
+    q, m, k = tables.shape
+    n = codes_t.shape[1]
+    tile = adc_tile(n) if tile is None else int(tile)
+    if tile < TOP_LANES or tile > 2048 or tile & (tile - 1):
+        raise InvalidParameter("tile", "must be a power of two in [128, 2048]")
+    tables = tables.to(torch.float32).contiguous()
+    codes_t = codes_t.to(torch.uint8).contiguous()
+    if mode == "l2":
+        qn2 = qn2.to(torch.float32).contiguous()
+        offsets = offsets.to(torch.float32).contiguous()
+    kpad = 128 if k <= 128 else 256
+    ntiles = -(-n // tile)
+    vals = torch.empty((q, ntiles * TOP_LANES), dtype=torch.float32, device=tables.device)
+    ids = torch.empty((q, ntiles * TOP_LANES), dtype=torch.int32, device=tables.device)
+    if q == 0 or n == 0:
+        return vals, ids
+    tab_in_smem = tile * 8 + m * kpad * 4 <= _SMEM_BYTES
+    l2 = mode == "l2"
+    _launch(
+        "vq_adc_topk", tables.data_ptr(), codes_t.data_ptr(),
+        qn2.data_ptr() if l2 else None, offsets.data_ptr() if l2 else None,
+        vals.data_ptr(), ids.data_ptr(),
+        q, m, k, kpad, n, tile, int(fetch), _ADC_MODES[mode], int(pack_bits),
+        int(tab_in_smem), ntiles,
+    )
+    adc_scan_topk_fused.launches += 1
+    return vals, ids
+
+
+adc_scan_topk_fused.launches = 0
