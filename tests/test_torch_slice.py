@@ -3,6 +3,10 @@
 packages' ``PQIndex.add`` and ``search`` (with and without rerank) on the
 same corpus, and checkpoints loaded across packages in both directions.
 d = 32, m = 4; k = 64 gives u8 codes, k = 16 auto-packed 4-bit codes.
+The IVF-PQ path likewise: a JAX ``IVFPQIndex`` trained at the IVF
+benchmark's width (d = 128, PQ 8 x 16 here, 16 lists), carried across,
+``add`` and ``search`` in both packages (ADC distances within rtol 1e-5 /
+atol 1e-4, reranked ones within rtol 1e-5 / atol 1e-3).
 Search parity uses the tie-aware tiers of ``test_torch_pq``. Reranked
 distances are exact distances in the expanded form
 ``||q||^2 + ||c||^2 - 2 q.c``, whose fp32 error between two summation
@@ -119,6 +123,37 @@ def test_remove_and_merge_match_jax(slice_setup):
         assert a.merge_from(b) == 800 and b.ntotal == 0
     np.testing.assert_array_equal(ta._codes.numpy(), np.asarray(ja._codes))
     assert_search_parity(ta.search(q, k=10), ja.search(q, k=10))
+
+
+def test_ivf_path_matches_jax(tmp_path):
+    rng = np.random.default_rng(21)
+    centres = rng.normal(0, 2.0, (20, 128)).astype(np.float32)
+    corpus = (centres[rng.integers(0, 20, 2500)]
+              + rng.normal(0, 0.3, (2500, 128))).astype(np.float32)
+    queries = corpus[rng.integers(0, 2500, 8)] + 0.02
+    jidx = vq_tpu.IVFPQIndex.train(corpus[:1200], nlist=16, num_subspaces=8,
+                                   num_centroids=16, max_iters=6, keep_corpus=True)
+    tidx = from_state(*_jax_ivf_state(jidx, tmp_path))
+    jidx.add(corpus)
+    tidx.add(corpus)
+    np.testing.assert_array_equal(tidx._flat_lists.numpy(), np.asarray(jidx._flat_lists))
+    for nprobe, rerank in ((2, 0), (16, 0), (4, 40)):
+        assert_search_parity(
+            tidx.search(queries, k=10, nprobe=nprobe, rerank=rerank),
+            jidx.search(queries, k=10, nprobe=nprobe, rerank=rerank),
+            **(_RERANK_TOL if rerank else {"rtol": 1e-5, "atol": 1e-4}),
+        )
+    back = vq_tpu.IVFPQIndex.load(tidx.save(str(tmp_path / "port_ivf")))
+    assert_search_parity(tidx.search(queries, k=10, nprobe=4),
+                         back.search(queries, k=10, nprobe=4), rtol=1e-5, atol=1e-4)
+
+
+def _jax_ivf_state(jidx, tmp_path):
+    """The trained (still empty) JAX index as ``(kind, config, arrays)``,
+    read back from its own checkpoint."""
+    from vq_tpu_torch.utils.serialize import _from_npz
+
+    return _from_npz(jidx.save(str(tmp_path / "jax_ivf_trained")))
 
 
 def test_port_imports_no_jax():

@@ -1,12 +1,16 @@
 """vq_tpu_torch — the PyTorch / CUDA port of vq_tpu, for NVIDIA Hopper.
 
-This slice carries the product-quantization main path: train a
-:class:`ProductQuantizer`, build a :class:`PQIndex` and ``add`` a corpus
-(which encodes it), then ``search`` query batches with the flat ADC
-top-k. Its three kernels — PQ Lloyd accumulate, exact PQ encode and the
-ADC scan with per-tile top-k — are CUDA C++ for ``sm_90a`` in
-``vq_tpu_torch/csrc``, built with nvcc on first use. On CPU tensors the
-same functions run their plain PyTorch versions.
+Two paths are ported so far. The product-quantization main path: train
+a :class:`ProductQuantizer`, build a :class:`PQIndex` and ``add`` a
+corpus (which encodes it), then ``search`` query batches with the flat
+ADC top-k. And IVF-PQ: :meth:`IVFPQIndex.train` (k-means with
+:func:`lloyd`, then PQ on the residuals), ``add`` (coarse
+:func:`assign`, residual encode) and probed ``search``. Their six
+kernels — assign, Lloyd accumulate, PQ Lloyd accumulate, exact PQ
+encode, the ADC scan with per-tile top-k and the IVF probe — are CUDA
+C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built with nvcc on first
+use. On CPU tensors the same functions run their plain PyTorch
+versions.
 
 fp32 products run in full fp32: TF32 is switched off for matmuls and
 cuDNN on import, because TF32 keeps about three decimal digits and would
@@ -34,9 +38,11 @@ from vq_tpu_torch.errors import (
     InvalidParameter,
     VqError,
 )
+from vq_tpu_torch.ivf import IVFPQIndex
 from vq_tpu_torch.models.base import Quantizer
 from vq_tpu_torch.models.pq import ProductQuantizer, pq_decode, pq_encode, pq_train
 from vq_tpu_torch.ops.distance import Metric, pairwise
+from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
 from vq_tpu_torch.search import PQIndex
 from vq_tpu_torch.utils.serialize import load, save
@@ -61,6 +67,11 @@ __all__ = [
     "pack_codes",
     "unpack_codes",
     "PQIndex",
+    "IVFPQIndex",
+    "KMeansResult",
+    "assign",
+    "lloyd",
+    "kmeans_plusplus_init_device",
     "save",
     "load",
 ]

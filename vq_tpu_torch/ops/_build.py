@@ -1,9 +1,12 @@
 """Builds the CUDA kernels in ``vq_tpu_torch/csrc`` on first use and loads
 them with ctypes.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
-The library lands in ``build/vq_tpu_torch/<hash>/`` beside the package's
+The sources (K1 ``assign.cu``, K2 ``lloyd.cu``, K3 ``pq_lloyd.cu``, K4
+``pq_encode.cu``, K5 ``adc_topk.cu``, K7 ``ivf_probe.cu``) compile with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds): one ``nvcc -c``
+a source, all started together, then one link. The library lands in
+``build/vq_tpu_torch/<hash>/`` beside the package's
 checkout, keyed by a hash of the sources and flags, so an edited kernel
 is rebuilt and an unchanged one is loaded as it is. Each C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``.
@@ -31,7 +34,7 @@ BUILD_ROOT = _PKG.parent / "build" / "vq_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -49,6 +52,16 @@ _SIGNATURES = {
     # fetch, mode, pack_bits, tab_in_smem, ntiles, stream
     "vq_adc_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,
                     _I, _I, _I, _I, _I, _P),
+    # x, x_is_bf16, c, cc, codes, dists, n, k, d, stream
+    "vq_assign": (_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P),
+    # x, c, cc, codes, dists, chunk_counts, totals, offsets, perm, sums,
+    # counts, inertia, n, k, d, rows_per_chunk, chunks, stream
+    "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _LL, _I, _I, _LL, _I, _P),
+    # tables, chunks, codes, codes_are_u8, out, pairs, m, kk, nc, ch, cap,
+    # gsub, slices, stream
+    "vq_ivf_probe": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _LL, _I, _I,
+                     _P),
 }
 
 
@@ -83,16 +96,10 @@ class _Library:
         t0 = time.perf_counter()
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libvq_kernels.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.log = proc.stdout + proc.stderr
-            (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + self.log)
-            if proc.returncode != 0:
-                raise NvccError(
-                    f"nvcc failed ({proc.returncode}):\n{self.log[-4000:]}"
-                )
-            os.replace(tmp, lib_path)  # atomic: a concurrent build is harmless
+            self.log = _compile(out_dir, sources, lib_path)
+        else:
+            log = out_dir / "build.log"
+            self.log = log.read_text() if log.exists() else ""
         self.build_seconds = time.perf_counter() - t0
         self.path = lib_path
         lib = ctypes.CDLL(str(lib_path))
@@ -101,6 +108,36 @@ class _Library:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         return lib
+
+
+def _compile(out_dir: Path, sources, lib_path: Path) -> str:
+    """One ``nvcc -c`` a source in parallel, then the link; returns the
+    log (ptxas register and spill report included) and writes it to
+    ``build.log``. Every temporary name carries the pid, and the library
+    lands by an atomic rename, so concurrent builds are harmless."""
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = out_dir / f"libvq_kernels.{pid}.so"
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    failed = [c[-3] for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = ["link"]
+    (out_dir / "build.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise NvccError(f"nvcc failed on {failed}:\n{log[-4000:]}")
+    os.replace(tmp, lib_path)
+    return log
 
 
 def _nvcc() -> str:

@@ -1,12 +1,19 @@
-"""The hand-written CUDA kernels of the PQ slice, each beside its plain
-PyTorch version — the port of the three Pallas kernels that PQ train,
-encode and flat ADC search reach in ``vq_tpu/ops/pallas_kernels.py``:
+"""The hand-written CUDA kernels of the port, each beside its plain
+PyTorch version — the port of the Pallas kernels that k-means, PQ
+train, encode, flat ADC search and IVF-PQ search reach in
+``vq_tpu/ops/pallas_kernels.py``:
 
+* K1 :func:`assign_fused` (``csrc/assign.cu``) — nearest centroid and
+  its squared distance;
+* K2 :func:`lloyd_accumulate_fused` (``csrc/lloyd.cu``) — one Lloyd pass
+  (sums, counts, inertia);
 * K3 :func:`pq_lloyd_accumulate_fused` (``csrc/pq_lloyd.cu``) — one Lloyd
   pass of PQ training for all subspaces;
 * K4 :func:`pq_encode_fused` (``csrc/pq_encode.cu``) — exact PQ encode;
 * K5 :func:`adc_scan_topk_fused` (``csrc/adc_topk.cu``) — flat ADC scan
-  with a per-tile top-``fetch``.
+  with a per-tile top-``fetch``;
+* K7 :func:`ivf_probe_adc_fused` (``csrc/ivf_probe.cu``) — ADC sums over
+  the probed chunks of an IVF index.
 
 Each wrapper keeps the JAX entry's name. A tensor on the CPU goes to the
 plain version (``*_plain``), which is the arithmetic the kernel is held
@@ -16,7 +23,7 @@ int attribute, ``launches``, so a run can show which kernels it went
 through. The source notes in ``csrc/`` say what bounds each kernel on the
 card and what its design does about it.
 
-The argmin of K3 and K4 is the TPU kernels' ``int2`` rule
+The argmin of K1, K2, K3 and K4 is the TPU kernels' ``int2`` rule
 (``_int_argmin``): the minimum of an orderable int32 key, then the lowest
 index among equal keys. NaN never wins, -0.0 equals +0.0, and exact ties
 go to the lowest index. ``torch.argmin`` lets NaN win, so nothing here
@@ -35,6 +42,10 @@ __all__ = [
     "orderable_key",
     "key_to_f32",
     "int_argmin",
+    "assign_fused",
+    "assign_plain",
+    "lloyd_accumulate_fused",
+    "lloyd_accumulate_plain",
     "pq_encode_fused",
     "pq_encode_plain",
     "pq_lloyd_accumulate_fused",
@@ -42,6 +53,8 @@ __all__ = [
     "adc_scan_topk_fused",
     "adc_scan_topk_plain",
     "adc_tile",
+    "ivf_probe_adc_fused",
+    "ivf_probe_adc_plain",
 ]
 
 _INT_MAX = 0x7FFFFFFF
@@ -53,6 +66,10 @@ _TARGET_BLOCKS = 132 * 8  # SMs x resident 256-thread blocks
 _PARTIAL_BYTES = 256 << 20  # K3's per-block partial sums, at most
 _ADC_MODES = {"sum": 0, "l2": 1, "dot": 2}
 _PLAIN_ROWS = 16_384  # row block of the plain K3/K4 ([B, m, k] scores)
+_PLAIN_CELLS = 1 << 22  # [B, k] scores per block of the plain K1
+_CHUNK_ROWS = 1024  # K2's rows per counting-sort chunk, at least
+_CHUNK_CELLS = 1 << 24  # K2's (chunk, cluster) cursors, at most
+_PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +178,132 @@ def _scores_plain(xs: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor) -> torch
     for e in range(cb.shape[2]):
         dot = dot + xs[:, :, e, None] * cb[None, :, :, e]
     return cc[None] - 2.0 * dot
+
+
+# ---------------------------------------------------------------------------
+# K1: nearest-centroid assignment (replaces _assign_kernel) and K2: one
+# Lloyd pass (replaces _lloyd_acc_kernel).
+# ---------------------------------------------------------------------------
+
+
+def _check_assign(x: torch.Tensor, centroids: torch.Tensor) -> None:
+    if centroids.ndim != 2 or centroids.shape[0] == 0:
+        raise InvalidParameter(
+            "centroids", f"must be a non-empty [k, d] matrix, got {tuple(centroids.shape)}"
+        )
+    if x.ndim != 2 or x.shape[1] != centroids.shape[1]:
+        raise InvalidParameter(
+            "data", f"expected [n, {centroids.shape[1]}], got {tuple(x.shape)}"
+        )
+
+
+def assign_plain(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1 -> ``(codes [n] i32, sq_dists [n] f32)``, with
+    the kernel's arithmetic: each dot and ``||x||^2`` summed over ``d`` in
+    ascending order one rounded multiply and add at a time, the int2
+    argmin of the unclamped ``||c||^2 - 2 x.c``, then ``||x||^2`` added
+    and the distance clamped at 0 (NaN passes through)."""
+    _check_assign(x, centroids)
+    c = centroids.to(torch.float32)
+    cc = (c * c).sum(-1)
+    n, d = x.shape
+    codes = torch.empty((n,), dtype=torch.int32, device=x.device)
+    dists = torch.empty((n,), dtype=torch.float32, device=x.device)
+    rows = max(1, _PLAIN_CELLS // c.shape[0])
+    for b0 in range(0, n, rows):
+        xb = x[b0:b0 + rows].to(torch.float32)
+        dot = torch.zeros((xb.shape[0], c.shape[0]), dtype=torch.float32, device=x.device)
+        xx = torch.zeros((xb.shape[0],), dtype=torch.float32, device=x.device)
+        for e in range(d):
+            xe = xb[:, e]
+            dot = dot + xe[:, None] * c[None, :, e]
+            xx = xx + xe * xe
+        smin, idx = int_argmin(cc[None] - 2.0 * dot)
+        t = smin + xx
+        codes[b0:b0 + rows] = idx
+        dists[b0:b0 + rows] = torch.where(torch.isnan(t), t, t.clamp_min(0.0))
+    return codes, dists
+
+
+def assign_fused(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest centroid under squared L2: ``x [n, d]`` (f32 or bf16; f16 is
+    upcast) against ``centroids [k, d]`` -> ``(codes [n] i32, sq_dists
+    [n] f32)`` under the int2 rule. Every k and d run in one launch."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    c = centroids.to(torch.float32)
+    if not _on_card(x, c):
+        return assign_plain(x, c)
+    _check_assign(x, c)
+    x, c = x.contiguous(), c.contiguous()
+    cc = (c * c).sum(-1).contiguous()
+    n, d = x.shape
+    codes = torch.empty((n,), dtype=torch.int32, device=x.device)
+    dists = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return codes, dists
+    _launch(
+        "vq_assign", x.data_ptr(), int(x.dtype == torch.bfloat16), c.data_ptr(),
+        cc.data_ptr(), codes.data_ptr(), dists.data_ptr(), n, c.shape[0], d,
+    )
+    assign_fused.launches += 1
+    return codes, dists
+
+
+assign_fused.launches = 0
+
+
+def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor):
+    """Plain version of K2 -> ``(sums [k, d], counts [k], inertia [])``:
+    :func:`assign_plain`, then ``index_add_`` and ``bincount``."""
+    codes, dists = assign_plain(x, centroids)
+    k, d = centroids.shape
+    idx = codes.to(torch.int64)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    sums.index_add_(0, idx, x.to(torch.float32))
+    counts = torch.bincount(idx, minlength=k).to(torch.float32)
+    return sums, counts, dists.sum()
+
+
+def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor):
+    """One unweighted Lloyd pass over ``x [n, d]`` f32 against
+    ``centroids [k, d]`` -> ``(sums [k, d], counts [k], inertia [])``, f32.
+
+    On the card the result is bit-identical from run to run; against the
+    plain version counts are exact and sums and inertia differ by fp32
+    summation order only (``csrc/lloyd.cu``)."""
+    x = x.to(torch.float32)
+    c = centroids.to(torch.float32)
+    if not _on_card(x, c):
+        return lloyd_accumulate_plain(x, c)
+    _check_assign(x, c)
+    x, c = x.contiguous(), c.contiguous()
+    (n, d), k, dev = x.shape, c.shape[0], x.device
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    inertia = torch.empty((), dtype=torch.float32, device=dev)
+    if n == 0:
+        return sums.zero_(), counts.zero_(), inertia.zero_()
+    cc = (c * c).sum(-1).contiguous()
+    chunks = max(1, min(-(-n // _CHUNK_ROWS), _CHUNK_CELLS // k))
+    rows = -(-n // chunks)
+    chunks = -(-n // rows)
+    i32 = dict(dtype=torch.int32, device=dev)
+    codes, perm = torch.empty((n,), **i32), torch.empty((n,), **i32)
+    dists = torch.empty((n,), dtype=torch.float32, device=dev)
+    chunk_counts = torch.empty((chunks, k), **i32)
+    totals, offsets = torch.empty((k,), **i32), torch.empty((k,), **i32)
+    _launch(
+        "vq_lloyd", x.data_ptr(), c.data_ptr(), cc.data_ptr(), codes.data_ptr(),
+        dists.data_ptr(), chunk_counts.data_ptr(), totals.data_ptr(),
+        offsets.data_ptr(), perm.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        inertia.data_ptr(), n, k, d, rows, chunks,
+    )
+    lloyd_accumulate_fused.launches += 1
+    return sums, counts, inertia
+
+
+lloyd_accumulate_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -399,3 +542,88 @@ def adc_scan_topk_fused(
 
 
 adc_scan_topk_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: ADC sums over probed IVF chunks (replaces _ivf_probe_gather_kernel
+# and _ivf_probe_kernel).
+# ---------------------------------------------------------------------------
+
+
+def _probe_operands(tables, probe, bucket_codes, cap):
+    """``(chunks [P, nc] i32, width, cap)`` of a probe: a ``[P]`` probe is
+    one chunk a pair (the TPU contract), a ``[P, nc]`` probe a chain."""
+    if tables.ndim != 3:
+        raise InvalidParameter("tables", "expected [P, m, kk]")
+    if bucket_codes.ndim != 3 or bucket_codes.shape[2] != tables.shape[1]:
+        raise InvalidParameter(
+            "bucket_codes", f"expected [chunks, rows, {tables.shape[1]}], "
+            f"got {tuple(bucket_codes.shape)}"
+        )
+    chunks = probe.to(torch.int32)
+    if chunks.ndim == 1:
+        chunks = chunks[:, None]
+    if chunks.ndim != 2 or chunks.shape[0] != tables.shape[0]:
+        raise InvalidParameter(
+            "probe", f"expected [{tables.shape[0]}] or [{tables.shape[0]}, nc], "
+            f"got {tuple(probe.shape)}"
+        )
+    width = chunks.shape[1] * bucket_codes.shape[1]
+    return chunks, width, width if cap is None else int(cap)
+
+
+def ivf_probe_adc_plain(tables, probe, bucket_codes, *, cap: Optional[int] = None):
+    """Plain version of K7, bit-identical to it (same summation order, the
+    same zeros for dead positions and out-of-range codes)."""
+    chunks, width, cap = _probe_operands(tables, probe, bucket_codes, cap)
+    p, m, kk = tables.shape
+    ch = bucket_codes.shape[1]
+    dev = tables.device
+    t = torch.arange(width, device=dev)
+    cid = chunks.to(torch.int64)[:, t // ch]  # [P, W]
+    live = (cid >= 0) & (t < cap)
+    base = (cid.clamp_min(0) * ch + t % ch) * m
+    flat = bucket_codes.reshape(-1)
+    tab = tables.to(torch.float32)
+    acc = torch.zeros((p, width), dtype=torch.float32, device=dev)
+    for i in range(m):
+        code = flat[base + i].to(torch.int64)
+        ok = (code >= 0) & (code < kk)
+        g = torch.gather(tab[:, i, :], 1, torch.where(ok, code, 0))
+        acc = acc + torch.where(ok, g, 0.0)
+    return torch.where(live, acc, 0.0)
+
+
+def ivf_probe_adc_fused(tables, probe, bucket_codes, *, cap: Optional[int] = None):
+    """ADC sums of probed IVF chunks.
+
+    ``tables [P, m, kk]`` f32, one lookup table per (query, probe) pair;
+    ``bucket_codes [chunks, rows, m]`` integer codes (u8 stays u8, any
+    other type runs as i32). ``probe [P]`` names one chunk per pair, the
+    TPU kernel's contract, -> ``[P, rows]``; ``probe [P, nc]`` is a chain
+    of chunk ids per pair (-1 = none) -> ``[P, nc*rows]``. Positions at or
+    past ``cap`` (default: all of them kept) and positions of a -1 chunk
+    are 0; the caller masks them with the row ids."""
+    tables = tables.to(torch.float32)
+    if not _on_card(tables, probe, bucket_codes):
+        return ivf_probe_adc_plain(tables, probe, bucket_codes, cap=cap)
+    chunks, width, cap = _probe_operands(tables, probe, bucket_codes, cap)
+    p, m, kk = tables.shape
+    tables, chunks = tables.contiguous(), chunks.contiguous()
+    u8 = bucket_codes.dtype == torch.uint8
+    codes = (bucket_codes if u8 else bucket_codes.to(torch.int32)).contiguous()
+    out = torch.empty((p, width), dtype=torch.float32, device=tables.device)
+    if p == 0 or width == 0:
+        return out
+    gsub = min(m, _SMEM_BYTES // (kk * 4))  # 0: tables read from device memory
+    slices = max(1, min(-(-width // _PROBE_THREADS), -(-_TARGET_BLOCKS // p)))
+    _launch(
+        "vq_ivf_probe", tables.data_ptr(), chunks.data_ptr(), codes.data_ptr(),
+        int(u8), out.data_ptr(), p, m, kk, chunks.shape[1], codes.shape[1], cap,
+        gsub, slices,
+    )
+    ivf_probe_adc_fused.launches += 1
+    return out
+
+
+ivf_probe_adc_fused.launches = 0

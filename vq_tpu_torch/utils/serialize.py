@@ -1,9 +1,9 @@
 """Save / load in the JAX package's single-file ``.npz`` format, so a
 checkpoint written by either package loads in the other: a JSON header
 (``format_version``, ``kind``, ``config``) stored as a u8 array under
-``__vq_header__``, then the model's arrays by name. This slice carries
-the PQ kinds (``"pq"``, and ``"pq_index"`` through ``PQIndex.save`` /
-``PQIndex.load``)."""
+``__vq_header__``, then the model's arrays by name. The port carries
+the kinds ``"pq"``, ``"pq_index"`` (``PQIndex.save`` / ``PQIndex.load``)
+and ``"ivfpq_index"`` (``IVFPQIndex.save`` / ``IVFPQIndex.load``)."""
 
 from __future__ import annotations
 
@@ -49,7 +49,8 @@ def _from_npz(path: str):
 
 
 def save(path: str, model) -> str:
-    """Write a :class:`ProductQuantizer` or :class:`PQIndex` to ``path``
+    """Write a :class:`ProductQuantizer`, :class:`PQIndex` or
+    :class:`IVFPQIndex` to ``path``
     (``.npz`` appended if absent); returns the path."""
     return _to_npz(path, *state_of(model))
 
