@@ -26,7 +26,16 @@ Phases, one line each (any failure exits non-zero with no result line):
    for its plain version) on the same card, recall@10 against the exact
    ground truth; then K7 held to its plain version over the built
    index's probed chains at nprobe 8 and 64;
-7. timings — CUDA events, kernel beside plain version, each line stamped
+7. ivf-flat path — ``IVFFlatIndex.train`` (IVF1024) and
+   ``IVFSQIndex.train`` (IVF1024, residual SQ8) on 200k rows, ``add`` of
+   the 1M corpus to an f32, a bf16 and an SQ index (and a ``metric="dot"``
+   f32 one), ``search(k=10)`` at nprobe 8 and 64 (the dot index at 8),
+   the width of ``benchmarks/serving_bench.py``: launch counts of K1, K2
+   and K6 read from that run, every search held to the plain route on
+   the same card, recall@10 against the exact ground truth; then K6 held
+   to its plain version on the operands each search gave it (f32, bf16
+   and u8 payloads at nprobe 8 and 64);
+8. timings — CUDA events, kernel beside plain version, each line stamped
    with the card's name and power limit.
 
 Before the last line it prints a JSON line of per-kernel results and the
@@ -57,13 +66,16 @@ K4_TIE_RTOL = 1e-5
 NLIST, N_IVF_TRAIN, NPROBES, RERANKS = 1024, 200_000, (8, 64), (0, 500)
 # K1: codes exact but for float64-verified near ties (K4_TIE_RTOL), and
 # distances equal where codes are. K2: counts exact, sums and inertia as
-# K3 (fp32 summation order). K7: bit-identical.
+# K3 (fp32 summation order). K6 and K7: bit-identical.
+# IVF-Flat / IVF-SQ searches, the width of benchmarks/serving_bench.py.
+FLAT_KINDS, FLAT_MIN_RECALL = ("flat_f32", "flat_bf16", "sq"), 0.9
 # Every kernel wrapper the paths call, and the modules that call it.
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
                                  "pq_lloyd_accumulate_fused")),
     ("vq_tpu_torch.models.pq", ("pq_encode_fused", "adc_scan_topk_fused")),
     ("vq_tpu_torch.ivf", ("ivf_probe_adc_fused",)),
+    ("vq_tpu_torch.ivf_flat", ("ivf_probe_matvec_fused",)),
 )
 
 
@@ -105,7 +117,8 @@ def all_kernels():
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     return (ck.assign_fused, ck.lloyd_accumulate_fused, ck.pq_lloyd_accumulate_fused,
-            ck.pq_encode_fused, ck.adc_scan_topk_fused, ck.ivf_probe_adc_fused)
+            ck.pq_encode_fused, ck.adc_scan_topk_fused, ck.ivf_probe_adc_fused,
+            ck.ivf_probe_matvec_fused)
 
 
 @contextlib.contextmanager
@@ -128,6 +141,25 @@ def plain_route():
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     assert [fn.launches for fn in all_kernels()] == before, "a kernel ran on the plain route"
+
+
+@contextlib.contextmanager
+def recording(mod_name: str, name: str):
+    """Yields a list that gathers ``(args, kwargs)`` of every call of
+    ``mod_name.name`` meanwhile (the call itself goes through)."""
+    mod = importlib.import_module(mod_name)
+    fn = getattr(mod, name)
+    calls = []
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(mod, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
 
 
 def make_data(device):
@@ -432,13 +464,14 @@ def phase_ivf_kernels(corpus, g):
     return res
 
 
-def _check_search(name, ids, dist):
+def _check_search(name, ids, dist, descending=False):
     import torch
 
     assert tuple(ids.shape) == (N_QUERY, 10) and tuple(dist.shape) == (N_QUERY, 10), name
     assert bool(torch.isfinite(dist).all()), f"{name}: non-finite distances"
     assert bool(((ids >= 0) & (ids < N_CORPUS)).all()), f"{name}: ids out of range"
-    assert bool((dist[:, 1:] >= dist[:, :-1]).all()), f"{name}: not ascending"
+    lo, hi = (dist[:, 1:], dist[:, :-1]) if descending else (dist[:, :-1], dist[:, 1:])
+    assert bool((hi >= lo).all()), f"{name}: not in order"
 
 
 def phase_ivf_path(corpus, queries, gt):
@@ -567,6 +600,113 @@ def phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases):
     return t
 
 
+def phase_flat_path(corpus, queries, gt):
+    """IVF-Flat and IVF-SQ train -> add -> search through the public entry
+    points, with K6's operands recorded from each search."""
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    for fn in all_kernels():
+        fn.launches = 0
+    train = corpus[:N_IVF_TRAIN]
+    flat, t_train = cuda_once(lambda: vq_tpu_torch.IVFFlatIndex.train(train, NLIST, max_iters=10))
+    sq, t_train_sq = cuda_once(lambda: vq_tpu_torch.IVFSQIndex.train(train, NLIST, max_iters=10))
+    trained = {fn.__name__: fn.launches for fn in all_kernels()}
+    assert trained["assign_fused"] > 0 and trained["lloyd_accumulate_fused"] > 0, trained
+    indexes = {"flat_f32": flat, "sq": sq,
+               "flat_bf16": vq_tpu_torch.IVFFlatIndex(flat.coarse, store_dtype="bfloat16"),
+               "flat_dot": vq_tpu_torch.IVFFlatIndex(flat.coarse, metric="dot")}
+    t_add = {}
+    for name, idx in indexes.items():
+        before = ck.assign_fused.launches
+        t_add[name] = cuda_once(lambda: idx.add(corpus))[1]
+        assert ck.assign_fused.launches > before, f"{name}: add launched no K1"
+    searches = [(name, p) for name in FLAT_KINDS for p in NPROBES] + [("flat_dot", NPROBES[0])]
+    out, operands = {}, {}
+    for key in searches:
+        before = ck.ivf_probe_matvec_fused.launches
+        with recording("vq_tpu_torch.ivf_flat", "ivf_probe_matvec_fused") as calls:
+            out[key] = indexes[key[0]].search(queries, k=10, nprobe=key[1])
+        assert ck.ivf_probe_matvec_fused.launches == before + 1, f"{key}: K6 did not launch"
+        operands[key] = calls[0]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    log("flat", f"launches in the ivf-flat path: {launches} (training alone: K1 "
+        f"{trained['assign_fused']}, K2 {trained['lloyd_accumulate_fused']})")
+    for name, idx in indexes.items():
+        st = idx.bucket_stats()
+        log("flat", f"{idx!r}: add 1M {t_add[name] / 1e3:.4f} s; lists min {st['min']} mean "
+            f"{st['mean']:.1f} max {st['max']}, cap {st['cap']}")
+
+    with plain_route():
+        want = {key: indexes[key[0]].search(queries, k=10, nprobe=key[1]) for key in searches}
+    recall = {}
+    for key, (ids, dist) in out.items():
+        name = f"{key[0]} search nprobe={key[1]}"
+        _check_search(name, ids, dist, descending=key[0] == "flat_dot")
+        _parity((ids, dist), want[key], name)
+        recall[key] = _recall(ids, gt)
+    log("flat", f"trained IVF-Flat in {t_train / 1e3:.4f} s and IVF-SQ in {t_train_sq / 1e3:.4f} s; "
+        "every search equals the plain route; recall@10 " + ", ".join(
+            f"{n} nprobe={p}: {v:.4f}" for (n, p), v in recall.items()))
+    assert recall[("flat_f32", NPROBES[-1])] >= FLAT_MIN_RECALL, recall
+    return dict(indexes=indexes, operands=operands, launches=launches, recall=recall,
+                t_train=t_train, t_train_sq=t_train_sq, t_add=t_add, searches=searches)
+
+
+def phase_k6(flat):
+    """K6 held to its plain version on the operands the searches gave it."""
+    import torch
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    cases, err = {}, 0.0
+    for key in [k for k in flat["searches"] if k[0] in FLAT_KINDS]:
+        args, kw = flat["operands"][key]
+        got = ck.ivf_probe_matvec_fused(*args, **kw)
+        torch.cuda.synchronize()
+        want = ck.ivf_probe_matvec_plain(*args, **kw)
+        err = max(err, float((got - want).abs().max()))
+        assert torch.equal(got, want), f"K6 {key}: values differ from the plain version"
+        lhs, chains, payload = args
+        ch = payload.shape[1]
+        pos = torch.arange(chains.shape[1] * ch, device=chains.device)
+        read = int(((chains >= 0).repeat_interleave(ch, dim=1) & (pos < kw["cap"])).sum())
+        gb = read * lhs.shape[1] * payload.element_size() / 1e9  # bytes of the rows K6 reads
+        cases[key] = (args, kw, gb)
+        log("kernels", f"K6 ivf_probe_matvec {str(payload.dtype)[6:]} nprobe={key[1]}: "
+            f"{lhs.shape[0]} (query, list) pairs x {chains.shape[1]} chunks of {ch} rows x "
+            f"d {lhs.shape[1]} (cap {kw['cap']}), {read} rows read ({gb:.4g} GB): bit-identical")
+    return cases, err
+
+
+def phase_flat_timings(smi, queries, flat, k6_cases):
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    t = {}
+    for (name, p), (args, kw, gb) in k6_cases.items():
+        ms = cuda_ms(lambda: ck.ivf_probe_matvec_fused(*args, **kw), 20)
+        pms = cuda_ms(lambda: ck.ivf_probe_matvec_plain(*args, **kw), 2)
+        t[f"K6_{str(args[2].dtype)[6:]}_nprobe{p}"] = (ms, pms)
+        log("time", f"K6 {str(args[2].dtype)[6:]} ({name}) nprobe={p}: kernel {ms:.4f} ms "
+            f"({gb / ms * 1e3:.4g} GB/s of rows read), plain {pms:.4f} ms | {smi}")
+    log("time", f"IVF-Flat train 200k x 128, IVF{NLIST}, 10 iterations: {flat['t_train'] / 1e3:.4f} s; "
+        f"IVF-SQ train {flat['t_train_sq'] / 1e3:.4f} s (first calls) | {smi}")
+    for name, ms in flat["t_add"].items():
+        log("time", f"{name} add 1M: {N_CORPUS / ms * 1e3:.6g} vectors/s (first call) | {smi}")
+    for name, p in flat["searches"]:
+        idx = flat["indexes"][name]
+        ms = cuda_ms(lambda: idx.search(queries, k=10, nprobe=p), 10)
+        with plain_route():
+            pms = cuda_ms(lambda: idx.search(queries, k=10, nprobe=p), 2)
+        log("time", f"{name} search 128 queries, nprobe={p}: {ms:.4f} ms per batch, "
+            f"{N_QUERY / ms * 1e3:.6g} QPS; plain route {pms:.4f} ms, "
+            f"{N_QUERY / pms * 1e3:.6g} QPS; recall@10 {flat['recall'][(name, p)]:.4f} | {smi}")
+    return t
+
+
 def phase_timings(smi, corpus, queries, res, main):
     import torch
 
@@ -620,11 +760,15 @@ def main() -> None:
     k7_cases = phase_k7(queries, ivf)
     t = phase_timings(smi, corpus, queries, res, main_res)
     t.update(phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases))
+    flat = phase_flat_path(corpus, queries, main_res["gt"])
+    k6_cases, k6_err = phase_k6(flat)
+    t.update(phase_flat_timings(smi, queries, flat, k6_cases))
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
     for name in ("assign_fused", "lloyd_accumulate_fused", "ivf_probe_adc_fused"):
         launches[name] = ivf["launches"][name]
+    launches["ivf_probe_matvec_fused"] = flat["launches"]["ivf_probe_matvec_fused"]
     src = "vq_tpu_torch/csrc/"
     tpu = "vq_tpu/ops/pallas_kernels.py:"
     kernels = [
@@ -647,6 +791,10 @@ def main() -> None:
          "replaces": tpu + "1189", "also_replaces": tpu + "1147",
          "launches": launches["ivf_probe_adc_fused"], "max_abs_err": 0.0,
          "ms": t["K7_nprobe8"][0], "plain_ms": t["K7_nprobe8"][1]},
+        {"name": "ivf_probe_matvec_fused", "route": "cuda", "source": src + "ivf_matvec.cu",
+         "replaces": tpu + "1356", "launches": launches["ivf_probe_matvec_fused"],
+         "max_abs_err": k6_err, "ms": t["K6_float32_nprobe8"][0],
+         "plain_ms": t["K6_float32_nprobe8"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

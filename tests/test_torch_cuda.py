@@ -5,8 +5,9 @@ installed; ``tests/conftest.py`` needs JAX, so there run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 codes and distances, K4 codes, K5 values and ids and K7
-values exact (the kernels repeat the plain versions' fp32 arithmetic);
+Tolerances: K1 codes and distances, K4 codes, K5 values and ids, K6
+and K7 values, and IVF-Flat / IVF-SQ searches exact (the kernels repeat
+the plain versions' fp32 arithmetic);
 K2 and K3 counts exact, sums at rtol 1e-5 / atol 1e-4 and inertia at
 rtol 1e-5 (fp32 summation order), and both bit-identical from one run
 to the next.
@@ -180,6 +181,95 @@ def test_ivf_probe_matches_plain(card, shape):
     probe = chains[:, 0].clamp_min(0)  # the TPU contract: one chunk a table
     assert torch.equal(ck.ivf_probe_adc_fused(tables, probe, pool),
                        ck.ivf_probe_adc_plain(tables, probe, pool))
+    chains[:, 1] = n_chunks + 1000  # past the pool: reads nothing, gives 0
+    got = ck.ivf_probe_adc_fused(tables, chains, pool, cap=cap)
+    assert torch.equal(got, ck.ivf_probe_adc_plain(tables, chains, pool, cap=cap))
+    assert not bool(got[:, ch:2 * ch].any())
+
+
+# (d, rows a chunk): the serving width; a d that is not a multiple of
+# the 16-byte load width (element loads); d = 1536; a d whose f32 row is
+# past the 48 KB shared-memory window (streamed in 32-wide groups).
+_MATVEC_SHAPES = [(128, 256), (33, 37), (1536, 64), (12_800, 8)]
+_PAYLOADS = [torch.float32, torch.bfloat16, torch.float16, torch.uint8]
+
+
+def _matvec_inputs(card, dtype, d, ch, pairs=40, n_chunks=30, nc=5):
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(pairs, d, generator=g, device=card)
+    if dtype == torch.uint8:
+        pool = torch.randint(0, 256, (n_chunks, ch, d), generator=g, device=card).to(dtype)
+    else:
+        pool = torch.randn(n_chunks, ch, d, generator=g, device=card).to(dtype)
+    chains = torch.randint(-1, n_chunks, (pairs, nc), generator=g, device=card, dtype=torch.int32)
+    return q, chains, pool
+
+
+@pytest.mark.parametrize("dtype", _PAYLOADS, ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("shape", _MATVEC_SHAPES, ids=lambda s: "d%d-ch%d" % s)
+def test_ivf_matvec_matches_plain(card, shape, dtype):
+    d, ch = shape
+    q, chains, pool = _matvec_inputs(card, dtype, d, ch)
+    cap = chains.shape[1] * ch - 3
+    got = ck.ivf_probe_matvec_fused(q, chains, pool, cap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.ivf_probe_matvec_plain(q, chains, pool, cap=cap))
+    probe = chains[:, 0].clamp_min(0)  # the TPU contract: one chunk a vector
+    assert torch.equal(ck.ivf_probe_matvec_fused(q, probe, pool),
+                       ck.ivf_probe_matvec_plain(q, probe, pool))
+
+
+def test_ivf_matvec_edges(card):
+    """No pairs; a pool view that is not 16-byte aligned (element loads);
+    a cap of 0; chunk ids past the pool give 0."""
+    q, chains, pool = _matvec_inputs(card, torch.float32, 128, 64)
+    assert ck.ivf_probe_matvec_fused(q[:0], chains[:0], pool).shape == (0, chains.shape[1] * 64)
+    flat = torch.randn(30 * 64 * 128 + 1, device=card)
+    odd = flat[1:].view(30, 64, 128)  # offset by 4 bytes
+    assert odd.data_ptr() % 16 != 0
+    assert torch.equal(ck.ivf_probe_matvec_fused(q, chains, odd),
+                       ck.ivf_probe_matvec_plain(q, chains, odd))
+    assert not bool(ck.ivf_probe_matvec_fused(q, chains, pool, cap=0).any())
+    stray = chains.clone()
+    stray[:, 0] = pool.shape[0] + 1000
+    got = ck.ivf_probe_matvec_fused(q, stray, pool)
+    assert torch.equal(got, ck.ivf_probe_matvec_plain(q, stray, pool))
+    assert not bool(got[:, :64].any())
+
+
+def _ivf_flat_indexes(card):
+    import vq_tpu_torch
+
+    g = torch.Generator(device=card).manual_seed(8)
+    centres = torch.randn(40, 64, generator=g, device=card) * 3
+    x = centres[torch.randint(0, 40, (20_000,), generator=g, device=card)]
+    x = x + 0.3 * torch.randn(20_000, 64, generator=g, device=card)
+    flat = vq_tpu_torch.IVFFlatIndex.train(x[:5000], 32, max_iters=5)
+    out = [flat,
+           vq_tpu_torch.IVFFlatIndex(flat.coarse, store_dtype="bfloat16"),
+           vq_tpu_torch.IVFFlatIndex(flat.coarse, metric="dot", store_dtype="float16"),
+           vq_tpu_torch.IVFSQIndex.train(x[:5000], 32, max_iters=5),
+           vq_tpu_torch.IVFSQIndex.train(x[:5000], 32, max_iters=5, by_residual=False,
+                                         metric="dot")]
+    for idx in out:
+        idx.add(x)
+    return out, x[:50] + 0.01
+
+
+def test_ivf_flat_and_sq_search_equal_plain_route(card, monkeypatch):
+    import vq_tpu_torch.ivf_flat as ivf_flat
+
+    indexes, q = _ivf_flat_indexes(card)
+    for idx in indexes:
+        for nprobe in (4, 32):
+            before = ck.ivf_probe_matvec_fused.launches
+            got = idx.search(q, k=10, nprobe=nprobe)
+            assert ck.ivf_probe_matvec_fused.launches == before + 1
+            with monkeypatch.context() as m:
+                m.setattr(ivf_flat, "ivf_probe_matvec_fused", ck.ivf_probe_matvec_plain)
+                want = idx.search(q, k=10, nprobe=nprobe)
+            assert torch.equal(got[1], want[1]), (idx, nprobe)
+            assert torch.equal(got[0], want[0]), (idx, nprobe)
 
 
 def test_seeded_training_is_reproducible(card):
@@ -202,7 +292,7 @@ def test_launch_counters_count_card_launches(card):
     x = torch.rand(100, 8, device=card)
     cb = torch.rand(2, 5, 4, device=card)
     fns = (ck.pq_encode_fused, ck.pq_lloyd_accumulate_fused, ck.assign_fused,
-           ck.lloyd_accumulate_fused, ck.ivf_probe_adc_fused)
+           ck.lloyd_accumulate_fused, ck.ivf_probe_adc_fused, ck.ivf_probe_matvec_fused)
     before = [f.launches for f in fns]
     ck.pq_encode_fused(x, cb)
     ck.pq_lloyd_accumulate_fused(x, cb)
@@ -210,4 +300,6 @@ def test_launch_counters_count_card_launches(card):
     ck.lloyd_accumulate_fused(x, x[:5])
     ck.ivf_probe_adc_fused(torch.rand(3, 2, 5, device=card), torch.zeros(3, dtype=torch.int32, device=card),
                            torch.zeros(1, 4, 2, dtype=torch.uint8, device=card))
+    ck.ivf_probe_matvec_fused(torch.rand(3, 2, device=card), torch.zeros(3, dtype=torch.int32, device=card),
+                              torch.zeros(1, 4, 2, dtype=torch.uint8, device=card))
     assert [f.launches for f in fns] == [b + 1 for b in before]

@@ -82,6 +82,15 @@ def test_ivf_probe_chains_equal_per_chunk_calls():
     assert got.shape == (p, 3 * ch) and float(got[:, cap:].abs().sum()) == 0
 
 
+def test_ivf_probe_stray_chunk_ids_give_zero():
+    """A chunk id past the pool reads nothing and gives 0, as -1 does."""
+    tables = torch.rand(2, 3, 8)
+    pool = torch.randint(0, 8, (4, 5, 3), dtype=torch.uint8)
+    got = ck.ivf_probe_adc_fused(tables, torch.tensor([[1, 4], [-1, 9]]), pool)
+    assert float(got[0, 5:].abs().sum()) == 0 and float(got[1].abs().sum()) == 0
+    assert bool((got[0, :5] > 0).all())
+
+
 def test_ivf_probe_rejects_bad_operands():
     tables = torch.rand(3, 4, 8)
     with pytest.raises(ValueError):

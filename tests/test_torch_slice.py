@@ -7,6 +7,12 @@ The IVF-PQ path likewise: a JAX ``IVFPQIndex`` trained at the IVF
 benchmark's width (d = 128, PQ 8 x 16 here, 16 lists), carried across,
 ``add`` and ``search`` in both packages (ADC distances within rtol 1e-5 /
 atol 1e-4, reranked ones within rtol 1e-5 / atol 1e-3).
+IVF-Flat (f32 and bf16 rows) and IVF-SQ (residual SQ8) likewise, at
+d = 128 with 16 lists: a JAX index carried across through
+``from_state``, ``add`` in both packages, searches at nprobe 2 and 16
+held with the near-tie-aware check of ``test_torch_ivf_flat`` (values
+within rtol 1e-5 / atol 1e-3), and the port's checkpoint searched by the
+JAX package.
 Search parity uses the tie-aware tiers of ``test_torch_pq``. Reranked
 distances are exact distances in the expanded form
 ``||q||^2 + ||c||^2 - 2 q.c``, whose fp32 error between two summation
@@ -146,6 +152,31 @@ def test_ivf_path_matches_jax(tmp_path):
     back = vq_tpu.IVFPQIndex.load(tidx.save(str(tmp_path / "port_ivf")))
     assert_search_parity(tidx.search(queries, k=10, nprobe=4),
                          back.search(queries, k=10, nprobe=4), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["flat-float32", "flat-bfloat16", "sq"])
+def test_ivf_flat_and_sq_paths_match_jax(kind, tmp_path):
+    from test_torch_ivf_flat import assert_probe_parity
+
+    rng = np.random.default_rng(22)
+    centres = rng.normal(0, 2.0, (20, 128)).astype(np.float32)
+    corpus = (centres[rng.integers(0, 20, 2500)]
+              + rng.normal(0, 0.3, (2500, 128))).astype(np.float32)
+    queries = corpus[rng.integers(0, 2500, 8)] + 0.02
+    if kind == "sq":
+        jidx = vq_tpu.IVFSQIndex.train(corpus[:1200], 16, max_iters=6)
+    else:
+        jidx = vq_tpu.IVFFlatIndex.train(corpus[:1200], 16, max_iters=6,
+                                         store_dtype=kind.split("-")[1])
+    tidx = from_state(*_jax_ivf_state(jidx, tmp_path))
+    jidx.add(corpus)
+    tidx.add(corpus)
+    np.testing.assert_array_equal(tidx._flat_lists.numpy(), np.asarray(jidx._flat_lists))
+    for nprobe in (2, 16):
+        assert_probe_parity(tidx.search(queries, k=10, nprobe=nprobe),
+                            jidx.search(queries, k=10, nprobe=nprobe))
+    back = type(jidx).load(tidx.save(str(tmp_path / "port_ivf")))
+    assert_probe_parity(tidx.search(queries, k=10, nprobe=4), back.search(queries, k=10, nprobe=4))
 
 
 def _jax_ivf_state(jidx, tmp_path):

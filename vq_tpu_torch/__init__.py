@@ -1,16 +1,18 @@
 """vq_tpu_torch — the PyTorch / CUDA port of vq_tpu, for NVIDIA Hopper.
 
-Two paths are ported so far. The product-quantization main path: train
-a :class:`ProductQuantizer`, build a :class:`PQIndex` and ``add`` a
-corpus (which encodes it), then ``search`` query batches with the flat
-ADC top-k. And IVF-PQ: :meth:`IVFPQIndex.train` (k-means with
-:func:`lloyd`, then PQ on the residuals), ``add`` (coarse
-:func:`assign`, residual encode) and probed ``search``. Their six
-kernels — assign, Lloyd accumulate, PQ Lloyd accumulate, exact PQ
-encode, the ADC scan with per-tile top-k and the IVF probe — are CUDA
-C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built with nvcc on first
-use. On CPU tensors the same functions run their plain PyTorch
-versions.
+Ported so far: the product-quantization main path — train a
+:class:`ProductQuantizer`, build a :class:`PQIndex` and ``add`` a corpus
+(which encodes it), then ``search`` query batches with the flat ADC
+top-k — and the IVF ladder's IVF-Flat, IVF-SQ and IVF-PQ indexes:
+``train`` (k-means with :func:`lloyd`; then per-dimension SQ ranges or
+PQ codebooks on the residuals), ``add`` (coarse :func:`assign`, then
+the raw row, its SQ code or its residual PQ code) and probed ``search``,
+with the :class:`ScalarQuantizer` / :class:`PerDimScalarQuantizer` they
+need. Their seven kernels — assign, Lloyd accumulate, PQ Lloyd
+accumulate, exact PQ encode, the ADC scan with per-tile top-k, the IVF
+probe matvec and the IVF ADC probe — are CUDA C++ for ``sm_90a`` in
+``vq_tpu_torch/csrc``, built with nvcc on first use. On CPU tensors the
+same functions run their plain PyTorch versions.
 
 fp32 products run in full fp32: TF32 is switched off for matmuls and
 cuDNN on import, because TF32 keeps about three decimal digits and would
@@ -39,8 +41,10 @@ from vq_tpu_torch.errors import (
     VqError,
 )
 from vq_tpu_torch.ivf import IVFPQIndex
+from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFSQIndex
 from vq_tpu_torch.models.base import Quantizer
 from vq_tpu_torch.models.pq import ProductQuantizer, pq_decode, pq_encode, pq_train
+from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
 from vq_tpu_torch.ops.distance import Metric, pairwise
 from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
@@ -58,6 +62,8 @@ __all__ = [
     "InvalidData",
     "Quantizer",
     "ProductQuantizer",
+    "ScalarQuantizer",
+    "PerDimScalarQuantizer",
     "pq_train",
     "pq_encode",
     "pq_decode",
@@ -68,6 +74,8 @@ __all__ = [
     "unpack_codes",
     "PQIndex",
     "IVFPQIndex",
+    "IVFFlatIndex",
+    "IVFSQIndex",
     "KMeansResult",
     "assign",
     "lloyd",

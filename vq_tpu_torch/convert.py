@@ -8,18 +8,29 @@ port's objects through :func:`from_state`, and :func:`state_of` gives the
 port's state back in the same form, so a model moves either way without
 JAX being imported here.
 
-Kinds ported so far: ``"pq"`` (:class:`ProductQuantizer`: config
-``distance``, array ``codebooks``), ``"pq_index"`` (:class:`PQIndex`:
-config ``distance``, ``keep_corpus``, ``pack_bits``; arrays
-``codebooks``, ``codes`` and, when kept, ``corpus``) and
-``"ivfpq_index"`` (:class:`IVFPQIndex`: config ``by_residual``,
-``keep_corpus``, ``max_list_size``, ``metric``; arrays ``coarse``,
-``codebooks``, ``flat_codes`` and ``flat_lists`` in id order, and, when
-kept, ``corpus``). A JAX ``IVFPQIndex`` carries across as
-``from_state("ivfpq_index", config, {"coarse": ..., "codebooks": ...,
-"flat_codes": ..., "flat_lists": ...})``: the port's index holds the
-same lists and codes in the same pool layout, so it computes the same
-search.
+Kinds ported so far (config; arrays):
+
+* ``"pq"`` — :class:`ProductQuantizer` (``distance``; ``codebooks``);
+* ``"sq"`` — :class:`ScalarQuantizer` (``min``, ``max``, ``levels``; none);
+* ``"sq_perdim"`` — :class:`PerDimScalarQuantizer` (``levels``; ``mins``,
+  ``maxs``);
+* ``"pq_index"`` — :class:`PQIndex` (``distance``, ``keep_corpus``,
+  ``pack_bits``; ``codebooks``, ``codes`` and, when kept, ``corpus``);
+* ``"ivfpq_index"`` — :class:`IVFPQIndex` (``by_residual``,
+  ``keep_corpus``, ``max_list_size``, ``metric``; ``coarse``,
+  ``codebooks``, ``flat_codes`` and ``flat_lists`` in id order, and, when
+  kept, ``corpus``);
+* ``"ivfflat_index"`` — :class:`IVFFlatIndex` (``metric``,
+  ``store_dtype``, ``max_list_size``; ``coarse``, ``rows`` and ``lists``
+  in id order, bf16 rows as their uint16 bits, since npz has no bf16);
+* ``"ivfsq_index"`` — :class:`IVFSQIndex` (``metric``, ``by_residual``,
+  ``levels``, ``max_list_size``; ``coarse``, ``mins``, ``maxs``, ``codes``,
+  ``sqn`` and ``lists`` in id order).
+
+A JAX index carries across as, e.g., ``from_state("ivfflat_index",
+config, {"coarse": ..., "rows": ..., "lists": ...})``: the port's index
+holds the same lists and rows in the same pool layout, so it computes
+the same search.
 """
 
 from __future__ import annotations
@@ -43,26 +54,50 @@ def _np(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def _lists(idx) -> np.ndarray:
+    return np.zeros((0,), np.int32) if idx._flat_lists is None else _np(idx._flat_lists)
+
+
+def _pool_flat(idx, name: str, empty: np.ndarray) -> np.ndarray:
+    """Payload ``name`` of an IVF index in id order (``empty`` if none)."""
+    if idx._pool is None or idx._pool.n_rows == 0:
+        return empty
+    return idx._pool.to_flat([name])[name]
+
+
 def state_of(obj) -> State:
-    """``(kind, config, arrays)`` of a :class:`ProductQuantizer`,
-    :class:`PQIndex` or :class:`IVFPQIndex`, arrays as numpy."""
+    """``(kind, config, arrays)`` of a port object, arrays as numpy."""
     from vq_tpu_torch.ivf import IVFPQIndex
+    from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFSQIndex
     from vq_tpu_torch.models.pq import ProductQuantizer
+    from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
     from vq_tpu_torch.search import PQIndex
 
+    if isinstance(obj, IVFFlatIndex):
+        rows = _pool_flat(obj, "rows", np.zeros((0, obj.dim), np.float32))
+        if obj.store_dtype == "bfloat16" and rows.shape[0]:
+            rows = rows.view(torch.int16).cpu().numpy().view(np.uint16)  # the raw bits
+        config = {"metric": obj.metric, "store_dtype": obj.store_dtype,
+                  "max_list_size": obj.max_list_size}
+        return "ivfflat_index", config, {
+            "coarse": _np(obj.coarse), "rows": _np(rows), "lists": _lists(obj),
+        }
+    if isinstance(obj, IVFSQIndex):
+        config = {"metric": obj.metric, "by_residual": obj.by_residual,
+                  "levels": obj.sq.levels, "max_list_size": obj.max_list_size}
+        return "ivfsq_index", config, {
+            "coarse": _np(obj.coarse), "mins": _np(obj.sq.mins), "maxs": _np(obj.sq.maxs),
+            "codes": _np(_pool_flat(obj, "codes", np.zeros((0, obj.dim), np.uint8))),
+            "sqn": _np(_pool_flat(obj, "sqn", np.zeros((0,), np.float32))),
+            "lists": _lists(obj),
+        }
     if isinstance(obj, IVFPQIndex):
-        empty = obj._pool is None or obj._pool.n_rows == 0
         arrays = {
             "coarse": _np(obj.coarse),
             "codebooks": _np(obj.pq.codebooks),
-            "flat_codes": (
-                np.zeros((0, obj.pq.num_subspaces), np.int32) if empty
-                else _np(obj._pool.to_flat(["codes"])["codes"])
-            ),
-            "flat_lists": (
-                np.zeros((0,), np.int32) if obj._flat_lists is None
-                else _np(obj._flat_lists)
-            ),
+            "flat_codes": _np(_pool_flat(
+                obj, "codes", np.zeros((0, obj.pq.num_subspaces), np.int32))),
+            "flat_lists": _lists(obj),
         }
         if obj.keep_corpus and obj._corpus is not None:
             arrays["corpus"] = _np(obj._corpus)
@@ -92,50 +127,120 @@ def state_of(obj) -> State:
         return "pq_index", config, arrays
     if isinstance(obj, ProductQuantizer):
         return "pq", {"distance": obj.distance_metric}, {"codebooks": _np(obj.codebooks)}
+    if isinstance(obj, PerDimScalarQuantizer):
+        return "sq_perdim", {"levels": obj.levels}, {"mins": _np(obj.mins), "maxs": _np(obj.maxs)}
+    if isinstance(obj, ScalarQuantizer):
+        return "sq", {"min": obj.min, "max": obj.max, "levels": obj.levels}, {}
     raise InvalidParameter(
         "quantizer", f"don't know how to serialize {type(obj).__name__}"
     )
 
 
-def from_state(kind: str, config: Dict[str, Any], arrays: Dict[str, Any],
-               device=None):
-    """Rebuild a port object from ``(kind, config, arrays)`` on ``device``."""
-    from vq_tpu_torch.ivf import IVFPQIndex
-    from vq_tpu_torch.models.pq import ProductQuantizer
-    from vq_tpu_torch.search import PQIndex
+def _ivfflat_from(config, arrays, device):
+    from vq_tpu_torch.ivf_flat import IVFFlatIndex
 
-    device = torch.device("cpu" if device is None else device)
-    if kind not in ("pq", "pq_index", "ivfpq_index"):
-        raise InvalidData(f"unknown checkpoint kind {kind!r}")
-    pq = ProductQuantizer(
-        codebooks=np.asarray(arrays["codebooks"], np.float32),
-        distance=("squared_euclidean" if kind == "ivfpq_index" else config["distance"]),
+    idx = IVFFlatIndex(
+        np.asarray(arrays["coarse"], np.float32), metric=config["metric"],
+        store_dtype=config["store_dtype"], max_list_size=config.get("max_list_size"),
         device=device,
     )
-    if kind == "pq":
-        return pq
-    if kind == "ivfpq_index":
-        idx = IVFPQIndex(
-            np.asarray(arrays["coarse"], np.float32), pq,
-            by_residual=bool(config["by_residual"]),
-            keep_corpus=bool(config["keep_corpus"]),
-            # Checkpoints of early rounds carry neither of these two.
-            max_list_size=config.get("max_list_size"),
-            metric=config.get("metric", "l2"),
-        )
-        codes = np.asarray(arrays["flat_codes"])
-        if codes.shape[0]:
-            lists = torch.as_tensor(np.asarray(arrays["flat_lists"], np.int32), device=device)
-            idx._pool_append(lists, torch.as_tensor(codes, device=device))
-        if "corpus" in arrays:
-            idx._corpus = torch.as_tensor(np.asarray(arrays["corpus"]), device=device)
-        return idx
+    rows = np.asarray(arrays["rows"])
+    if rows.shape[0]:
+        if config["store_dtype"] == "bfloat16":
+            rows_t = torch.from_numpy(rows.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            rows_t = torch.as_tensor(rows)
+        lists = torch.as_tensor(np.asarray(arrays["lists"], np.int32), device=device)
+        idx._append_rows(lists, rows_t.to(device))
+    return idx
+
+
+def _ivfsq_from(config, arrays, device):
+    from vq_tpu_torch.ivf_flat import IVFSQIndex
+    from vq_tpu_torch.models.sq import PerDimScalarQuantizer
+
+    sq = PerDimScalarQuantizer(arrays["mins"], arrays["maxs"], config["levels"], device=device)
+    idx = IVFSQIndex(
+        np.asarray(arrays["coarse"], np.float32), sq, metric=config["metric"],
+        by_residual=bool(config["by_residual"]), max_list_size=config.get("max_list_size"),
+        device=device,
+    )
+    codes = np.asarray(arrays["codes"])
+    if codes.shape[0]:
+        lists = torch.as_tensor(np.asarray(arrays["lists"], np.int32), device=device)
+        idx._append(lists, {"codes": torch.as_tensor(codes, device=device),
+                            "sqn": torch.as_tensor(np.asarray(arrays["sqn"]), device=device)})
+    return idx
+
+
+def _ivfpq_from(config, arrays, device):
+    from vq_tpu_torch.ivf import IVFPQIndex
+
+    idx = IVFPQIndex(
+        np.asarray(arrays["coarse"], np.float32), _pq_from(arrays, "squared_euclidean", device),
+        by_residual=bool(config["by_residual"]),
+        keep_corpus=bool(config["keep_corpus"]),
+        # Checkpoints of early rounds carry neither of these two.
+        max_list_size=config.get("max_list_size"),
+        metric=config.get("metric", "l2"),
+    )
+    codes = np.asarray(arrays["flat_codes"])
+    if codes.shape[0]:
+        lists = torch.as_tensor(np.asarray(arrays["flat_lists"], np.int32), device=device)
+        idx._pool_append(lists, torch.as_tensor(codes, device=device))
+    if "corpus" in arrays:
+        idx._corpus = torch.as_tensor(np.asarray(arrays["corpus"]), device=device)
+    return idx
+
+
+def _pq_index_from(config, arrays, device):
+    from vq_tpu_torch.search import PQIndex
+
     # Checkpoints written before sub-byte packing carry no pack_bits.
     pack_bits = int(config.get("pack_bits", 8))
-    idx = PQIndex(pq, keep_corpus=bool(config["keep_corpus"]), packed=pack_bits < 8)
+    idx = PQIndex(_pq_from(arrays, config["distance"], device),
+                  keep_corpus=bool(config["keep_corpus"]), packed=pack_bits < 8)
     codes = np.asarray(arrays["codes"])
     if codes.shape[0]:
         idx._codes = torch.as_tensor(codes, device=device)
     if "corpus" in arrays:
         idx._corpus = torch.as_tensor(np.asarray(arrays["corpus"]), device=device)
     return idx
+
+
+def _pq_from(arrays, distance, device):
+    from vq_tpu_torch.models.pq import ProductQuantizer
+
+    return ProductQuantizer(codebooks=np.asarray(arrays["codebooks"], np.float32),
+                            distance=distance, device=device)
+
+
+def _sq_from(config, arrays, device):
+    from vq_tpu_torch.models.sq import ScalarQuantizer
+
+    return ScalarQuantizer(min=config["min"], max=config["max"], levels=config["levels"])
+
+
+def _sq_perdim_from(config, arrays, device):
+    from vq_tpu_torch.models.sq import PerDimScalarQuantizer
+
+    return PerDimScalarQuantizer(arrays["mins"], arrays["maxs"], config["levels"], device=device)
+
+
+_FROM_STATE = {
+    "pq": lambda config, arrays, device: _pq_from(arrays, config["distance"], device),
+    "sq": _sq_from,
+    "sq_perdim": _sq_perdim_from,
+    "pq_index": _pq_index_from,
+    "ivfpq_index": _ivfpq_from,
+    "ivfflat_index": _ivfflat_from,
+    "ivfsq_index": _ivfsq_from,
+}
+
+
+def from_state(kind: str, config: Dict[str, Any], arrays: Dict[str, Any],
+               device=None):
+    """Rebuild a port object from ``(kind, config, arrays)`` on ``device``."""
+    if kind not in _FROM_STATE:
+        raise InvalidData(f"unknown checkpoint kind {kind!r}")
+    return _FROM_STATE[kind](config, arrays, torch.device("cpu" if device is None else device))

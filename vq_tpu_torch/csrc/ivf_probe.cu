@@ -4,7 +4,8 @@
 // -> out [P, nc*ch] with out[p, t] = sum_i tables[p, i, code_i] over
 // the codes of row t % ch of chunk chunks[p, t / ch], summed from 0 in
 // subspace order 0..m-1 in fp32. Positions t >= cap, and positions of a
-// -1 chunk, give 0; a code outside [0, kk) adds 0.
+// chunk id outside [0, n_chunks) (-1 marks no chunk), give 0, so no id
+// reads outside the pool; a code outside [0, kk) adds 0.
 //
 // Replaces vq_tpu/ops/pallas_kernels.py::_ivf_probe_gather_kernel
 // (kk <= 256, u8 codes) and ::_ivf_probe_kernel (kk > 256, i32 codes),
@@ -35,7 +36,8 @@ __global__ void __launch_bounds__(kProbeThreads)
     ivf_probe_kernel(const float* __restrict__ tables,
                      const int* __restrict__ chunks,
                      const C* __restrict__ codes, float* __restrict__ out,
-                     int m, int kk, int nc, int ch, long long cap, int gsub) {
+                     int m, int kk, int nc, int ch, int n_chunks,
+                     long long cap, int gsub) {
   extern __shared__ float tab[];
   const long long p = blockIdx.x;
   const long long width = (long long)nc * ch;
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(kProbeThreads)
          t < width; t += (long long)gridDim.y * blockDim.x) {
       const int cid = chunks[p * nc + t / ch];
       float acc = 0.f;
-      if (cid >= 0 && t < cap) {
+      if (cid >= 0 && cid < n_chunks && t < cap) {
         if (g0 > 0) acc = op[t];
         const C* row = codes + ((long long)cid * ch + t % ch) * m + g0;
         for (int i = 0; i < gc; ++i) {
@@ -76,7 +78,7 @@ __global__ void __launch_bounds__(kProbeThreads)
 extern "C" int vq_ivf_probe(const float* tables, const int* chunks,
                             const void* codes, int codes_are_u8, float* out,
                             int pairs, int m, int kk, int nc, int ch,
-                            long long cap, int gsub, int slices,
+                            int n_chunks, long long cap, int gsub, int slices,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)pairs, (unsigned)slices);
@@ -84,11 +86,11 @@ extern "C" int vq_ivf_probe(const float* tables, const int* chunks,
   if (codes_are_u8) {
     ivf_probe_kernel<unsigned char><<<grid, kProbeThreads, smem, st>>>(
         tables, chunks, static_cast<const unsigned char*>(codes), out, m, kk,
-        nc, ch, cap, gsub);
+        nc, ch, n_chunks, cap, gsub);
   } else {
     ivf_probe_kernel<int><<<grid, kProbeThreads, smem, st>>>(
         tables, chunks, static_cast<const int*>(codes), out, m, kk, nc, ch,
-        cap, gsub);
+        n_chunks, cap, gsub);
   }
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from vq_tpu_torch.convert import from_state
@@ -38,7 +37,8 @@ from vq_tpu_torch.errors import (
     InvalidData,
     InvalidParameter,
 )
-from vq_tpu_torch.ivf_pool import ChunkPool, take_list_ids
+from vq_tpu_torch.ivf_flat import _coarse_probe, _pad_to_k
+from vq_tpu_torch.ivf_pool import ChunkPool, bucket_stats, take_list_ids
 from vq_tpu_torch.models.base import _HALF_DTYPES, as_batch_f32, as_tensor, check_training_matrix
 from vq_tpu_torch.models.pq import ProductQuantizer, _smallest, pq_train
 from vq_tpu_torch.ops.cuda_kernels import ivf_probe_adc_fused
@@ -62,8 +62,7 @@ def _probe_tables(q, coarse, cb, nprobe: int, by_residual: bool):
     the residual ADC tables ``[Q, np, m, kk]`` of each (query, list)."""
     nq = q.shape[0]
     m, _, s = cb.shape
-    cc = (coarse * coarse).sum(-1)
-    _, probe = _smallest(cc[None, :] - 2.0 * (q @ coarse.T), nprobe)
+    probe, _ = _coarse_probe(q, coarse, nprobe, "l2")
     if by_residual:
         qres = q[:, None, :] - coarse[probe]
     else:
@@ -228,22 +227,7 @@ class IVFPQIndex:
         many rows a ``max_list_size`` cap leaves unsearched."""
         if self._flat_lists is None:
             return {"ntotal": 0}
-        counts = self._pool.lens_h
-        cap = self._pool.cap
-        return {
-            "ntotal": int(self.ntotal),
-            "nlist": self.nlist,
-            "cap": cap,
-            "min": int(counts.min()),
-            "mean": float(counts.mean()),
-            "max": int(counts.max()),
-            "empty_lists": int((counts == 0).sum()),
-            "overflow_dropped": int(np.maximum(counts - cap, 0).sum()),
-            "padding_waste": float(
-                1.0 - int(np.minimum(counts, cap).sum()) / (self.nlist * cap)
-            ),
-            **self._pool.stats(),
-        }
+        return bucket_stats(self._pool, self.ntotal)
 
     # -- search -------------------------------------------------------------
 
@@ -278,12 +262,7 @@ class IVFPQIndex:
             ids = torch.gather(ids, 1, pos)
         else:
             ids, dist = ids[:, :k], dist[:, :k]
-        ids = torch.where(torch.isinf(dist), -1, ids)
-        if ids.shape[1] < k:  # fewer rows probed than k: pad the contract
-            pad = k - ids.shape[1]
-            ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
-            dist = torch.nn.functional.pad(dist, (0, pad), value=float("inf"))
-        return ids, dist
+        return _pad_to_k(ids, dist, k)
 
     # -- persistence --------------------------------------------------------
 

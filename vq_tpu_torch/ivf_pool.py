@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ChunkPool", "take_list_ids", "take_list_payload"]
+__all__ = ["ChunkPool", "bucket_stats", "take_list_ids", "take_list_payload"]
 
 
 def _cdiv(a, b):
@@ -64,6 +64,27 @@ def take_list_payload(data, chains_s, pl) -> torch.Tensor:
     ct = chains_s[pl.to(torch.int64)]
     rows = data[ct.clamp_min(0).to(torch.int64)]
     return rows.reshape(ct.shape[:-1] + (ct.shape[-1] * ch,) + tuple(data.shape[2:]))
+
+
+def bucket_stats(pool: "ChunkPool", ntotal: int) -> dict:
+    """The IVF indexes' ``bucket_stats``: list-size distribution, the
+    searched rows a list (``cap``), the rows a ``max_list_size`` cap
+    leaves unsearched, and the probe slots that are dead
+    (``padding_waste``), with the pool's own :meth:`ChunkPool.stats`."""
+    counts = pool.lens_h
+    cap = pool.cap
+    return {
+        "ntotal": int(ntotal),
+        "nlist": pool.nlist,
+        "cap": cap,
+        "min": int(counts.min()),
+        "mean": float(counts.mean()),
+        "max": int(counts.max()),
+        "empty_lists": int((counts == 0).sum()),
+        "overflow_dropped": int(np.maximum(counts - cap, 0).sum()),
+        "padding_waste": float(1.0 - int(np.minimum(counts, cap).sum()) / (pool.nlist * cap)),
+        **pool.stats(),
+    }
 
 
 class ChunkPool:

@@ -54,6 +54,14 @@ def as_tensor(x, device: Optional[torch.device] = None) -> torch.Tensor:
     return torch.as_tensor(arr, device=device)
 
 
+def require_finite_scalar(value: float, parameter: str) -> float:
+    """``value`` as a float; raise unless it is finite."""
+    value = float(value)
+    if not np.isfinite(value):
+        raise InvalidParameter(parameter, "must be finite (not NaN or infinite)")
+    return value
+
+
 def _check_numeric(x: torch.Tensor) -> None:
     if x.dtype == torch.bool or x.is_complex():
         raise InvalidParameter("x", f"expected numeric input, got dtype {x.dtype}")

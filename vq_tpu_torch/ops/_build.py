@@ -2,7 +2,8 @@
 them with ctypes.
 
 The sources (K1 ``assign.cu``, K2 ``lloyd.cu``, K3 ``pq_lloyd.cu``, K4
-``pq_encode.cu``, K5 ``adc_topk.cu``, K7 ``ivf_probe.cu``) compile with
+``pq_encode.cu``, K5 ``adc_topk.cu``, K6 ``ivf_matvec.cu``, K7
+``ivf_probe.cu``) compile with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds): one ``nvcc -c``
 a source, all started together, then one link. The library lands in
@@ -58,10 +59,13 @@ _SIGNATURES = {
     # counts, inertia, n, k, d, rows_per_chunk, chunks, stream
     "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _LL, _I, _I, _LL, _I, _P),
-    # tables, chunks, codes, codes_are_u8, out, pairs, m, kk, nc, ch, cap,
-    # gsub, slices, stream
-    "vq_ivf_probe": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _LL, _I, _I,
-                     _P),
+    # tables, chunks, codes, codes_are_u8, out, pairs, m, kk, nc, ch,
+    # n_chunks, cap, gsub, slices, stream
+    "vq_ivf_probe": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _LL, _I,
+                     _I, _P),
+    # lhs, chunks, payload, payload_type, out, pairs, d, nc, ch, n_chunks,
+    # cap, vec, slices, stream
+    "vq_ivf_matvec": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _LL, _I, _I, _P),
 }
 
 

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the port, each beside its plain
 PyTorch version — the port of the Pallas kernels that k-means, PQ
-train, encode, flat ADC search and IVF-PQ search reach in
+train, encode, flat ADC search and IVF search reach in
 ``vq_tpu/ops/pallas_kernels.py``:
 
 * K1 :func:`assign_fused` (``csrc/assign.cu``) — nearest centroid and
@@ -12,6 +12,8 @@ train, encode, flat ADC search and IVF-PQ search reach in
 * K4 :func:`pq_encode_fused` (``csrc/pq_encode.cu``) — exact PQ encode;
 * K5 :func:`adc_scan_topk_fused` (``csrc/adc_topk.cu``) — flat ADC scan
   with a per-tile top-``fetch``;
+* K6 :func:`ivf_probe_matvec_fused` (``csrc/ivf_matvec.cu``) — dots with
+  the rows of the probed chunks of an IVF-Flat / IVF-SQ index;
 * K7 :func:`ivf_probe_adc_fused` (``csrc/ivf_probe.cu``) — ADC sums over
   the probed chunks of an IVF index.
 
@@ -55,6 +57,8 @@ __all__ = [
     "adc_tile",
     "ivf_probe_adc_fused",
     "ivf_probe_adc_plain",
+    "ivf_probe_matvec_fused",
+    "ivf_probe_matvec_plain",
 ]
 
 _INT_MAX = 0x7FFFFFFF
@@ -70,6 +74,9 @@ _PLAIN_CELLS = 1 << 22  # [B, k] scores per block of the plain K1
 _CHUNK_ROWS = 1024  # K2's rows per counting-sort chunk, at least
 _CHUNK_CELLS = 1 << 24  # K2's (chunk, cluster) cursors, at most
 _PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
+_MATVEC_ROWS = 256  # row positions per K6 tile (csrc/ivf_matvec.cu kRows)
+_PLAIN_CELLS_K6 = 1 << 28  # gathered f32 values per block of the plain K6
+_PAYLOAD_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 
 
 # ---------------------------------------------------------------------------
@@ -550,9 +557,22 @@ adc_scan_topk_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _chains(probe, pairs: int, rows: int, cap):
+    """``(chunks [P, nc] i32, width, cap)`` of a probe over a pool of
+    ``rows``-row chunks: a ``[P]`` probe is one chunk a pair (the TPU
+    contract), a ``[P, nc]`` probe a chain (K6 and K7)."""
+    chunks = probe.to(torch.int32)
+    if chunks.ndim == 1:
+        chunks = chunks[:, None]
+    if chunks.ndim != 2 or chunks.shape[0] != pairs:
+        raise InvalidParameter(
+            "probe", f"expected [{pairs}] or [{pairs}, nc], got {tuple(probe.shape)}"
+        )
+    width = chunks.shape[1] * rows
+    return chunks, width, width if cap is None else int(cap)
+
+
 def _probe_operands(tables, probe, bucket_codes, cap):
-    """``(chunks [P, nc] i32, width, cap)`` of a probe: a ``[P]`` probe is
-    one chunk a pair (the TPU contract), a ``[P, nc]`` probe a chain."""
     if tables.ndim != 3:
         raise InvalidParameter("tables", "expected [P, m, kk]")
     if bucket_codes.ndim != 3 or bucket_codes.shape[2] != tables.shape[1]:
@@ -560,16 +580,7 @@ def _probe_operands(tables, probe, bucket_codes, cap):
             "bucket_codes", f"expected [chunks, rows, {tables.shape[1]}], "
             f"got {tuple(bucket_codes.shape)}"
         )
-    chunks = probe.to(torch.int32)
-    if chunks.ndim == 1:
-        chunks = chunks[:, None]
-    if chunks.ndim != 2 or chunks.shape[0] != tables.shape[0]:
-        raise InvalidParameter(
-            "probe", f"expected [{tables.shape[0]}] or [{tables.shape[0]}, nc], "
-            f"got {tuple(probe.shape)}"
-        )
-    width = chunks.shape[1] * bucket_codes.shape[1]
-    return chunks, width, width if cap is None else int(cap)
+    return _chains(probe, tables.shape[0], bucket_codes.shape[1], cap)
 
 
 def ivf_probe_adc_plain(tables, probe, bucket_codes, *, cap: Optional[int] = None):
@@ -577,12 +588,13 @@ def ivf_probe_adc_plain(tables, probe, bucket_codes, *, cap: Optional[int] = Non
     same zeros for dead positions and out-of-range codes)."""
     chunks, width, cap = _probe_operands(tables, probe, bucket_codes, cap)
     p, m, kk = tables.shape
-    ch = bucket_codes.shape[1]
+    n_chunks, ch = bucket_codes.shape[:2]
     dev = tables.device
     t = torch.arange(width, device=dev)
     cid = chunks.to(torch.int64)[:, t // ch]  # [P, W]
-    live = (cid >= 0) & (t < cap)
-    base = (cid.clamp_min(0) * ch + t % ch) * m
+    ok = (cid >= 0) & (cid < n_chunks)
+    live = ok & (t < cap)
+    base = (torch.where(ok, cid, 0) * ch + t % ch) * m
     flat = bucket_codes.reshape(-1)
     tab = tables.to(torch.float32)
     acc = torch.zeros((p, width), dtype=torch.float32, device=dev)
@@ -602,8 +614,9 @@ def ivf_probe_adc_fused(tables, probe, bucket_codes, *, cap: Optional[int] = Non
     other type runs as i32). ``probe [P]`` names one chunk per pair, the
     TPU kernel's contract, -> ``[P, rows]``; ``probe [P, nc]`` is a chain
     of chunk ids per pair (-1 = none) -> ``[P, nc*rows]``. Positions at or
-    past ``cap`` (default: all of them kept) and positions of a -1 chunk
-    are 0; the caller masks them with the row ids."""
+    past ``cap`` (default: all of them kept) and positions of a chunk id
+    outside ``[0, chunks)`` are 0; the caller masks them with the row
+    ids."""
     tables = tables.to(torch.float32)
     if not _on_card(tables, probe, bucket_codes):
         return ivf_probe_adc_plain(tables, probe, bucket_codes, cap=cap)
@@ -619,11 +632,91 @@ def ivf_probe_adc_fused(tables, probe, bucket_codes, *, cap: Optional[int] = Non
     slices = max(1, min(-(-width // _PROBE_THREADS), -(-_TARGET_BLOCKS // p)))
     _launch(
         "vq_ivf_probe", tables.data_ptr(), chunks.data_ptr(), codes.data_ptr(),
-        int(u8), out.data_ptr(), p, m, kk, chunks.shape[1], codes.shape[1], cap,
-        gsub, slices,
+        int(u8), out.data_ptr(), p, m, kk, chunks.shape[1], codes.shape[1],
+        codes.shape[0], cap, gsub, slices,
     )
     ivf_probe_adc_fused.launches += 1
     return out
 
 
 ivf_probe_adc_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: dots with the rows of probed IVF chunks at stored width (replaces
+# _ivf_matvec_kernel).
+# ---------------------------------------------------------------------------
+
+
+def _matvec_operands(qvecs, probe, payload, cap):
+    if qvecs.ndim != 2:
+        raise InvalidParameter("qvecs", f"expected [P, d], got {tuple(qvecs.shape)}")
+    if payload.ndim != 3 or payload.shape[2] != qvecs.shape[1]:
+        raise InvalidParameter(
+            "payload", f"expected [chunks, rows, {qvecs.shape[1]}], got {tuple(payload.shape)}"
+        )
+    if payload.dtype not in _PAYLOAD_TYPES:
+        raise InvalidParameter(
+            "payload", f"must be float32, bfloat16, float16 or uint8, got {payload.dtype}"
+        )
+    return _chains(probe, qvecs.shape[0], payload.shape[1], cap)
+
+
+def ivf_probe_matvec_plain(qvecs, probe, payload, *, cap: Optional[int] = None):
+    """Plain version of K6, bit-identical to it: each dot summed from 0 in
+    ascending dimension order, one rounded multiply and add at a time, and
+    0 for dead positions. Works through the pairs in blocks of at most
+    ``_PLAIN_CELLS_K6`` gathered values."""
+    chunks, width, cap = _matvec_operands(qvecs, probe, payload, cap)
+    p, d = qvecs.shape
+    (n_chunks, ch), dev = payload.shape[:2], qvecs.device
+    lhs = qvecs.to(torch.float32)
+    out = torch.zeros((p, width), dtype=torch.float32, device=dev)
+    live_pos = torch.arange(width, device=dev) < cap
+    step = max(1, _PLAIN_CELLS_K6 // max(1, width * d))
+    for b0 in range(0, p, step):
+        cid = chunks[b0:b0 + step].to(torch.int64)  # [B, nc]
+        ok = (cid >= 0) & (cid < n_chunks)
+        rows = payload[torch.where(ok, cid, 0)].reshape(cid.shape[0], width, d)
+        rows_t = torch.empty((cid.shape[0], d, width), dtype=torch.float32, device=dev)
+        rows_t.copy_(rows.transpose(1, 2))  # [B, d, W] f32: contiguous per dimension
+        acc = torch.zeros((cid.shape[0], width), dtype=torch.float32, device=dev)
+        for e in range(d):
+            acc = acc + lhs[b0:b0 + step, e, None] * rows_t[:, e]
+        live = ok.repeat_interleave(ch, dim=1) & live_pos
+        out[b0:b0 + step] = torch.where(live, acc, 0.0)
+    return out
+
+
+def ivf_probe_matvec_fused(qvecs, probe, payload, *, cap: Optional[int] = None):
+    """Dots of per-(query, probe) vectors with the rows of probed IVF
+    chunks, read at stored width.
+
+    ``qvecs [P, d]`` f32 left vectors; ``payload [chunks, rows, d]`` f32,
+    bf16 or f16 rows (IVF-Flat) or u8 codes (IVF-SQ), converted to f32 as
+    they are read. ``probe [P]`` names one chunk a pair, the TPU kernel's
+    contract, -> ``[P, rows]``; ``probe [P, nc]`` is a chain of chunk ids
+    a pair (-1 = none) -> ``[P, nc*rows]``. Positions at or past ``cap``
+    (default: all kept) and positions of a chunk id outside ``[0,
+    chunks)`` are 0; the caller masks them with the row ids."""
+    qvecs = qvecs.to(torch.float32)
+    if not _on_card(qvecs, probe, payload):
+        return ivf_probe_matvec_plain(qvecs, probe, payload, cap=cap)
+    chunks, width, cap = _matvec_operands(qvecs, probe, payload, cap)
+    (p, d), ch = qvecs.shape, payload.shape[1]
+    lhs, chunks, payload = qvecs.contiguous(), chunks.contiguous(), payload.contiguous()
+    out = torch.empty((p, width), dtype=torch.float32, device=lhs.device)
+    if p == 0 or width == 0:
+        return out
+    vec = (d * payload.element_size()) % 16 == 0 and payload.data_ptr() % 16 == 0
+    slices = max(1, min(-(-width // _MATVEC_ROWS), -(-_TARGET_BLOCKS // p)))
+    _launch(
+        "vq_ivf_matvec", lhs.data_ptr(), chunks.data_ptr(), payload.data_ptr(),
+        _PAYLOAD_TYPES[payload.dtype], out.data_ptr(), p, d, chunks.shape[1], ch,
+        payload.shape[0], cap, int(vec), slices,
+    )
+    ivf_probe_matvec_fused.launches += 1
+    return out
+
+
+ivf_probe_matvec_fused.launches = 0

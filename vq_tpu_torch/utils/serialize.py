@@ -2,8 +2,10 @@
 checkpoint written by either package loads in the other: a JSON header
 (``format_version``, ``kind``, ``config``) stored as a u8 array under
 ``__vq_header__``, then the model's arrays by name. The port carries
-the kinds ``"pq"``, ``"pq_index"`` (``PQIndex.save`` / ``PQIndex.load``)
-and ``"ivfpq_index"`` (``IVFPQIndex.save`` / ``IVFPQIndex.load``)."""
+the kinds ``"pq"``, ``"sq"``, ``"sq_perdim"`` (:func:`save` /
+:func:`load`), ``"pq_index"``, ``"ivfpq_index"``, ``"ivfflat_index"`` and
+``"ivfsq_index"`` (each index's ``save`` / ``load``); the layouts are
+listed in :mod:`vq_tpu_torch.convert`."""
 
 from __future__ import annotations
 
@@ -49,9 +51,8 @@ def _from_npz(path: str):
 
 
 def save(path: str, model) -> str:
-    """Write a :class:`ProductQuantizer`, :class:`PQIndex` or
-    :class:`IVFPQIndex` to ``path``
-    (``.npz`` appended if absent); returns the path."""
+    """Write a quantizer or index of the port to ``path`` (``.npz``
+    appended if absent); returns the path."""
     return _to_npz(path, *state_of(model))
 
 
