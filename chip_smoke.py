@@ -35,11 +35,36 @@ Phases, one line each (any failure exits non-zero with no result line):
    the same card, recall@10 against the exact ground truth; then K6 held
    to its plain version on the operands each search gave it (f32, bf16
    and u8 payloads at nprobe 8 and 64);
-8. timings — CUDA events, kernel beside plain version, each line stamped
-   with the card's name and power limit.
+8. lowp kernels — K4-bf16 and K4-bf16x3 held to their plain versions, bit
+   for bit, at 1M x 128 against 8x256x16 with f32 and bf16 input;
+9. pq precision — on the main phase's quantizer, ``PQIndex.add(corpus,
+   precision="high")`` and ``(..., "default")`` and
+   ``ProductQuantizer.adc_distances`` at [128, 1M]: launch counts of
+   K4-bf16x3, K4-bf16 and K8 read from that run, codes and distances held
+   to the plain route, code-match rates against the exact encode and
+   recall@10 beside the exact index's; then K8 held to its plain version
+   on those operands;
+10. rq path — the width of ``benchmarks/serving_bench.py:186-204,
+   327-351``: ``ResidualQuantizer`` 8x256 trained on 200k rows, ``RQIndex``
+   ``add`` of 1M and ``search(k=10)`` (K5 l2), ``rerank=500`` (K8 over 4
+   chunks), a ``metric="cosine"`` (K8) and a ``metric="dot"`` (K5 dot)
+   index; ``IVFRQIndex.train`` (IVF1024, RQ 8x256, 200k rows), ``add`` of
+   1M, ``search(k=10)`` at nprobe 8 and 64 (K7): launch counts of K1, K2,
+   K5, K7 and K8 read from that run, codes and searches held to the plain
+   route, recall@10 against the exact ground truth; then K8 held to its
+   plain version on one RQ chunk (262,144 rows);
+11. timings — CUDA events, kernel beside plain version (and, for K8, the
+   one PyTorch call that computes the same function,
+   ``embedding_bag``), each line stamped with the card's name and power
+   limit; then a ``torch.profiler`` line a call of the precision and RQ
+   paths (wall, device time, busy share, top kernels).
 
-Before the last line it prints a JSON line of per-kernel results and the
-``nvidia-smi`` line; the last line is the run's verdict,
+Before the last line it prints a JSON line of per-kernel results (each
+with its launches on its path, its error against the plain version, its
+time, the plain version's, the least time the card could take for the
+same work at its shapes — bytes over 3.35 TB/s or operations over the
+67 TFLOP/s fp32 / 989 TFLOP/s bf16 peak, whichever is larger — and a
+library call's time where one exists) and the ``nvidia-smi`` line; the last line is the run's verdict,
 ``{"ok": true, "device": {...}}``. The data is a seeded Gaussian mixture
 made on the card; the weights are trained from it.
 """
@@ -69,13 +94,21 @@ NLIST, N_IVF_TRAIN, NPROBES, RERANKS = 1024, 200_000, (8, 64), (0, 500)
 # K3 (fp32 summation order). K6 and K7: bit-identical.
 # IVF-Flat / IVF-SQ searches, the width of benchmarks/serving_bench.py.
 FLAT_KINDS, FLAT_MIN_RECALL = ("flat_f32", "flat_bf16", "sq"), 0.9
+# RQ path, the width of benchmarks/serving_bench.py:186-204 (RQIndex 8x256
+# greedy over 1M x 128) and :327-351 (IVF-RQ); K8's chunk of the RQ scan.
+RQ_STAGES, RQ_ITERS, RQ_RERANK, RQ_CHUNK = 8, 8, 500, 262_144
+# The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
+# cores and bf16 on the tensor cores, FLOP/s.
+HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # Every kernel wrapper the paths call, and the modules that call it.
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
                                  "pq_lloyd_accumulate_fused")),
-    ("vq_tpu_torch.models.pq", ("pq_encode_fused", "adc_scan_topk_fused")),
+    ("vq_tpu_torch.models.pq", ("pq_encode_fused", "adc_scan_topk_fused", "adc_lookup_fused")),
+    ("vq_tpu_torch.models.rq", ("assign_fused",)),
+    ("vq_tpu_torch.search", ("adc_scan_topk_fused",)),
     ("vq_tpu_torch.ivf", ("ivf_probe_adc_fused",)),
-    ("vq_tpu_torch.ivf_flat", ("ivf_probe_matvec_fused",)),
+    ("vq_tpu_torch.ivf_flat", ("ivf_probe_matvec_fused", "ivf_probe_adc_fused")),
 )
 
 
@@ -118,7 +151,33 @@ def all_kernels():
 
     return (ck.assign_fused, ck.lloyd_accumulate_fused, ck.pq_lloyd_accumulate_fused,
             ck.pq_encode_fused, ck.adc_scan_topk_fused, ck.ivf_probe_adc_fused,
-            ck.ivf_probe_matvec_fused)
+            ck.ivf_probe_matvec_fused, ck.adc_lookup_fused)
+
+
+def reset_counts():
+    """Every launch count to 0 (K4's counts a precision too)."""
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    for fn in all_kernels():
+        fn.launches = 0
+    ck.pq_encode_fused.launches_by = dict.fromkeys(ck.ENCODE_PRECISIONS, 0)
+
+
+def read_counts():
+    """The launch counts by wrapper, K4 split by precision."""
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    out = {fn.__name__: fn.launches for fn in all_kernels()}
+    out.update({f"pq_encode_fused[{p}]": n for p, n in ck.pq_encode_fused.launches_by.items()})
+    return out
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """``(ms, "bytes" or "operations")``: the least time the card could
+    take, the larger of bytes over HBM bandwidth and operations over
+    ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 @contextlib.contextmanager
@@ -128,7 +187,7 @@ def plain_route():
     that no kernel launched meanwhile."""
     from vq_tpu_torch.ops import cuda_kernels as ck
 
-    before = [fn.launches for fn in all_kernels()]
+    before = read_counts()
     saved = []
     for mod_name, names in KERNEL_CALLERS:
         mod = importlib.import_module(mod_name)
@@ -140,7 +199,7 @@ def plain_route():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    assert [fn.launches for fn in all_kernels()] == before, "a kernel ran on the plain route"
+    assert read_counts() == before, "a kernel ran on the plain route"
 
 
 @contextlib.contextmanager
@@ -481,15 +540,14 @@ def phase_ivf_path(corpus, queries, gt):
     import vq_tpu_torch
     from vq_tpu_torch.ops import cuda_kernels as ck
 
-    for fn in all_kernels():
-        fn.launches = 0
+    reset_counts()
     index, t_train = cuda_once(lambda: vq_tpu_torch.IVFPQIndex.train(
         corpus[:N_IVF_TRAIN], NLIST, M, K, max_iters=10, keep_corpus=True))
     _, t_add = cuda_once(lambda: index.add(corpus))
     out = {(p, r): index.search(queries, k=10, nprobe=p, rerank=r)
            for p in NPROBES for r in RERANKS}
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    launches = read_counts()
     log("ivf", f"launches in the ivf path: {launches}")
     on_path = ("assign_fused", "lloyd_accumulate_fused", "pq_lloyd_accumulate_fused",
                "pq_encode_fused", "ivf_probe_adc_fused")
@@ -608,12 +666,11 @@ def phase_flat_path(corpus, queries, gt):
     import vq_tpu_torch
     from vq_tpu_torch.ops import cuda_kernels as ck
 
-    for fn in all_kernels():
-        fn.launches = 0
+    reset_counts()
     train = corpus[:N_IVF_TRAIN]
     flat, t_train = cuda_once(lambda: vq_tpu_torch.IVFFlatIndex.train(train, NLIST, max_iters=10))
     sq, t_train_sq = cuda_once(lambda: vq_tpu_torch.IVFSQIndex.train(train, NLIST, max_iters=10))
-    trained = {fn.__name__: fn.launches for fn in all_kernels()}
+    trained = read_counts()
     assert trained["assign_fused"] > 0 and trained["lloyd_accumulate_fused"] > 0, trained
     indexes = {"flat_f32": flat, "sq": sq,
                "flat_bf16": vq_tpu_torch.IVFFlatIndex(flat.coarse, store_dtype="bfloat16"),
@@ -632,7 +689,7 @@ def phase_flat_path(corpus, queries, gt):
         assert ck.ivf_probe_matvec_fused.launches == before + 1, f"{key}: K6 did not launch"
         operands[key] = calls[0]
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    launches = read_counts()
     log("flat", f"launches in the ivf-flat path: {launches} (training alone: K1 "
         f"{trained['assign_fused']}, K2 {trained['lloyd_accumulate_fused']})")
     for name, idx in indexes.items():
@@ -744,6 +801,312 @@ def phase_timings(smi, corpus, queries, res, main):
     return t
 
 
+def phase_lowp_kernels(corpus, res):
+    """K4-bf16 and K4-bf16x3 held to their plain versions, bit for bit, at
+    the main path's shapes with f32 and bf16 input."""
+    import torch
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    cb, exact = res["cb"], res["codes_t"].T
+    for precision in ("bf16_fast", "bf16x3"):
+        for tag, x in (("f32", corpus), ("bf16", corpus.to(torch.bfloat16))):
+            got = ck.pq_encode_fused(x, cb, precision=precision)
+            torch.cuda.synchronize()
+            want = ck.pq_encode_plain(x, cb, precision)
+            assert torch.equal(got, want), f"K4 {precision} {tag}: codes differ from the plain version"
+            match = float((got.to(torch.uint8) == exact).float().mean())
+            log("kernels", f"K4 pq_encode precision={precision} {tag} {tuple(x.shape)} vs 8x256x16: "
+                f"bit-identical to the plain version; {match:.6f} of the codes equal the exact "
+                "f32 encode's")
+
+
+def phase_precision(corpus, queries, main):
+    """The encode precision ladder and ADC distances through the public
+    entry points, on the main phase's quantizer."""
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    pq, exact = main["pq"], main["index"]
+    reset_counts()
+    indexes, t_add = {}, {}
+    for precision in ("high", "default"):
+        indexes[precision] = vq_tpu_torch.PQIndex(pq)
+        t_add[precision] = cuda_once(lambda: indexes[precision].add(corpus, precision=precision))[1]
+    with recording("vq_tpu_torch.models.pq", "adc_lookup_fused") as k8_calls:
+        dists, t_dist = cuda_once(lambda: pq.adc_distances(queries, exact._codes))
+    out = {p: idx.search(queries, k=10) for p, idx in indexes.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log("precision", f"launches in the precision path: {launches}")
+    assert launches["pq_encode_fused[bf16x3]"] == 1 and launches["pq_encode_fused[bf16_fast]"] == 1, launches
+    assert launches["adc_lookup_fused"] >= 1, launches
+    assert tuple(dists.shape) == (N_QUERY, N_CORPUS) and bool(torch.isfinite(dists).all())
+
+    with plain_route():
+        codes_p = {p: pq.encode(corpus, precision=p) for p in indexes}
+        dists_p = pq.adc_distances(queries, exact._codes)
+        want = {p: idx.search(queries, k=10) for p, idx in indexes.items()}
+    assert torch.equal(dists, dists_p), "adc_distances differ from the plain route"
+    recall = {"highest": main["recall"][0]}
+    for p, idx in indexes.items():
+        assert torch.equal(idx._codes, codes_p[p]), f"precision={p}: codes differ from the plain route"
+        _check_search(f"precision={p} search", *out[p])
+        _parity(out[p], want[p], f"precision={p} search")
+        recall[p] = _recall(out[p][0], main["gt"])
+        match = float((idx._codes == exact._codes).float().mean())
+        log("precision", f"PQIndex.add(precision={p!r}) of 1M: {t_add[p]:.4f} ms, codes and "
+            f"search equal the plain route; {match:.6f} of the codes equal the exact encode's; "
+            f"recall@10 {recall[p]:.4f} (exact index {recall['highest']:.4f})")
+    args, _ = k8_calls[0]
+    got = ck.adc_lookup_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.adc_lookup_plain(*args)), "K8: values differ from the plain version"
+    log("kernels", f"K8 adc_lookup tables {tuple(args[0].shape)} x codes {tuple(args[1].shape)} "
+        f"{str(args[1].dtype)[6:]} (adc_distances' operands): bit-identical")
+    log("precision", f"ProductQuantizer.adc_distances [128, 1M]: {t_dist:.4f} ms (first call), "
+        "equal to the plain route")
+    return dict(launches=launches, t_add=t_add, t_dist=t_dist, recall=recall, k8_args=args,
+                indexes=indexes, pq=pq, codes=exact._codes)
+
+
+def _rq_near_ties(x, cbs, got, want):
+    """Rows whose stage codes differ must be float64 near ties at the first
+    stage they differ: the two prefixes' squared residuals within
+    K4_TIE_RTOL of ``||x||^2 + 1``. Returns ``(rows, max gap)``."""
+    import torch
+
+    rows = torch.nonzero((got != want).any(1))[:, 0]
+    if rows.numel() == 0:
+        return 0, 0.0
+    g, w = got[rows].long(), want[rows].long()
+    first = (g != w).int().argmax(1)
+    stage = torch.arange(cbs.shape[0], device=x.device)
+    upto = (stage[None, :] <= first[:, None]).double()[..., None]
+    xd, cd = x[rows].double(), cbs.double()
+    cost_g = ((xd - (cd[stage[None, :], g] * upto).sum(1)) ** 2).sum(-1)
+    cost_w = ((xd - (cd[stage[None, :], w] * upto).sum(1)) ** 2).sum(-1)
+    gap = (cost_g - cost_w).abs()
+    ties = gap <= K4_TIE_RTOL * ((xd * xd).sum(-1) + 1.0)
+    assert bool(ties.all()), f"{int((~ties).sum())} differing RQ codes are not near ties"
+    return rows.numel(), float(gap.max())
+
+
+def phase_rq_path(corpus, queries, gt):
+    """ResidualQuantizer, RQIndex and IVFRQIndex train -> add -> search
+    through the public entry points."""
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    reset_counts()
+    train = corpus[:N_IVF_TRAIN]
+    rq, t_train = cuda_once(lambda: vq_tpu_torch.ResidualQuantizer(
+        train, RQ_STAGES, K, max_iters=RQ_ITERS, seed=1))
+    trained = read_counts()
+    indexes = {"l2": vq_tpu_torch.RQIndex(rq, keep_corpus=True),
+               "cosine": vq_tpu_torch.RQIndex(rq, metric="cosine"),
+               "dot": vq_tpu_torch.RQIndex(rq, metric="dot")}
+    t_add = {name: cuda_once(lambda: idx.add(corpus))[1] for name, idx in indexes.items()}
+    ivf, t_ivf_train = cuda_once(lambda: vq_tpu_torch.IVFRQIndex.train(
+        train, NLIST, RQ_STAGES, K, max_iters=RQ_ITERS))
+    t_ivf_add = cuda_once(lambda: ivf.add(corpus))[1]
+    searches = {"rq": (indexes["l2"], dict(k=10)),
+                f"rq rerank={RQ_RERANK}": (indexes["l2"], dict(k=10, rerank=RQ_RERANK)),
+                "rq cosine": (indexes["cosine"], dict(k=10)), "rq dot": (indexes["dot"], dict(k=10))}
+    searches.update({f"ivfrq nprobe={p}": (ivf, dict(k=10, nprobe=p)) for p in NPROBES})
+    out, per_search = {}, {}
+    with recording("vq_tpu_torch.models.pq", "adc_lookup_fused") as k8_calls:
+        for name, (idx, kw) in searches.items():
+            before = read_counts()
+            out[name] = idx.search(queries, **kw)
+            after = read_counts()
+            per_search[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log("rq", f"launches in the rq path: {launches} (training alone: K1 {trained['assign_fused']}, "
+        f"K2 {trained['lloyd_accumulate_fused']}); by search: {per_search}")
+    on_path = ("assign_fused", "lloyd_accumulate_fused", "adc_scan_topk_fused",
+               "ivf_probe_adc_fused", "adc_lookup_fused")
+    assert all(launches[n] > 0 for n in on_path), f"a kernel was not launched: {launches}"
+    assert per_search[f"rq rerank={RQ_RERANK}"].get("adc_lookup_fused") == -(-N_CORPUS // RQ_CHUNK)
+    assert per_search["rq"].get("adc_scan_topk_fused") == 1 and per_search["rq dot"].get(
+        "adc_scan_topk_fused") == 1, per_search
+
+    with plain_route():
+        codes_p = rq.encode(corpus)
+        lists_p, _ = vq_tpu_torch.assign(corpus, ivf.coarse)
+        want = {name: idx.search(queries, **kw) for name, (idx, kw) in searches.items()}
+    n_codes, gap_codes = _rq_near_ties(corpus, rq.codebooks, indexes["l2"]._codes, codes_p)
+    lists = ivf._flat_lists
+    rows = torch.nonzero(lists != lists_p)[:, 0]
+    gap_lists = _near_ties(corpus, ivf.coarse, lists, lists_p, rows)
+    recall = {}
+    for name, (ids, dist) in out.items():
+        _check_search(name, ids, dist, descending=name == "rq dot")
+        _parity((ids, dist), want[name], name)
+        recall[name] = _recall(ids, gt)
+    log("rq", f"trained {rq!r} in {t_train / 1e3:.4f} s; RQIndex add 1M {t_add['l2']:.4f} ms; "
+        f"{n_codes} of {N_CORPUS} rows' codes differ from the plain encode, all float64 near ties "
+        f"(max gap {gap_codes:.3g}); IVF-RQ trained in {t_ivf_train / 1e3:.4f} s, add 1M "
+        f"{t_ivf_add:.4f} ms, {rows.numel()} lists differ from the plain assign, all near ties "
+        f"(max gap {gap_lists:.3g}); every search equals the plain route; recall@10 " + ", ".join(
+            f"{n}: {v:.4f}" for n, v in recall.items()))
+    assert recall[f"rq rerank={RQ_RERANK}"] >= recall["rq"], recall
+    assert recall[f"ivfrq nprobe={NPROBES[-1]}"] >= recall[f"ivfrq nprobe={NPROBES[0]}"] - 0.01, recall
+
+    args, _ = k8_calls[0]
+    got = ck.adc_lookup_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.adc_lookup_plain(*args)), "K8 (RQ chunk): values differ"
+    log("kernels", f"K8 adc_lookup tables {tuple(args[0].shape)} x codes {tuple(args[1].shape)} "
+        f"{str(args[1].dtype)[6:]} (one chunk of the RQ scan): bit-identical")
+    return dict(rq=rq, indexes=indexes, ivf=ivf, searches=searches, launches=launches,
+                recall=recall, t_train=t_train, t_add=t_add, t_ivf_train=t_ivf_train,
+                t_ivf_add=t_ivf_add, k8_args=args)
+
+
+def phase_new_timings(smi, corpus, queries, res, prec, rqres):
+    """K4-bf16, K4-bf16x3 and K8 (with the library call) timed, and the
+    precision and RQ paths' searches beside their plain routes."""
+    import torch
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    cb, t = res["cb"], {}
+    xb = corpus.to(torch.bfloat16)
+    for p, name in (("bf16_fast", "K4_bf16"), ("bf16x3", "K4_bf16x3")):
+        t[name] = (cuda_ms(lambda: ck.pq_encode_fused(corpus, cb, precision=p), 5),
+                   cuda_ms(lambda: ck.pq_encode_plain(corpus, cb, p), 1), None)
+    t["K4_bf16_bf16in"] = (cuda_ms(lambda: ck.pq_encode_fused(xb, cb, precision="bf16_fast"), 5),
+                           None, None)
+    for name, (tables, codes) in (("K8", prec["k8_args"]), ("K8_rq_chunk", rqres["k8_args"])):
+        q, m, k = tables.shape
+        weight = tables.permute(1, 2, 0).reshape(m * k, q).contiguous()
+        index = (codes.long() + torch.arange(m, device=codes.device) * k).contiguous()
+        lib = torch.nn.functional.embedding_bag(index, weight, mode="sum")
+        err = float((lib.T - ck.adc_lookup_fused(tables, codes)).abs().max())
+        t[name] = (cuda_ms(lambda: ck.adc_lookup_fused(tables, codes), 20),
+                   cuda_ms(lambda: ck.adc_lookup_plain(tables, codes), 3),
+                   cuda_ms(lambda: torch.nn.functional.embedding_bag(index, weight, mode="sum"), 20))
+        log("time", f"{name}: embedding_bag (the library yardstick, [n, Q]) differs from K8 by at "
+            f"most {err:.3g} (summation order) | {smi}")
+    for name, (ms, pms, lms) in t.items():
+        plain = "not measured" if pms is None else f"{pms:.4f} ms"
+        lib = "" if lms is None else f", library call {lms:.4f} ms"
+        log("time", f"{name}: kernel {ms:.4f} ms, plain {plain}{lib} | {smi}")
+    pq, codes = prec["pq"], prec["codes"]
+    ms = cuda_ms(lambda: pq.adc_distances(queries, codes), 10)
+    with plain_route():
+        pms = cuda_ms(lambda: pq.adc_distances(queries, codes), 2)
+    log("time", f"ProductQuantizer.adc_distances [128, 1M]: {ms:.4f} ms, plain route {pms:.4f} ms "
+        f"| {smi}")
+    for p, ms in prec["t_add"].items():
+        log("time", f"PQIndex.add(precision={p!r}) 1M: {N_CORPUS / ms * 1e3:.6g} vectors/s "
+            f"(first call) | {smi}")
+    log("time", f"RQ train 200k x 128, 8x256, {RQ_ITERS} iterations a stage: "
+        f"{rqres['t_train'] / 1e3:.4f} s; IVF-RQ train (IVF{NLIST} + RQ 8x256) "
+        f"{rqres['t_ivf_train'] / 1e3:.4f} s (first calls) | {smi}")
+    log("time", f"RQIndex add 1M: {N_CORPUS / rqres['t_add']['l2'] * 1e3:.6g} vectors/s; IVF-RQ add "
+        f"1M: {N_CORPUS / rqres['t_ivf_add'] * 1e3:.6g} vectors/s (first calls) | {smi}")
+    for name, (idx, kw) in rqres["searches"].items():
+        ms = cuda_ms(lambda: idx.search(queries, **kw), 5)
+        with plain_route():
+            pms = cuda_ms(lambda: idx.search(queries, **kw), 2)
+        log("time", f"{name} search 128 queries: {ms:.4f} ms per batch, {N_QUERY / ms * 1e3:.6g} QPS; "
+            f"plain route {pms:.4f} ms; recall@10 {rqres['recall'][name]:.4f} | {smi}")
+    return t
+
+
+def profile_paths(smi, corpus, queries, prec, rqres):
+    """Each call of the precision and RQ paths once warm,
+    then once under ``torch.profiler``: wall time (host clock to a
+    synchronize), device time (the device activities' own time summed),
+    busy share (device over wall, the profiler's host cost included) and
+    the three kernels that took most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import vq_tpu_torch
+
+    rq, ivf, pq, codes = rqres["rq"], rqres["ivf"], prec["pq"], prec["codes"]
+    calls = {
+        "RQ train 200k, 8x256": lambda: vq_tpu_torch.ResidualQuantizer(
+            corpus[:N_IVF_TRAIN], RQ_STAGES, K, max_iters=RQ_ITERS, seed=1),
+        "RQIndex.add 1M (fresh index)": lambda: vq_tpu_torch.RQIndex(rq).add(corpus),
+        "IVFRQIndex.add 1M (fresh index)": lambda: vq_tpu_torch.IVFRQIndex(ivf.coarse, rq).add(corpus),
+        "PQIndex.add precision=high 1M": lambda: vq_tpu_torch.PQIndex(pq).add(corpus, precision="high"),
+        "PQIndex.add precision=default 1M": lambda: vq_tpu_torch.PQIndex(pq).add(
+            corpus, precision="default"),
+        "adc_distances [128, 1M]": lambda: pq.adc_distances(queries, codes),
+    }
+    for name, (idx, kw) in rqres["searches"].items():
+        calls[f"{name} search"] = lambda idx=idx, kw=kw: idx.search(queries, **kw)
+    cuda = torch.autograd.DeviceType.CUDA
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        dev = sum(e.self_device_time_total for e in evts) / 1e3
+        top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
+        log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
+            + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
+            + f" | {smi}")
+
+
+def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec):
+    """``{kernel: (bound ms, "bytes" or "operations")}`` at the shapes this
+    run gave each kernel: each input read once, each output written once,
+    the operations over the fp32 (CUDA cores) or bf16 (tensor cores) peak."""
+    import torch
+
+    d, s = DIM, DIM // M
+    pq_ops = 2.0 * N_CORPUS * M * K * s
+    x_bytes = N_CORPUS * d * 4
+    out = {
+        "K1": bound(x_bytes + NLIST * d * 4 + N_CORPUS * 8, 2.0 * N_CORPUS * NLIST * d, PEAK_F32),
+        "K2": bound(N_IVF_TRAIN * d * 4 + 2 * NLIST * d * 4 + NLIST * 8,
+                    2.0 * N_IVF_TRAIN * NLIST * d, PEAK_F32),
+        "K3": bound(N_TRAIN * d * 4 + 2 * M * K * s * 4 + M * K * 4, 2.0 * N_TRAIN * M * K * s, PEAK_F32),
+        "K4": bound(x_bytes + M * K * s * 4 + N_CORPUS * M * 4, pq_ops, PEAK_F32),
+        "K4_bf16": bound(x_bytes + M * K * s * 4 + N_CORPUS * M * 4, pq_ops, PEAK_BF16),
+        "K4_bf16x3": bound(x_bytes + 2 * M * K * s * 4 + N_CORPUS * M * 4, 3 * pq_ops, PEAK_BF16),
+    }
+    tiles = -(-N_CORPUS // 2048)
+    out["K5"] = bound(N_CORPUS * M + N_QUERY * M * K * 4 + N_QUERY * tiles * 128 * 8,
+                      1.0 * N_QUERY * N_CORPUS * M, PEAK_F32)
+    # K7 and K6 read the rows of the chunks probed (each chunk once, however
+    # many pairs probe it) and do their arithmetic on every live position.
+    tables, chains, codes = k7_cases[NPROBES[0]]
+    pairs, m, kk = tables.shape
+    ch, cap = codes.shape[1], ivf["index"]._pool.cap
+    pos = torch.arange(chains.shape[1] * ch, device=chains.device)
+    live = int(((chains >= 0).repeat_interleave(ch, dim=1) & (pos < cap)).sum())
+    chunks = torch.unique(chains[chains >= 0]).numel()
+    out["K7"] = bound(chunks * ch * m + pairs * m * kk * 4 + pairs * pos.numel() * 4
+                      + chains.numel() * 4, 1.0 * live * m, PEAK_F32)
+    (lhs, chains6, payload), kw, gb = k6_cases[("flat_f32", NPROBES[0])]
+    d6, ch6 = payload.shape[2], payload.shape[1]
+    rows6 = gb * 1e9 / (d6 * 4)
+    chunks6 = torch.unique(chains6[chains6 >= 0]).numel()
+    out["K6"] = bound(chunks6 * ch6 * d6 * 4 + lhs.numel() * 4 + lhs.shape[0] * chains6.shape[1] * ch6 * 4
+                      + chains6.numel() * 4, 2.0 * rows6 * d6, PEAK_F32)
+    tables8, codes8 = prec["k8_args"]
+    q8, m8, k8 = tables8.shape
+    n8 = codes8.shape[0]
+    out["K8"] = bound(q8 * n8 * 4 + n8 * m8 * codes8.element_size() + q8 * m8 * k8 * 4,
+                      1.0 * q8 * n8 * m8, PEAK_F32)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -754,6 +1117,7 @@ def main() -> None:
         f"queries {tuple(queries.shape)}, {N_CLUSTERS} clusters of rank-{LATENT} "
         f"covariance, seed {SEED}")
     res = phase_kernels(corpus, queries, g)
+    phase_lowp_kernels(corpus, res)
     kres = phase_ivf_kernels(corpus, g)
     main_res = phase_main_path(corpus, queries)
     ivf = phase_ivf_path(corpus, queries, main_res["gt"])
@@ -763,39 +1127,55 @@ def main() -> None:
     flat = phase_flat_path(corpus, queries, main_res["gt"])
     k6_cases, k6_err = phase_k6(flat)
     t.update(phase_flat_timings(smi, queries, flat, k6_cases))
+    prec = phase_precision(corpus, queries, main_res)
+    rqres = phase_rq_path(corpus, queries, main_res["gt"])
+    t_new = phase_new_timings(smi, corpus, queries, res, prec, rqres)
+    profile_paths(smi, corpus, queries, prec, rqres)
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
     for name in ("assign_fused", "lloyd_accumulate_fused", "ivf_probe_adc_fused"):
         launches[name] = ivf["launches"][name]
     launches["ivf_probe_matvec_fused"] = flat["launches"]["ivf_probe_matvec_fused"]
+    pl, rl = prec["launches"], rqres["launches"]
+    bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec)
     src = "vq_tpu_torch/csrc/"
     tpu = "vq_tpu/ops/pallas_kernels.py:"
+
+    def row(name, source, replaces, n, err, key, times, extra=None):
+        ms, pms = times[:2]
+        b_ms, b_by = bounds[key]
+        entry = {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
+                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": times[2] if len(times) > 2 else None}
+        entry.update(extra or {})
+        return entry
+
     kernels = [
-        {"name": "pq_lloyd_accumulate_fused", "route": "cuda", "source": src + "pq_lloyd.cu",
-         "replaces": tpu + "569", "launches": launches["pq_lloyd_accumulate_fused"],
-         "max_abs_err": res["k3_err"], "ms": t["K3"][0], "plain_ms": t["K3"][1]},
-        {"name": "pq_encode_fused", "route": "cuda", "source": src + "pq_encode.cu",
-         "replaces": tpu + "379", "launches": launches["pq_encode_fused"],
-         "max_abs_err": res["k4_err"], "ms": t["K4"][0], "plain_ms": t["K4"][1]},
-        {"name": "adc_scan_topk_fused", "route": "cuda", "source": src + "adc_topk.cu",
-         "replaces": tpu + "802", "launches": launches["adc_scan_topk_fused"],
-         "max_abs_err": res["k5_err"], "ms": t["K5"][0], "plain_ms": t["K5"][1]},
-        {"name": "assign_fused", "route": "cuda", "source": src + "assign.cu",
-         "replaces": tpu + "137", "launches": launches["assign_fused"],
-         "max_abs_err": kres["k1_err"], "ms": t["K1"][0], "plain_ms": t["K1"][1]},
-        {"name": "lloyd_accumulate_fused", "route": "cuda", "source": src + "lloyd.cu",
-         "replaces": tpu + "1473", "launches": launches["lloyd_accumulate_fused"],
-         "max_abs_err": kres["k2_err"], "ms": t["K2"][0], "plain_ms": t["K2"][1]},
-        {"name": "ivf_probe_adc_fused", "route": "cuda", "source": src + "ivf_probe.cu",
-         "replaces": tpu + "1189", "also_replaces": tpu + "1147",
-         "launches": launches["ivf_probe_adc_fused"], "max_abs_err": 0.0,
-         "ms": t["K7_nprobe8"][0], "plain_ms": t["K7_nprobe8"][1]},
-        {"name": "ivf_probe_matvec_fused", "route": "cuda", "source": src + "ivf_matvec.cu",
-         "replaces": tpu + "1356", "launches": launches["ivf_probe_matvec_fused"],
-         "max_abs_err": k6_err, "ms": t["K6_float32_nprobe8"][0],
-         "plain_ms": t["K6_float32_nprobe8"][1]},
+        row("pq_lloyd_accumulate_fused", "pq_lloyd.cu", "569", launches["pq_lloyd_accumulate_fused"],
+            res["k3_err"], "K3", t["K3"]),
+        row("pq_encode_fused", "pq_encode.cu", "379", launches["pq_encode_fused"], res["k4_err"],
+            "K4", t["K4"]),
+        row("adc_scan_topk_fused", "adc_topk.cu", "802", launches["adc_scan_topk_fused"],
+            res["k5_err"], "K5", t["K5"]),
+        row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"]),
+        row("lloyd_accumulate_fused", "lloyd.cu", "1473", launches["lloyd_accumulate_fused"],
+            kres["k2_err"], "K2", t["K2"]),
+        row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", launches["ivf_probe_adc_fused"], 0.0,
+            "K7", t["K7_nprobe8"], {"also_replaces": tpu + "1147"}),
+        row("ivf_probe_matvec_fused", "ivf_matvec.cu", "1356", launches["ivf_probe_matvec_fused"],
+            k6_err, "K6", t["K6_float32_nprobe8"]),
+        row("pq_encode_fused[bf16_fast]", "pq_encode.cu", "404", pl["pq_encode_fused[bf16_fast]"],
+            0.0, "K4_bf16", t_new["K4_bf16"]),
+        row("pq_encode_fused[bf16x3]", "pq_encode.cu", "420", pl["pq_encode_fused[bf16x3]"],
+            0.0, "K4_bf16x3", t_new["K4_bf16x3"]),
+        row("adc_lookup_fused", "adc_lookup.cu", "727", pl["adc_lookup_fused"] + rl["adc_lookup_fused"],
+            0.0, "K8", t_new["K8"], {"launches_by_path": {"precision": pl["adc_lookup_fused"],
+                                                          "rq": rl["adc_lookup_fused"]}}),
     ]
+    for k in kernels:
+        log("bound", f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}), {k['bound_ms'] / k['ms']:.3f} of it | {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

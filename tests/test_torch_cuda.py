@@ -5,9 +5,10 @@ installed; ``tests/conftest.py`` needs JAX, so there run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 codes and distances, K4 codes, K5 values and ids, K6
-and K7 values, and IVF-Flat / IVF-SQ searches exact (the kernels repeat
-the plain versions' fp32 arithmetic);
+Tolerances: K1 codes and distances, K4 / K4-bf16 / K4-bf16x3 codes, K5
+values and ids, K6, K7 and K8 values, and IVF-Flat / IVF-SQ / RQ /
+IVF-RQ searches exact (the kernels repeat the plain versions' fp32
+arithmetic);
 K2 and K3 counts exact, sums at rtol 1e-5 / atol 1e-4 and inertia at
 rtol 1e-5 (fp32 summation order), and both bit-identical from one run
 to the next.
@@ -45,6 +46,47 @@ def test_pq_encode_matches_plain(card, shape, dtype):
     got = ck.pq_encode_fused(x, cb)
     torch.cuda.synchronize()
     assert torch.equal(got, ck.pq_encode_plain(x, cb))
+
+
+@pytest.mark.parametrize("precision", ["bf16_fast", "bf16x3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _PQ_SHAPES)
+def test_pq_encode_lowp_matches_plain(card, shape, dtype, precision):
+    """K4-bf16 and K4-bf16x3: products of bf16 values are exact in f32,
+    so the CUDA-core sums equal the plain version bit for bit."""
+    m, k, s = shape
+    g = torch.Generator(device=card).manual_seed(11)
+    x = torch.randn(5001, m * s, generator=g, device=card).to(dtype)
+    cb = torch.randn(m, k, s, generator=g, device=card)
+    before = ck.pq_encode_fused.launches
+    got = ck.pq_encode_fused(x, cb, precision=precision)
+    torch.cuda.synchronize()
+    assert ck.pq_encode_fused.launches == before + 1
+    assert torch.equal(got, ck.pq_encode_plain(x, cb, precision))
+
+
+# (code type, Q, m, k, n): tables of six queries in shared memory with a
+# ragged n and Q; 32 KB a query (one a block); tables past shared memory
+# (read through L2); m past the 32 codes kept in registers; i32 codes
+# outside [0, k).
+_LOOKUP_SHAPES = [("u8", 20, 8, 256, 70_001), ("i32", 7, 8, 1000, 5000),
+                  ("i32", 3, 4, 4096, 3001), ("u8", 5, 40, 16, 2000), ("i32-oob", 9, 6, 100, 4099)]
+
+
+@pytest.mark.parametrize("shape", _LOOKUP_SHAPES, ids=lambda c: "%s-Q%d-m%d-k%d-n%d" % c)
+def test_adc_lookup_matches_plain(card, shape):
+    ctype, q, m, k, n = shape
+    g = torch.Generator(device=card).manual_seed(12)
+    tables = torch.randn(q, m, k, generator=g, device=card)
+    if ctype == "u8":
+        codes = torch.randint(0, k, (n, m), generator=g, device=card).to(torch.uint8)
+    else:
+        lo, hi = (-5, k + 5) if ctype == "i32-oob" else (0, k)
+        codes = torch.randint(lo, hi, (n, m), generator=g, device=card, dtype=torch.int32)
+    got = ck.adc_lookup_fused(tables, codes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.adc_lookup_plain(tables, codes))
+    assert torch.equal(ck.adc_lookup_fused(tables, codes.to(torch.int64)), got)
 
 
 def test_pq_encode_nan_and_ties(card):
@@ -272,6 +314,41 @@ def test_ivf_flat_and_sq_search_equal_plain_route(card, monkeypatch):
             assert torch.equal(got[0], want[0]), (idx, nprobe)
 
 
+def test_rq_and_ivfrq_search_equal_plain_route(card, monkeypatch):
+    """RQIndex (K5 l2 / dot, K8 over chunks for rerank and cosine) and
+    IVFRQIndex (K1 at add, K7 at search) on the card, each search equal
+    to the same search with every kernel wrapper swapped for its plain
+    version."""
+    import vq_tpu_torch
+    import vq_tpu_torch.ivf_flat as ivf_flat
+    import vq_tpu_torch.models.pq as pq
+    import vq_tpu_torch.search as search
+
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(30_000, 32, generator=g, device=card) @ torch.randn(32, 32, generator=g, device=card)
+    q = x[:40] + 0.05
+    quant = vq_tpu_torch.ResidualQuantizer(x[:5000], 4, 64, max_iters=4)
+    indexes = [vq_tpu_torch.RQIndex(quant, metric=m, keep_corpus=True)
+               for m in ("squared_euclidean", "dot", "cosine")]
+    ivf = vq_tpu_torch.IVFRQIndex.train(x[:5000], 16, 4, 64, max_iters=4)
+    for idx in indexes + [ivf]:
+        idx.add(x)
+    calls = [(idx, dict(k=10)) for idx in indexes] + [(indexes[0], dict(k=10, rerank=200)),
+                                                      (indexes[0], dict(k=10, chunk=7000))]
+    calls += [(ivf, dict(k=10, nprobe=p)) for p in (2, 16)]
+    fns = (ck.adc_scan_topk_fused, ck.adc_lookup_fused, ck.ivf_probe_adc_fused)
+    before = [f.launches for f in fns]
+    got = [idx.search(q, **kw) for idx, kw in calls]
+    assert all(f.launches > b for f, b in zip(fns, before))
+    with monkeypatch.context() as mp:
+        for mod, name in ((search, "adc_scan_topk_fused"), (pq, "adc_lookup_fused"),
+                          (ivf_flat, "ivf_probe_adc_fused")):
+            mp.setattr(mod, name, getattr(ck, name.replace("_fused", "_plain")))
+        want = [idx.search(q, **kw) for idx, kw in calls]
+    for (gi, gd), (wi, wd) in zip(got, want):
+        assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
 def test_seeded_training_is_reproducible(card):
     """Seeded k-means++ and Lloyd give bit-identical results from one call
     to the next on one card (K2 is deterministic, and the k-means++ draws
@@ -292,8 +369,10 @@ def test_launch_counters_count_card_launches(card):
     x = torch.rand(100, 8, device=card)
     cb = torch.rand(2, 5, 4, device=card)
     fns = (ck.pq_encode_fused, ck.pq_lloyd_accumulate_fused, ck.assign_fused,
-           ck.lloyd_accumulate_fused, ck.ivf_probe_adc_fused, ck.ivf_probe_matvec_fused)
+           ck.lloyd_accumulate_fused, ck.ivf_probe_adc_fused, ck.ivf_probe_matvec_fused,
+           ck.adc_lookup_fused)
     before = [f.launches for f in fns]
+    ck.adc_lookup_fused(torch.rand(3, 2, 5, device=card), torch.zeros(7, 2, dtype=torch.uint8, device=card))
     ck.pq_encode_fused(x, cb)
     ck.pq_lloyd_accumulate_fused(x, cb)
     ck.assign_fused(x, x[:5])

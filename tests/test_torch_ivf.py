@@ -32,6 +32,15 @@ from vq_tpu.ops import pallas_kernels as pk
 from vq_tpu_torch.convert import from_state
 from vq_tpu_torch.ivf import IVFPQIndex as TIndex
 from vq_tpu_torch.ops import cuda_kernels as ck
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
+
 
 _ADC_TOL = {"rtol": 1e-5, "atol": 1e-4}
 _EXACT_TOL = {"rtol": 1e-5, "atol": 1e-5}

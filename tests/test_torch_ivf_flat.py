@@ -42,6 +42,15 @@ from vq_tpu.ivf_flat import _ivf_flat_search_jit, _ivf_sq_search_jit
 from vq_tpu.ops import pallas_kernels as pk
 from vq_tpu_torch.convert import from_state, state_of
 from vq_tpu_torch.ops import cuda_kernels as ck
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
+
 
 _TOL = {"rtol": 1e-5, "atol": 1e-3}
 _KERNEL_TOL = {"rtol": 1e-5, "atol": 1e-5}

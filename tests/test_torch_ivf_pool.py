@@ -15,6 +15,15 @@ import torch
 
 from vq_tpu import ivf_pool as jpool
 from vq_tpu_torch import ivf_pool as tpool
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
+
 
 _NLIST, _M = 12, 3
 

@@ -1,10 +1,11 @@
-"""The port's three kernels against the JAX package's Pallas kernels.
+"""The port's kernels K3, K4, K5 and K8 against the JAX package's Pallas
+kernels.
 
 On the CPU each wrapper of ``vq_tpu_torch.ops.cuda_kernels`` runs its
 plain PyTorch version, which is the arithmetic the CUDA kernel is held to
 on the card; here it is held to the Pallas kernel run in interpret mode,
 on the same numpy inputs. Tolerances: codes, counts, ADC values and ids
-exact; K3 sums at rtol 1e-5 / atol 1e-4 and inertia at rtol 1e-5 (fp32
+exact (K8's sums too, bit for bit, on finite tables); K3 sums at rtol 1e-5 / atol 1e-4 and inertia at rtol 1e-5 (fp32
 summation order). ``test_torch_cuda.py`` holds each CUDA kernel to its
 plain version on the card.
 """
@@ -16,6 +17,14 @@ import torch
 
 from vq_tpu.ops import pallas_kernels as pk
 from vq_tpu_torch.ops import cuda_kernels as ck
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
 
 
 def _t(a):
@@ -157,8 +166,63 @@ def test_cpu_tensors_never_launch():
     ck.pq_encode_fused(x, cb)
     ck.pq_lloyd_accumulate_fused(x, cb)
     ck.adc_scan_topk_fused(torch.rand(2, 2, 5), torch.zeros(2, 50, dtype=torch.uint8), 4)
+    ck.adc_lookup_fused(torch.rand(2, 2, 5), torch.zeros(50, 2, dtype=torch.uint8))
+    for precision in ck.ENCODE_PRECISIONS:
+        ck.pq_encode_fused(x, cb, precision=precision)
     assert before == (
         ck.pq_encode_fused.launches,
         ck.pq_lloyd_accumulate_fused.launches,
         ck.adc_scan_topk_fused.launches,
     )
+    assert ck.adc_lookup_fused.launches == 0
+
+
+# K8 (dense ADC table sum): (code type, k, codes outside [0, k) mixed in).
+_LOOKUP_CASES = [("u8", 200, False), ("u8", 37, False), ("u8", 100, True),
+                 ("i32", 256, False), ("i32", 1000, False), ("i32", 100, True)]
+
+
+@pytest.mark.parametrize("case", _LOOKUP_CASES, ids=lambda c: "%s-k%d-oob%d" % c)
+def test_adc_lookup_matches_pallas(case):
+    """K8's plain version against the Pallas one-hot kernel, bit for bit:
+    each sum from +0.0 in subspace order, a code outside [0, k) adds 0."""
+    ctype, k, oob = case
+    rng = np.random.default_rng(k + 3 * oob)
+    q, m, n = 5, 6, 1333  # n not a multiple of the Pallas tile
+    tables = rng.normal(0, 2, (q, m, k)).astype(np.float32)
+    lo, hi = (-3, k + 3) if oob and ctype == "i32" else (0, 256 if oob else k)
+    codes = rng.integers(lo, hi, (n, m)).astype(np.uint8 if ctype == "u8" else np.int32)
+    want = np.asarray(pk.adc_lookup_fused(tables, codes, block_cols=512, interpret=True))
+    got = ck.adc_lookup_fused(_t(tables), _t(codes))
+    assert got.shape == (q, n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if oob:
+        assert ((codes < 0) | (codes >= k)).any()
+
+
+def test_adc_lookup_equals_the_pq_adc_sum():
+    """``models.pq._adc_lookup`` is K8, and K8 equals the sum of gathers
+    in subspace order (the order every ADC path shares)."""
+    from vq_tpu_torch.models.pq import _adc_lookup
+
+    rng = np.random.default_rng(31)
+    tables = _t(rng.random((3, 4, 16), dtype=np.float32))
+    codes = _t(rng.integers(0, 16, (50, 4)).astype(np.int64))
+    want = torch.zeros(3, 50)
+    for i in range(4):
+        want = want + tables[:, i, :][:, codes[:, i]]
+    assert torch.equal(_adc_lookup(tables, codes), want)
+    assert torch.equal(ck.adc_lookup_fused(tables, codes.to(torch.uint8)), want)
+
+
+@pytest.mark.parametrize("bad", ["tables_2d", "codes_width", "codes_1d"])
+def test_adc_lookup_rejects_bad_operands(bad):
+    tables, codes = torch.rand(2, 3, 8), torch.zeros(10, 3, dtype=torch.uint8)
+    if bad == "tables_2d":
+        tables = tables[0]
+    elif bad == "codes_width":
+        codes = codes[:, :2]
+    else:
+        codes = codes[:, 0]
+    with pytest.raises(ValueError):
+        ck.adc_lookup_fused(tables, codes)

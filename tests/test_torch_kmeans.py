@@ -33,6 +33,14 @@ import vq_tpu_torch.errors as terr
 import vq_tpu_torch.ops.kmeans as tkm
 from vq_tpu.ops import pallas_kernels as pk
 from vq_tpu_torch.ops import cuda_kernels as ck
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
 
 
 def _t(a):

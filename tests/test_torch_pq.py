@@ -16,6 +16,15 @@ import vq_tpu.errors as jerr
 import vq_tpu.models.pq as jpq
 import vq_tpu_torch.errors as terr
 import vq_tpu_torch.models.pq as tpq
+from vq_tpu_torch.models.base import default_device
+from vq_tpu_torch.ops import cuda_kernels as ck
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
 
 
 def assert_search_parity(got, want, *, rtol=1e-5, atol=1e-6):
@@ -164,8 +173,12 @@ def test_bad_inputs_raise_like_jax(case):
 
 
 def test_unported_precision_raises():
-    with pytest.raises(terr.InvalidParameter, match="not ported"):
-        tpq.pq_encode(np.ones((3, 8), np.float32), np.ones((2, 4, 4), np.float32), precision="high")
+    """Every precision name of the JAX package is ported; the kernel
+    wrapper takes only the kernels' own names and refuses the rest."""
+    x, cb = torch.ones((3, 8)), torch.ones((2, 4, 4))
+    assert tpq.pq_encode(x, cb, precision="high").shape == (3, 2)
+    with pytest.raises(terr.InvalidParameter, match="must be one of"):
+        ck.pq_encode_fused(x, cb, precision="high")
 
 
 def test_lloyd_batched_warm_start_matches_jax():

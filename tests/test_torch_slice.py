@@ -32,6 +32,15 @@ import vq_tpu
 import vq_tpu_torch
 from vq_tpu_torch.convert import from_state, state_of
 from test_torch_pq import assert_search_parity
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
+
 
 _RERANK_TOL = {"rtol": 1e-5, "atol": 1e-3}  # expanded-form exact distances
 

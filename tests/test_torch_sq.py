@@ -25,6 +25,14 @@ from vq_tpu.utils import load as jload
 from vq_tpu.utils import save as jsave
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer as TPerDim
 from vq_tpu_torch.models.sq import ScalarQuantizer as TSQ
+from vq_tpu_torch.models.base import default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with default_device("cpu"):
+        yield
 
 
 def _eq(got, want):

@@ -2,17 +2,23 @@
 
 Ported so far: the product-quantization main path — train a
 :class:`ProductQuantizer`, build a :class:`PQIndex` and ``add`` a corpus
-(which encodes it), then ``search`` query batches with the flat ADC
-top-k — and the IVF ladder's IVF-Flat, IVF-SQ and IVF-PQ indexes:
-``train`` (k-means with :func:`lloyd`; then per-dimension SQ ranges or
-PQ codebooks on the residuals), ``add`` (coarse :func:`assign`, then
-the raw row, its SQ code or its residual PQ code) and probed ``search``,
-with the :class:`ScalarQuantizer` / :class:`PerDimScalarQuantizer` they
-need. Their seven kernels — assign, Lloyd accumulate, PQ Lloyd
-accumulate, exact PQ encode, the ADC scan with per-tile top-k, the IVF
-probe matvec and the IVF ADC probe — are CUDA C++ for ``sm_90a`` in
-``vq_tpu_torch/csrc``, built with nvcc on first use. On CPU tensors the
-same functions run their plain PyTorch versions.
+(which encodes it, exactly or at the bf16 precisions), then ``search``
+query batches with the flat ADC top-k; residual quantization
+(:class:`ResidualQuantizer`, greedy or beam encode, joint refinement) and
+its flat :class:`RQIndex`; and the IVF ladder's IVF-Flat, IVF-SQ, IVF-PQ
+and IVF-RQ indexes: ``train`` (k-means with :func:`lloyd`; then
+per-dimension SQ ranges, PQ or RQ codebooks on the residuals), ``add``
+(coarse :func:`assign`, then the raw row or its SQ, PQ or RQ code) and
+probed ``search``. Their kernels — assign, Lloyd accumulate, PQ Lloyd
+accumulate, PQ encode (exact, bf16 and bf16x3), the ADC scan with
+per-tile top-k, the IVF probe matvec, the IVF ADC probe and the dense ADC
+table sum — are CUDA C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built
+with nvcc on first use.
+
+Entry points run on the card: input that is not a tensor lands on
+``cuda`` unless a ``device`` is given (or :func:`default_device` names
+another). On CPU tensors the same functions run their plain PyTorch
+versions, the arithmetic each kernel is held to.
 
 fp32 products run in full fp32: TF32 is switched off for matmuls and
 cuDNN on import, because TF32 keeps about three decimal digits and would
@@ -23,7 +29,8 @@ move codes and neighbours away from the JAX reference.
 >>> data = np.tile(
 ...     np.array([[0., 0., 1., 1.], [1., 1., 0., 0.]], np.float32), (8, 1)
 ... )
->>> pq = vq_tpu_torch.ProductQuantizer(data, num_subspaces=2, num_centroids=2)
+>>> pq = vq_tpu_torch.ProductQuantizer(data, num_subspaces=2, num_centroids=2,
+...                                    device="cpu")
 >>> codes = pq.encode(data)
 >>> tuple(codes.shape), codes.dtype
 ((16, 2), torch.uint8)
@@ -41,14 +48,21 @@ from vq_tpu_torch.errors import (
     VqError,
 )
 from vq_tpu_torch.ivf import IVFPQIndex
-from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFSQIndex
-from vq_tpu_torch.models.base import Quantizer
+from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
+from vq_tpu_torch.models.base import Quantizer, default_device
 from vq_tpu_torch.models.pq import ProductQuantizer, pq_decode, pq_encode, pq_train
+from vq_tpu_torch.models.rq import (
+    ResidualQuantizer,
+    rq_decode,
+    rq_encode,
+    rq_refine_joint,
+    rq_train,
+)
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
 from vq_tpu_torch.ops.distance import Metric, pairwise
 from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
-from vq_tpu_torch.search import PQIndex
+from vq_tpu_torch.search import PQIndex, RQIndex
 from vq_tpu_torch.utils.serialize import load, save
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,19 +81,27 @@ __all__ = [
     "pq_train",
     "pq_encode",
     "pq_decode",
+    "ResidualQuantizer",
+    "rq_train",
+    "rq_encode",
+    "rq_decode",
+    "rq_refine_joint",
     "Metric",
     "pairwise",
     "bits_for",
     "pack_codes",
     "unpack_codes",
     "PQIndex",
+    "RQIndex",
     "IVFPQIndex",
     "IVFFlatIndex",
     "IVFSQIndex",
+    "IVFRQIndex",
     "KMeansResult",
     "assign",
     "lloyd",
     "kmeans_plusplus_init_device",
+    "default_device",
     "save",
     "load",
 ]

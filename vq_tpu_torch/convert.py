@@ -25,7 +25,14 @@ Kinds ported so far (config; arrays):
   in id order, bf16 rows as their uint16 bits, since npz has no bf16);
 * ``"ivfsq_index"`` — :class:`IVFSQIndex` (``metric``, ``by_residual``,
   ``levels``, ``max_list_size``; ``coarse``, ``mins``, ``maxs``, ``codes``,
-  ``sqn`` and ``lists`` in id order).
+  ``sqn`` and ``lists`` in id order);
+* ``"rq"`` — :class:`ResidualQuantizer` (none; ``codebooks``);
+* ``"rq_index"`` — :class:`RQIndex` (``metric``, ``keep_corpus``,
+  ``beam``; ``codebooks``, ``codes``, ``row_sqn`` and, when kept,
+  ``corpus``);
+* ``"ivfrq_index"`` — :class:`IVFRQIndex` (``metric``, ``by_residual``,
+  ``beam``, ``max_list_size``; ``coarse``, ``codebooks``, ``codes``,
+  ``sqn``, ``cross`` and ``lists`` in id order).
 
 A JAX index carries across as, e.g., ``from_state("ivfflat_index",
 config, {"coarse": ..., "rows": ..., "lists": ...})``: the port's index
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from vq_tpu_torch.errors import InvalidData, InvalidParameter
+from vq_tpu_torch.models.base import as_tensor, resolve_device
 
 State = Tuple[str, Dict[str, Any], Dict[str, np.ndarray]]
 
@@ -68,11 +76,37 @@ def _pool_flat(idx, name: str, empty: np.ndarray) -> np.ndarray:
 def state_of(obj) -> State:
     """``(kind, config, arrays)`` of a port object, arrays as numpy."""
     from vq_tpu_torch.ivf import IVFPQIndex
-    from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFSQIndex
+    from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
     from vq_tpu_torch.models.pq import ProductQuantizer
+    from vq_tpu_torch.models.rq import ResidualQuantizer
     from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
-    from vq_tpu_torch.search import PQIndex
+    from vq_tpu_torch.search import PQIndex, RQIndex
 
+    if isinstance(obj, IVFRQIndex):
+        s = obj.rq.num_stages
+        config = {"metric": obj.metric, "by_residual": obj.by_residual, "beam": obj.beam,
+                  "max_list_size": obj.max_list_size}
+        return "ivfrq_index", config, {
+            "coarse": _np(obj.coarse), "codebooks": _np(obj.rq.codebooks),
+            "codes": _np(_pool_flat(obj, "codes", np.zeros((0, s), np.uint8))),
+            "sqn": _np(_pool_flat(obj, "sqn", np.zeros((0,), np.float32))),
+            "cross": _np(_pool_flat(obj, "cross", np.zeros((0,), np.float32))),
+            "lists": _lists(obj),
+        }
+    if isinstance(obj, RQIndex):
+        arrays = {
+            "codebooks": _np(obj.rq.codebooks),
+            "codes": (_np(obj._codes) if obj._codes is not None
+                      else np.zeros((0, obj.rq.num_stages), np.uint8)),
+            "row_sqn": (_np(obj._row_sqn) if obj._row_sqn is not None
+                        else np.zeros((0,), np.float32)),
+        }
+        if obj.keep_corpus and obj._corpus is not None:
+            arrays["corpus"] = _np(obj._corpus)
+        config = {"metric": obj.metric, "keep_corpus": bool(obj.keep_corpus), "beam": obj.beam}
+        return "rq_index", config, arrays
+    if isinstance(obj, ResidualQuantizer):
+        return "rq", {}, {"codebooks": _np(obj.codebooks)}
     if isinstance(obj, IVFFlatIndex):
         rows = _pool_flat(obj, "rows", np.zeros((0, obj.dim), np.float32))
         if obj.store_dtype == "bfloat16" and rows.shape[0]:
@@ -150,7 +184,7 @@ def _ivfflat_from(config, arrays, device):
             rows_t = torch.from_numpy(rows.view(np.int16).copy()).view(torch.bfloat16)
         else:
             rows_t = torch.as_tensor(rows)
-        lists = torch.as_tensor(np.asarray(arrays["lists"], np.int32), device=device)
+        lists = as_tensor(np.asarray(arrays["lists"], np.int32), device)
         idx._append_rows(lists, rows_t.to(device))
     return idx
 
@@ -167,9 +201,46 @@ def _ivfsq_from(config, arrays, device):
     )
     codes = np.asarray(arrays["codes"])
     if codes.shape[0]:
-        lists = torch.as_tensor(np.asarray(arrays["lists"], np.int32), device=device)
-        idx._append(lists, {"codes": torch.as_tensor(codes, device=device),
-                            "sqn": torch.as_tensor(np.asarray(arrays["sqn"]), device=device)})
+        lists = as_tensor(np.asarray(arrays["lists"], np.int32), device)
+        idx._append(lists, {"codes": as_tensor(codes, device),
+                            "sqn": as_tensor(np.asarray(arrays["sqn"]), device)})
+    return idx
+
+
+def _rq_from(arrays, device):
+    from vq_tpu_torch.models.rq import ResidualQuantizer
+
+    return ResidualQuantizer(codebooks=np.asarray(arrays["codebooks"], np.float32),
+                             device=device)
+
+
+def _rq_index_from(config, arrays, device):
+    from vq_tpu_torch.search import RQIndex
+
+    idx = RQIndex(_rq_from(arrays, device), metric=config["metric"],
+                  keep_corpus=bool(config["keep_corpus"]), beam=config.get("beam", 1))
+    codes = np.asarray(arrays["codes"])
+    if codes.shape[0]:
+        idx._codes = as_tensor(codes, device)
+        idx._row_sqn = as_tensor(np.asarray(arrays["row_sqn"]), device)
+    if "corpus" in arrays:
+        idx._corpus = as_tensor(np.asarray(arrays["corpus"]), device)
+    return idx
+
+
+def _ivfrq_from(config, arrays, device):
+    from vq_tpu_torch.ivf_flat import IVFRQIndex
+
+    idx = IVFRQIndex(
+        np.asarray(arrays["coarse"], np.float32), _rq_from(arrays, device),
+        metric=config["metric"], by_residual=bool(config["by_residual"]),
+        beam=config.get("beam", 1), max_list_size=config.get("max_list_size"), device=device,
+    )
+    codes = np.asarray(arrays["codes"])
+    if codes.shape[0]:
+        lists = as_tensor(np.asarray(arrays["lists"], np.int32), device)
+        idx._append(lists, {name: as_tensor(np.asarray(arrays[name]), device)
+                            for name in ("codes", "sqn", "cross")})
     return idx
 
 
@@ -186,10 +257,10 @@ def _ivfpq_from(config, arrays, device):
     )
     codes = np.asarray(arrays["flat_codes"])
     if codes.shape[0]:
-        lists = torch.as_tensor(np.asarray(arrays["flat_lists"], np.int32), device=device)
-        idx._pool_append(lists, torch.as_tensor(codes, device=device))
+        lists = as_tensor(np.asarray(arrays["flat_lists"], np.int32), device)
+        idx._pool_append(lists, as_tensor(codes, device))
     if "corpus" in arrays:
-        idx._corpus = torch.as_tensor(np.asarray(arrays["corpus"]), device=device)
+        idx._corpus = as_tensor(np.asarray(arrays["corpus"]), device)
     return idx
 
 
@@ -202,9 +273,9 @@ def _pq_index_from(config, arrays, device):
                   keep_corpus=bool(config["keep_corpus"]), packed=pack_bits < 8)
     codes = np.asarray(arrays["codes"])
     if codes.shape[0]:
-        idx._codes = torch.as_tensor(codes, device=device)
+        idx._codes = as_tensor(codes, device)
     if "corpus" in arrays:
-        idx._corpus = torch.as_tensor(np.asarray(arrays["corpus"]), device=device)
+        idx._corpus = as_tensor(np.asarray(arrays["corpus"]), device)
     return idx
 
 
@@ -235,6 +306,9 @@ _FROM_STATE = {
     "ivfpq_index": _ivfpq_from,
     "ivfflat_index": _ivfflat_from,
     "ivfsq_index": _ivfsq_from,
+    "rq": lambda config, arrays, device: _rq_from(arrays, device),
+    "rq_index": _rq_index_from,
+    "ivfrq_index": _ivfrq_from,
 }
 
 
@@ -243,4 +317,4 @@ def from_state(kind: str, config: Dict[str, Any], arrays: Dict[str, Any],
     """Rebuild a port object from ``(kind, config, arrays)`` on ``device``."""
     if kind not in _FROM_STATE:
         raise InvalidData(f"unknown checkpoint kind {kind!r}")
-    return _FROM_STATE[kind](config, arrays, torch.device("cpu" if device is None else device))
+    return _FROM_STATE[kind](config, arrays, resolve_device(device))

@@ -1,15 +1,17 @@
-"""IVF-Flat and IVF-SQ — the port of ``vq_tpu.ivf_flat.IVFFlatIndex`` and
-``IVFSQIndex``, the faiss ``IndexIVFFlat`` / ``IndexIVFScalarQuantizer``
-analogs: a coarse k-means partition into ``nlist`` lists whose rows are
-stored raw (f32, or bf16 / f16 for half the memory) or as per-dimension
-SQ8 codes of the residual from the list's centroid, plus one exact norm
-a row.
+"""IVF-Flat, IVF-SQ and IVF-RQ — the port of ``vq_tpu.ivf_flat``'s
+``IVFFlatIndex``, ``IVFSQIndex`` and ``IVFRQIndex``, the faiss
+``IndexIVFFlat`` / ``IndexIVFScalarQuantizer`` /
+``IndexIVFResidualQuantizer`` analogs: a coarse k-means partition into
+``nlist`` lists whose rows are stored raw (f32, or bf16 / f16 for half
+the memory), as per-dimension SQ8 codes of the residual from the list's
+centroid, or as RQ stage codes of that residual, plus exact norms a row.
 
 * ``train`` — coarse k-means (``lloyd`` with k-means++ seeding: K2 each
   iteration, K1 for the final assignment); IVF-SQ then fits its
-  per-dimension ranges on the residuals (or the raw rows).
-* ``add`` — coarse assignment (K1), the row (or its SQ code) and its
-  norm appended in place to the chunk pool (:mod:`vq_tpu_torch.ivf_pool`).
+  per-dimension ranges on the residuals (or the raw rows), IVF-RQ trains
+  its stage codebooks on them (:func:`rq_train`: K2 and K1 again).
+* ``add`` — coarse assignment (K1), the row (or its SQ or RQ code) and its
+  norms appended in place to the chunk pool (:mod:`vq_tpu_torch.ivf_pool`).
 * ``search`` — the coarse scan (a plain fp32 matmul), the top-``nprobe``
   lists, K6 over the probed chunk chains at stored width (one left
   vector a (query, probed list) pair), the norm and affine terms added
@@ -22,12 +24,19 @@ distance is ``||qr||^2 - 2 (qr.lo + (qr*step).c) + ||y - c_list||^2`` and
 the dot score ``[q.c_list +] q.lo + (q*step).c``: K6 computes the
 ``(qr*step).c`` term from the u8 codes, the rest is added outside.
 
+IVF-RQ stores ``y = [c_list +] ŷ`` with ``ŷ = sum_s C_s[code_s]``, and
+beside the codes ``||ŷ||^2`` and ``c_list.ŷ``. With tables ``T[q, s, j] =
+q.C_s[j]`` of the raw query, ``(q - c_list).ŷ = sum T - c_list.ŷ``, so
+the tables do not depend on the probe: K7 sums them over the probed
+chains (one copy a (query, list) pair) and ``||q - y||^2 = ||q -
+c_list||^2 - 2 (sum T - c_list.ŷ) + ||ŷ||^2`` is assembled outside, the
+dot score as ``[q.c_list +] sum T``.
+
 Values are squared-L2 distances (ascending, inf pads) for
 ``metric="l2"`` and inner products (descending, -inf pads) for
 ``metric="dot"``; ids of -1 mean the probed lists held fewer than k
 rows. Not ported yet: ``range_search``, ``rebalance``, ``remove_ids``,
-``merge_from``, ``search_and_reconstruct`` and ``_search_core``, and
-``IVFRQIndex`` (it needs ``models/rq.py``).
+``merge_from``, ``search_and_reconstruct`` and ``_search_core``.
 """
 
 from __future__ import annotations
@@ -39,14 +48,20 @@ import torch
 from vq_tpu_torch.convert import from_state
 from vq_tpu_torch.errors import DimensionMismatch, EmptyInput, InvalidData, InvalidParameter
 from vq_tpu_torch.ivf_pool import ChunkPool, bucket_stats, take_list_ids, take_list_payload
-from vq_tpu_torch.models.base import _HALF_DTYPES, as_tensor, check_training_matrix
+from vq_tpu_torch.models.base import (
+    _HALF_DTYPES,
+    as_tensor,
+    check_training_matrix,
+    resolve_device,
+)
 from vq_tpu_torch.models.pq import _smallest
+from vq_tpu_torch.models.rq import ResidualQuantizer, rq_train
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer
-from vq_tpu_torch.ops.cuda_kernels import ivf_probe_matvec_fused
+from vq_tpu_torch.ops.cuda_kernels import ivf_probe_adc_fused, ivf_probe_matvec_fused
 from vq_tpu_torch.ops.kmeans import assign, lloyd
 from vq_tpu_torch.utils.serialize import _from_npz, save
 
-__all__ = ["IVFFlatIndex", "IVFSQIndex"]
+__all__ = ["IVFFlatIndex", "IVFSQIndex", "IVFRQIndex"]
 
 _STORE_DTYPES = {
     "float32": torch.float32,
@@ -372,4 +387,102 @@ class IVFSQIndex(_IVFScanBase):
         return (
             f"IVFSQIndex(nlist={self.nlist}, ntotal={self.ntotal}, dim={self.dim}, "
             f"levels={self.sq.levels}, residual={self.by_residual}, metric={self.metric!r})"
+        )
+
+
+class IVFRQIndex(_IVFScanBase):
+    """Inverted-file index over additive residual-quantizer codes: S bytes
+    a vector (k <= 256) plus two stored f32 terms a row, ``||ŷ||^2`` and
+    ``c_list.ŷ``, which keep the search tables probe-independent. Probed
+    distances are exact distances to the decoded rows. ``beam`` sets the
+    encode at :meth:`add` (1 = greedy)."""
+
+    _payload = "codes"
+    _kind = "ivfrq_index"
+
+    def __init__(self, coarse_centroids, rq: ResidualQuantizer, *, metric: str = "l2",
+                 by_residual: bool = True, beam: int = 1, max_list_size: Optional[int] = None,
+                 chunk_rows: int = 256, device=None):
+        device = resolve_device(device, coarse_centroids, getattr(rq, "codebooks", None))
+        super().__init__(coarse_centroids, metric=metric, max_list_size=max_list_size,
+                         chunk_rows=chunk_rows, device=device)
+        if not isinstance(rq, ResidualQuantizer):
+            raise InvalidParameter("rq", "IVFRQIndex requires a ResidualQuantizer")
+        if rq.dim != self.dim:
+            raise DimensionMismatch(expected=self.dim, found=rq.dim)
+        if int(beam) < 1:
+            raise InvalidParameter("beam", "must be >= 1")
+        self.rq = ResidualQuantizer(codebooks=rq.codebooks, device=self.device)
+        self.by_residual = bool(by_residual)
+        self.beam = int(beam)
+
+    @classmethod
+    def train(cls, training_data, nlist: int, num_stages: int, num_centroids: int = 256, *,
+              max_iters: int = 10, seed: int = 42, metric: str = "l2", by_residual: bool = True,
+              beam: int = 1, max_list_size: Optional[int] = None, spherical: bool = False,
+              device=None) -> "IVFRQIndex":
+        """Fit the coarse partition (k-means++ seeded Lloyd, ``seed``), then
+        the RQ stage codebooks on the residuals (or the raw rows when
+        ``by_residual=False``)."""
+        x = check_training_matrix(training_data, device)
+        res = lloyd(x, nlist, max_iters=max_iters, seed=seed, init="kmeans++",
+                    spherical=spherical)
+        rq_in = x - res.centroids[res.assignments.to(torch.int64)] if by_residual else x
+        cbs = rq_train(rq_in, num_stages, num_centroids, max_iters=max_iters, seed=seed)
+        return cls(res.centroids, ResidualQuantizer(codebooks=cbs), metric=metric,
+                   by_residual=by_residual, beam=beam, max_list_size=max_list_size)
+
+    def _payload_specs(self) -> dict:
+        code_dt = torch.uint8 if self.rq.num_centroids <= 256 else torch.int32
+        return {"codes": ((self.rq.num_stages,), code_dt), "sqn": ((), torch.float32),
+                "cross": ((), torch.float32)}
+
+    def add(self, vectors) -> None:
+        """Coarse-assign (K1), RQ-encode the residual and append a batch
+        with ``||ŷ||^2`` and ``c_list.ŷ``."""
+        x = self._batch(vectors).to(torch.float32)
+        lists, _ = assign(x, self.coarse)
+        c = self.coarse[lists.to(torch.int64)]
+        codes = self.rq.encode(x - c if self.by_residual else x, beam=self.beam)
+        y = self.rq.decode(codes)
+        sqn = (y * y).sum(-1)
+        cross = (c * y).sum(-1) if self.by_residual else torch.zeros_like(sqn)
+        self._append(lists, {"codes": codes, "sqn": sqn, "cross": cross})
+
+    def reconstruct(self, ids) -> torch.Tensor:
+        """Decoded rows for ids (additive decode plus the centroid)."""
+        if self._pool is None or self._pool.n_rows == 0:
+            raise EmptyInput("index is empty")
+        pos = as_tensor(ids, self.device).to(torch.int64)
+        y = self.rq.decode(self._pool.gather_rows("codes", pos))
+        if self.by_residual:
+            y = y + self.coarse[self._flat_lists[pos].to(torch.int64)]
+        return y
+
+    def _probe_distances(self, q, probe, qc, chains_s):
+        nq, npr = probe.shape
+        pool = self._pool
+        cbs = self.rq.codebooks
+        tables = torch.einsum("qd,skd->qsk", q, cbs)  # [Q, S, k], probe-independent
+        tab_rep = tables[:, None].expand(nq, npr, *tables.shape[1:]).reshape(nq * npr, *tables.shape[1:])
+        tsum = ivf_probe_adc_fused(
+            tab_rep, chains_s[probe].reshape(nq * npr, -1), pool.data["codes"], cap=pool.cap,
+        ).reshape(nq, npr, -1)
+        qc_sel = torch.gather(qc, 1, probe)  # [Q, np]
+        if self.metric == "dot":
+            return -(tsum + qc_sel[..., None]) if self.by_residual else -tsum
+        qn2 = (q * q).sum(-1)
+        if self.by_residual:
+            cc = (self.coarse * self.coarse).sum(-1)
+            qrn2 = (qn2[:, None] - 2.0 * qc_sel + cc[probe])[..., None]
+        else:
+            qrn2 = qn2[:, None, None]
+        cross = take_list_payload(pool.data["cross"], chains_s, probe)
+        return torch.clamp_min(qrn2 - 2.0 * (tsum - cross) + self._sqn(probe, chains_s), 0.0)
+
+    def __repr__(self) -> str:
+        return (
+            f"IVFRQIndex(nlist={self.nlist}, ntotal={self.ntotal}, dim={self.dim}, "
+            f"stages={self.rq.num_stages}, k={self.rq.num_centroids}, "
+            f"residual={self.by_residual}, metric={self.metric!r}, beam={self.beam})"
         )

@@ -29,6 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vq_tpu_torch.models.base import resolve_device
+
 __all__ = ["ChunkPool", "bucket_stats", "take_list_ids", "take_list_payload"]
 
 
@@ -106,7 +108,7 @@ class ChunkPool:
         self.ch = int(chunk_rows)
         self.nlist = int(nlist)
         self.max_list_size = max_list_size
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.specs = {k: (tuple(t), d) for k, (t, d) in specs.items()}
         self.n_rows = 0
         self._n_chunks = 0  # allocated pool capacity (chunks)

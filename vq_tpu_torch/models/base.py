@@ -2,12 +2,17 @@
 ``vq_tpu.models.base``.
 
 Every helper follows the input's device: a tensor stays where it is, and
-anything else (numpy arrays, lists) lands on ``device`` (CPU when None).
+anything else (numpy arrays, lists) lands on ``device``. With no
+``device``, it lands on the card (:func:`resolve_device`): the port's entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``, CPU
+tensors, or sets another default with :func:`default_device`. Where there
+is no card and nothing asked for the CPU, they raise; nothing falls back.
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -16,6 +21,47 @@ import torch
 from vq_tpu_torch.errors import DimensionMismatch, EmptyInput, InvalidParameter
 
 _HALF_DTYPES = (torch.float16, torch.bfloat16)
+_DEFAULT_DEVICE: Optional[torch.device] = None  # set by default_device()
+
+
+def resolve_device(device=None, *candidates) -> torch.device:
+    """The device an entry point works on: ``device`` when given, else the
+    device of the first tensor among ``candidates``, else the default —
+    ``cuda``, or what :func:`default_device` set. Raises
+    :class:`InvalidParameter` when the default is ``cuda`` and there is no
+    card."""
+    if device is not None:
+        return torch.device(device)
+    for c in candidates:
+        if isinstance(c, torch.Tensor):
+            return c.device
+    if _DEFAULT_DEVICE is not None:
+        return _DEFAULT_DEVICE
+    if not torch.cuda.is_available():
+        raise InvalidParameter(
+            "device", "no CUDA device, and vq_tpu_torch runs on the card by "
+            "default: pass device='cpu' or CPU tensors to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def default_device(device):
+    """Within the block, entry points given neither a ``device`` nor a
+    tensor work on ``device`` (``None`` restores the card default).
+
+    >>> import numpy as np
+    >>> with default_device("cpu"):
+    ...     as_tensor(np.zeros(3, np.float32)).device
+    device(type='cpu')
+    """
+    global _DEFAULT_DEVICE
+    saved = _DEFAULT_DEVICE
+    _DEFAULT_DEVICE = None if device is None else torch.device(device)
+    try:
+        yield
+    finally:
+        _DEFAULT_DEVICE = saved
 
 
 class Quantizer(abc.ABC):
@@ -43,7 +89,7 @@ class Quantizer(abc.ABC):
 
 def as_tensor(x, device: Optional[torch.device] = None) -> torch.Tensor:
     """``x`` as a tensor; an existing tensor moves only when ``device``
-    is given, anything else lands on ``device`` (CPU when None)."""
+    is given, anything else lands on :func:`resolve_device` ``(device)``."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     arr = np.asarray(x)
@@ -51,7 +97,7 @@ def as_tensor(x, device: Optional[torch.device] = None) -> torch.Tensor:
         raise InvalidParameter("x", f"expected numeric input, got dtype {arr.dtype}")
     if not arr.flags.writeable:  # e.g. a view of a JAX array: torch needs its own
         arr = arr.copy()
-    return torch.as_tensor(arr, device=device)
+    return torch.as_tensor(arr, device=resolve_device(device))
 
 
 def require_finite_scalar(value: float, parameter: str) -> float:

@@ -1,18 +1,25 @@
 """Product quantization — the port of ``vq_tpu.models.pq``.
 
 m sub-codebooks trained together with Lloyd's algorithm (K3 on the card),
-exact encode (K4), decode, per-query ADC lookup tables and the flat ADC
-top-k search (K5). Training assignment is always squared-L2; the
+encode (K4 and its lower-precision forms), decode, per-query ADC lookup
+tables, the dense ADC table sum (K8) and the flat ADC top-k search (K5). Training assignment is always squared-L2; the
 quantizer's metric applies at encode and search time. Encode ties keep
 the lowest index, and NaN scores never win (the int2 rule of
 ``vq_tpu_torch.ops.cuda_kernels``).
 
 Routes, as in the JAX package:
 
-* encode: the L2 family goes through :func:`pq_encode_fused` (K4); cosine
-  and Manhattan are plain PyTorch on every device. Only
-  ``precision="highest"`` is ported: the JAX package sends the lower
-  precisions to an m-packed XLA matmul, which has no port yet.
+* encode: the L2 family goes through :func:`pq_encode_fused`:
+  ``precision="highest"`` to K4 (exact f32), ``"high"`` / ``"bf16x3"`` to
+  K4-bf16x3 and ``"default"`` / ``"bf16_fast"`` to K4-bf16. The JAX
+  package computes the two lower precisions with an m-packed XLA matmul
+  (on its CPU backend "high" is exact f32); the port computes them with
+  the repo's own bf16 encode kernels, whose codes differ from the exact
+  ones only at near ties. Cosine and Manhattan ignore ``precision`` and
+  are plain PyTorch on every device.
+* ADC sums: :meth:`ProductQuantizer.adc_distances`, the chunked scan and
+  cosine's reconstruction norms sum table entries with K8
+  (:func:`adc_lookup_fused`).
 * search: :meth:`ProductQuantizer.adc_search` takes the fused route (K5
   plus one stable merge) whenever the kernel's contract holds — metric in
   {squared_euclidean, euclidean, manhattan}, k <= 256,
@@ -23,8 +30,9 @@ Routes, as in the JAX package:
   Otherwise corpora longer than ``chunk`` take the chunked scan, and the
   rest the dense ``[Q, n]`` scan.
 
-Every function follows its input tensor's device; fp32 products run in
-full fp32 (the package turns TF32 off on import).
+Every function follows its input tensor's device (non-tensor input goes
+to the card unless a ``device`` is given); fp32 products run in full fp32
+(the package turns TF32 off on import).
 """
 
 from __future__ import annotations
@@ -40,8 +48,10 @@ from vq_tpu_torch.models.base import (
     as_batch_f32,
     as_tensor,
     check_training_matrix,
+    resolve_device,
 )
 from vq_tpu_torch.ops.cuda_kernels import (
+    adc_lookup_fused,
     adc_scan_topk_fused,
     int_argmin,
     pq_encode_fused,
@@ -59,7 +69,9 @@ __all__ = ["ProductQuantizer", "pq_train", "pq_encode", "pq_decode"]
 
 _L2 = (Metric.SQUARED_EUCLIDEAN, Metric.EUCLIDEAN)
 _FUSED_METRICS = _L2 + (Metric.MANHATTAN,)
-_ENCODE_PRECISIONS = ("bf16_fast", "bf16x3", "default", "high", "highest")
+# The JAX package's precision names -> the kernel that computes them.
+_ENCODE_PRECISIONS = {"highest": "highest", "high": "bf16x3", "bf16x3": "bf16x3",
+                      "default": "bf16_fast", "bf16_fast": "bf16_fast"}
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +121,8 @@ def _adc_tables(q: torch.Tensor, cb: torch.Tensor, metric: Metric) -> torch.Tens
 
 def _adc_lookup(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """``sum_i tables[:, i, codes[:, i]]`` -> ``[Q, n]``, added in subspace
-    order 0..m-1 from 0.0 (the order every ADC path shares)."""
-    codes = codes.to(torch.int64)
-    acc = torch.zeros((tables.shape[0], codes.shape[0]), dtype=torch.float32,
-                      device=tables.device)
-    for i in range(tables.shape[1]):
-        acc = acc + tables[:, i, :][:, codes[:, i]]
-    return acc
+    order 0..m-1 from 0.0 (the order every ADC path shares), through K8."""
+    return adc_lookup_fused(tables, codes)
 
 
 def _cosine_from_dots(acc, cb, codes, qn):
@@ -205,7 +212,10 @@ def pq_encode(
     block_rows: Optional[int] = None, precision: str = "highest",
 ) -> torch.Tensor:
     """Encode ``[n, d]`` vectors to ``[n, m]`` int32 code indices, on
-    ``x``'s device. Only ``precision="highest"`` (exact fp32) is ported."""
+    ``x``'s device. ``precision`` (L2 metrics): ``"highest"`` exact f32;
+    ``"high"`` / ``"bf16x3"`` three bf16 passes; ``"default"`` /
+    ``"bf16_fast"`` one bf16 pass (codes differ from exact ones at near
+    ties only)."""
     metric = Metric.parse(metric)
     x2d, _ = as_batch_compute(x)
     cb = as_tensor(codebooks, x2d.device).to(torch.float32)
@@ -214,16 +224,10 @@ def pq_encode(
         raise DimensionMismatch(expected=m * s, found=x2d.shape[1])
     if precision not in _ENCODE_PRECISIONS:
         raise InvalidParameter(
-            "precision", f"must be one of {list(_ENCODE_PRECISIONS)}"
+            "precision", f"must be one of {sorted(_ENCODE_PRECISIONS)}"
         )
     if metric in _L2:
-        if precision != "highest":
-            raise InvalidParameter(
-                "precision",
-                f"{precision!r} (the m-packed lower-precision encode) is not "
-                "ported to vq_tpu_torch yet; use 'highest'",
-            )
-        return pq_encode_fused(x2d, cb)
+        return pq_encode_fused(x2d, cb, _ENCODE_PRECISIONS[precision])
     if block_rows is None:
         block_rows = default_block_rows(x2d.shape[0], k * m, s)
     return _pq_encode_plain_metric(x2d, cb, metric, int(block_rows))
@@ -246,15 +250,6 @@ def pq_decode(codes, codebooks) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # ProductQuantizer.
 # ---------------------------------------------------------------------------
-
-
-def _resolve_device(device, *candidates) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    for c in candidates:
-        if isinstance(c, torch.Tensor):
-            return c.device
-    return torch.device("cpu")
 
 
 class ProductQuantizer(Quantizer):
@@ -280,7 +275,7 @@ class ProductQuantizer(Quantizer):
         device=None,
     ):
         self._metric = Metric.parse(getattr(distance, "metric", distance))
-        self._device = _resolve_device(device, codebooks, training_data)
+        self._device = resolve_device(device, codebooks, training_data)
         if codebooks is not None:
             cb = as_tensor(codebooks, self._device).to(torch.float32)
             if cb.ndim != 3:

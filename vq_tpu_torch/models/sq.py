@@ -35,11 +35,11 @@ def _quantize(x, lo, hi, step, max_idx: float) -> torch.Tensor:
 class ScalarQuantizer(Quantizer):
     """Uniform scalar quantizer with one range for every value.
 
-    >>> import numpy as np
+    >>> import torch
     >>> sq = ScalarQuantizer(0.0, 1.0, levels=256)
-    >>> sq.quantize(np.array([0.0, 0.25, 1.0], np.float32)).tolist()
+    >>> sq.quantize(torch.tensor([0.0, 0.25, 1.0])).tolist()
     [0, 64, 255]
-    >>> sq.dequantize(np.array([0, 255], np.uint8)).tolist()
+    >>> sq.dequantize(torch.tensor([0, 255], dtype=torch.uint8)).tolist()
     [0.0, 1.0]
     """
 

@@ -1,9 +1,9 @@
 """Builds the CUDA kernels in ``vq_tpu_torch/csrc`` on first use and loads
 them with ctypes.
 
-The sources (K1 ``assign.cu``, K2 ``lloyd.cu``, K3 ``pq_lloyd.cu``, K4
-``pq_encode.cu``, K5 ``adc_topk.cu``, K6 ``ivf_matvec.cu``, K7
-``ivf_probe.cu``) compile with
+The sources (K1 ``assign.cu``, K2 ``lloyd.cu``, K3 ``pq_lloyd.cu``, K4 with
+K4-bf16 and K4-bf16x3 ``pq_encode.cu``, K5 ``adc_topk.cu``, K6
+``ivf_matvec.cu``, K7 ``ivf_probe.cu``, K8 ``adc_lookup.cu``) compile with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds): one ``nvcc -c``
 a source, all started together, then one link. The library lands in
@@ -45,6 +45,12 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # x, x_is_bf16, cb, cc, codes, n, m, k, s, kc, rows_per_block, stream
     "vq_pq_encode": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _P),
+    # x, x_is_bf16, cbh, cbl, cc, codes, n, m, k, s, kc, rows_per_block,
+    # bf16x3, stream
+    "vq_pq_encode_lowp": (_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P),
+    # tables, codes, codes_are_u8, out, nq, m, k, n, group, tab_in_smem,
+    # rows_per_block, stream
+    "vq_adc_lookup": (_P, _P, _I, _P, _I, _I, _I, _LL, _I, _I, _LL, _P),
     # x, cb, cc, psums, pcounts, pinertia, sums, counts, inertia,
     # n, m, k, s, kc, rows_per_block, chunks, stream
     "vq_pq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

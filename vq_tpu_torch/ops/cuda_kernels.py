@@ -9,21 +9,27 @@ train, encode, flat ADC search and IVF search reach in
   (sums, counts, inertia);
 * K3 :func:`pq_lloyd_accumulate_fused` (``csrc/pq_lloyd.cu``) — one Lloyd
   pass of PQ training for all subspaces;
-* K4 :func:`pq_encode_fused` (``csrc/pq_encode.cu``) — exact PQ encode;
+* K4 :func:`pq_encode_fused` (``csrc/pq_encode.cu``) — PQ encode, exact
+  (K4) or with the dot in bf16 (K4-bf16) or split bf16 (K4-bf16x3);
 * K5 :func:`adc_scan_topk_fused` (``csrc/adc_topk.cu``) — flat ADC scan
   with a per-tile top-``fetch``;
 * K6 :func:`ivf_probe_matvec_fused` (``csrc/ivf_matvec.cu``) — dots with
   the rows of the probed chunks of an IVF-Flat / IVF-SQ index;
 * K7 :func:`ivf_probe_adc_fused` (``csrc/ivf_probe.cu``) — ADC sums over
-  the probed chunks of an IVF index.
+  the probed chunks of an IVF index;
+* K8 :func:`adc_lookup_fused` (``csrc/adc_lookup.cu``) — the dense ADC
+  table sum ``[Q, n]`` that the chunked PQ / RQ scans and
+  ``adc_distances`` take.
 
 Each wrapper keeps the JAX entry's name. A tensor on the CPU goes to the
 plain version (``*_plain``), which is the arithmetic the kernel is held
 to; a CUDA tensor launches the kernel, and a launch the runtime refuses
 raises. Nothing falls back. Each wrapper counts its launches in a plain
 int attribute, ``launches``, so a run can show which kernels it went
-through. The source notes in ``csrc/`` say what bounds each kernel on the
-card and what its design does about it.
+through; :func:`pq_encode_fused` also counts them a precision in
+``launches_by`` (K4, K4-bf16 and K4-bf16x3 are three kernels). The
+source notes in ``csrc/`` say what bounds each kernel on the card and
+what its design does about it.
 
 The argmin of K1, K2, K3 and K4 is the TPU kernels' ``int2`` rule
 (``_int_argmin``): the minimum of an orderable int32 key, then the lowest
@@ -50,6 +56,9 @@ __all__ = [
     "lloyd_accumulate_plain",
     "pq_encode_fused",
     "pq_encode_plain",
+    "ENCODE_PRECISIONS",
+    "adc_lookup_fused",
+    "adc_lookup_plain",
     "pq_lloyd_accumulate_fused",
     "pq_lloyd_accumulate_plain",
     "adc_scan_topk_fused",
@@ -77,6 +86,8 @@ _PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
 _MATVEC_ROWS = 256  # row positions per K6 tile (csrc/ivf_matvec.cu kRows)
 _PLAIN_CELLS_K6 = 1 << 28  # gathered f32 values per block of the plain K6
 _PAYLOAD_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
+ENCODE_PRECISIONS = ("highest", "bf16_fast", "bf16x3")  # K4, K4-bf16, K4-bf16x3
+_LOOKUP_THREADS = 256  # rows per K8 tile (csrc/adc_lookup.cu kLookupThreads)
 
 
 # ---------------------------------------------------------------------------
@@ -140,9 +151,10 @@ def _launch(fn, *args) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
 
 
-def _centroid_chunk(k: int, s: int, extra_bytes: int) -> int:
-    """Centroids of one subspace staged in shared memory at a time."""
-    kc = (_SMEM_BYTES - extra_bytes) // ((s + 1) * 4)
+def _centroid_chunk(k: int, s: int, extra_bytes: int, copies: int = 1) -> int:
+    """Centroids of one subspace staged in shared memory at a time
+    (``copies`` values a coordinate, plus the squared norm)."""
+    kc = (_SMEM_BYTES - extra_bytes) // ((copies * s + 1) * 4)
     if kc < 1:
         raise InvalidParameter(
             "codebooks", f"sub_dim {s} leaves no room for one centroid in "
@@ -174,17 +186,27 @@ def _check_pq_operands(x: torch.Tensor, codebooks: torch.Tensor):
     return m, k, s
 
 
-def _scores_plain(xs: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
-    """``cc - 2 * dot`` for ``xs [B, m, s]`` against ``cb [m, k, s]``,
-    with the dot summed over ``s`` in ascending order one rounded
-    multiply and add at a time — the kernels' exact arithmetic."""
+def _dot_plain(xs: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """Dots ``[B, m, k]`` of ``xs [B, m, s]`` with ``cb [m, k, s]``, summed
+    over ``s`` in ascending order one rounded multiply and add at a
+    time — the kernels' exact arithmetic."""
     dot = torch.zeros(
         (xs.shape[0], cb.shape[0], cb.shape[1]), dtype=torch.float32,
         device=xs.device,
     )
     for e in range(cb.shape[2]):
         dot = dot + xs[:, :, e, None] * cb[None, :, :, e]
-    return cc[None] - 2.0 * dot
+    return dot
+
+
+def _scores_plain(xs: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """``cc - 2 * dot`` for ``xs [B, m, s]`` against ``cb [m, k, s]``."""
+    return cc[None] - 2.0 * _dot_plain(xs, cb)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (to nearest even) and back to f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -314,30 +336,70 @@ lloyd_accumulate_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: exact PQ encode (replaces pallas_kernels.py::_pq_encode_kernel).
+# K4: PQ encode (replaces pallas_kernels.py::_pq_encode_kernel), and its
+# lower-precision bodies K4-bf16 (_pq_encode_bf16_kernel) and K4-bf16x3
+# (_pq_encode_bf16x3_kernel).
 # ---------------------------------------------------------------------------
 
 
-def pq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: ``x [n, m*s]`` -> codes ``[n, m]`` i32."""
+def _check_precision(precision: str) -> None:
+    if precision not in ENCODE_PRECISIONS:
+        raise InvalidParameter(
+            "precision", f"must be one of {list(ENCODE_PRECISIONS)}, got {precision!r}"
+        )
+
+
+def _split_codebooks(cb: torch.Tensor):
+    """``(cbh, cbl)``: the bf16 high half of each f32 codebook value and
+    the bf16 of its remainder, both as f32 (the TPU caller's split)."""
+    cbh = _bf16(cb)
+    return cbh, _bf16(cb - cbh)
+
+
+def pq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
+    """Plain version of K4 / K4-bf16 / K4-bf16x3: ``x [n, m*s]`` -> codes
+    ``[n, m]`` i32, the int2 argmin of ``cc - 2 * dot`` with ``cc`` from
+    the f32 codebooks and ``dot`` at ``precision``: exact f32
+    (``"highest"``); operands rounded to bf16 (``"bf16_fast"``); or
+    ``(xh.ch + xh.cl) + xl.ch`` over the bf16 hi/lo split of both
+    operands (``"bf16x3"``), each dot summed in ascending order."""
+    _check_precision(precision)
     m, k, s = _check_pq_operands(x, codebooks)
     cb = codebooks.to(torch.float32)
     cc = (cb * cb).sum(-1)
+    if precision == "bf16_fast":
+        cb = _bf16(cb)
+    elif precision == "bf16x3":
+        cbh, cbl = _split_codebooks(cb)
     out = torch.empty((x.shape[0], m), dtype=torch.int32, device=x.device)
     for b0 in range(0, x.shape[0], _PLAIN_ROWS):
         xs = x[b0:b0 + _PLAIN_ROWS].to(torch.float32).reshape(-1, m, s)
-        out[b0:b0 + _PLAIN_ROWS] = int_argmin(_scores_plain(xs, cb, cc))[1]
+        if precision == "bf16x3":
+            xh = _bf16(xs)
+            xl = _bf16(xs - xh)
+            dot = (_dot_plain(xh, cbh) + _dot_plain(xh, cbl)) + _dot_plain(xl, cbh)
+            scores = cc[None] - 2.0 * dot
+        else:
+            scores = _scores_plain(_bf16(xs) if precision == "bf16_fast" else xs, cb, cc)
+        out[b0:b0 + _PLAIN_ROWS] = int_argmin(scores)[1]
     return out
 
 
-def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
-    """Exact PQ encode: ``x [n, m*s]`` (f32 or bf16; f16 is upcast) against
-    ``codebooks [m, k, s]`` -> codes ``[n, m]`` i32 under the int2 rule."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
+def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
+    """PQ encode: ``x [n, m*s]`` (f32 or bf16; f16 is upcast) against
+    ``codebooks [m, k, s]`` -> codes ``[n, m]`` i32 under the int2 rule.
+    ``precision``: ``"highest"`` (K4, exact f32), ``"bf16_fast"``
+    (K4-bf16: one bf16 pass, a bf16 ``x`` stays bf16) or ``"bf16x3"``
+    (K4-bf16x3: three bf16 passes, ``x`` upcast to f32), as
+    ``pallas_kernels.pq_encode_fused`` takes them."""
+    _check_precision(precision)
+    if x.dtype not in (torch.float32, torch.bfloat16) or precision == "bf16x3":
         x = x.to(torch.float32)
     cb = codebooks.to(torch.float32)
     if not _on_card(x, cb):
-        return pq_encode_plain(x, cb)
+        return pq_encode_plain(x, cb, precision)
     m, k, s = _check_pq_operands(x, cb)
     x, cb = x.contiguous(), cb.contiguous()
     cc = (cb * cb).sum(-1).contiguous()
@@ -345,16 +407,28 @@ def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     codes = torch.empty((n, m), dtype=torch.int32, device=x.device)
     if n == 0:
         return codes
-    _launch(
-        "vq_pq_encode", x.data_ptr(), int(x.dtype == torch.bfloat16),
-        cb.data_ptr(), cc.data_ptr(), codes.data_ptr(), n, m, k, s,
-        _centroid_chunk(k, s, 0), _rows_per_block(n, m),
-    )
+    bf16 = int(x.dtype == torch.bfloat16)
+    if precision == "highest":
+        _launch(
+            "vq_pq_encode", x.data_ptr(), bf16, cb.data_ptr(), cc.data_ptr(),
+            codes.data_ptr(), n, m, k, s, _centroid_chunk(k, s, 0), _rows_per_block(n, m),
+        )
+    else:
+        x3 = precision == "bf16x3"
+        cbh, cbl = _split_codebooks(cb) if x3 else (_bf16(cb), cb)
+        cbh, cbl = cbh.contiguous(), cbl.contiguous()
+        _launch(
+            "vq_pq_encode_lowp", x.data_ptr(), bf16, cbh.data_ptr(), cbl.data_ptr(),
+            cc.data_ptr(), codes.data_ptr(), n, m, k, s,
+            _centroid_chunk(k, s, 0, copies=2 if x3 else 1), _rows_per_block(n, m), int(x3),
+        )
     pq_encode_fused.launches += 1
+    pq_encode_fused.launches_by[precision] += 1
     return codes
 
 
 pq_encode_fused.launches = 0
+pq_encode_fused.launches_by = dict.fromkeys(ENCODE_PRECISIONS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -720,3 +794,70 @@ def ivf_probe_matvec_fused(qvecs, probe, payload, *, cap: Optional[int] = None):
 
 
 ivf_probe_matvec_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: dense ADC table sum (replaces _adc_lookup_kernel).
+# ---------------------------------------------------------------------------
+
+
+def _check_lookup(tables, codes):
+    if tables.ndim != 3:
+        raise InvalidParameter("tables", f"expected [Q, m, k], got {tuple(tables.shape)}")
+    if codes.ndim != 2 or codes.shape[1] != tables.shape[1]:
+        raise InvalidParameter(
+            "codes", f"expected [n, {tables.shape[1]}], got {tuple(codes.shape)}"
+        )
+
+
+def adc_lookup_plain(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8, bit-identical to it: ``[Q, n]``, the table
+    entries the codes pick added from +0.0 in ascending subspace order, a
+    code outside ``[0, k)`` adding 0.0."""
+    _check_lookup(tables, codes)
+    k = tables.shape[2]
+    tab = tables.to(torch.float32)
+    c = codes.to(torch.int64)
+    ok = (c >= 0) & (c < k)
+    c = torch.where(ok, c, 0)
+    acc = torch.zeros((tab.shape[0], c.shape[0]), dtype=torch.float32, device=tab.device)
+    for i in range(tab.shape[1]):
+        acc = acc + torch.where(ok[:, i], tab[:, i, :][:, c[:, i]], 0.0)
+    return acc
+
+
+def adc_lookup_fused(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Dense asymmetric-distance lookup: ``tables [Q, m, k]`` f32 (one
+    table a query and subspace, or stage) and ``codes [n, m]`` integer
+    code words (u8 stays u8, any other type runs as i32) -> ``[Q, n]``
+    f32, the sum of the picked entries; a code outside ``[0, k)`` adds
+    0."""
+    tables = tables.to(torch.float32)
+    if not _on_card(tables, codes):
+        return adc_lookup_plain(tables, codes)
+    _check_lookup(tables, codes)
+    q, m, k = tables.shape
+    n = codes.shape[0]
+    u8 = codes.dtype == torch.uint8
+    if not u8 and codes.dtype != torch.int32:  # out-of-range stays out of range
+        codes = codes.clamp(-1, k).to(torch.int32)
+    tables, codes = tables.contiguous(), codes.contiguous()
+    out = torch.empty((q, n), dtype=torch.float32, device=tables.device)
+    if q == 0 or n == 0 or m * k == 0:
+        return out.zero_()
+    group = min(q, _SMEM_BYTES // (m * k * 4))  # 0: tables read from device memory
+    in_smem = group > 0
+    group = max(group, 1)
+    groups = -(-q // group)
+    row_blocks = max(1, min(-(-n // _LOOKUP_THREADS), -(-4 * _TARGET_BLOCKS // groups)))
+    rows = -(-n // row_blocks)
+    rows = -(-rows // _LOOKUP_THREADS) * _LOOKUP_THREADS
+    _launch(
+        "vq_adc_lookup", tables.data_ptr(), codes.data_ptr(), int(u8), out.data_ptr(),
+        q, m, k, n, group, int(in_smem), rows,
+    )
+    adc_lookup_fused.launches += 1
+    return out
+
+
+adc_lookup_fused.launches = 0

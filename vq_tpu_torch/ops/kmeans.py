@@ -247,7 +247,7 @@ def lloyd(
 
     >>> import numpy as np
     >>> pts = np.array([[0.], [0.1], [10.], [10.1]], np.float32)
-    >>> res = lloyd(pts, k=2, max_iters=5, seed=0)
+    >>> res = lloyd(pts, k=2, max_iters=5, seed=0, device="cpu")
     >>> sorted(round(float(c), 2) for c in res.centroids.ravel())
     [0.05, 10.05]
     """
