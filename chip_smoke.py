@@ -57,7 +57,22 @@ Phases, one line each (any failure exits non-zero with no result line):
    one PyTorch call that computes the same function,
    ``embedding_bag``), each line stamped with the card's name and power
    limit; then a ``torch.profiler`` line a call of the precision and RQ
-   paths (wall, device time, busy share, top kernels).
+   paths (wall, device time, busy share, top kernels);
+12. bench kernels — the benchmark twins' kernels on seeded uniform data
+   made on the card (x [1M, 128], codebooks 8x256x16 through
+   ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
+   transpose): B1 ``"highest"`` on 100k rows bit-identical to its plain
+   version and its code match against K4; B1 ``"default"`` with f32 and
+   bf16-resident operands at >= 0.9999 of the plain version's codes, the
+   rest float64 near ties, and its match against K4-bf16; B2 and B3 bit
+   for bit against their plain versions and K8, B4 against its plain
+   version; K2 with seeded weights at 200k x 1024 twice (bit-identical)
+   and against its weighted plain version. Then the twins' ``main()``
+   (``vq_tpu_torch.benchmarks.mpacked_encode`` and ``.adc_vmem_bench``)
+   run at their default sizes, the slice's main path: launch counts read
+   from that run, every ``parity`` field true. Then timings: B1's three
+   variants beside K4, K4-bf16 and K4-bf16x3 at 1M, and B2, B3, B4 beside
+   K8 and ``embedding_bag`` at [128, 1M].
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -73,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import io
 import json
 import subprocess
 import sys
@@ -97,6 +113,10 @@ FLAT_KINDS, FLAT_MIN_RECALL = ("flat_f32", "flat_bf16", "sq"), 0.9
 # RQ path, the width of benchmarks/serving_bench.py:186-204 (RQIndex 8x256
 # greedy over 1M x 128) and :327-351 (IVF-RQ); K8's chunk of the RQ scan.
 RQ_STAGES, RQ_ITERS, RQ_RERANK, RQ_CHUNK = 8, 8, 500, 262_144
+# The benchmark twins' kernels: B1 held on the scripts' 100k parity rows;
+# its "default" body (bf16 tensor cores, their own summation order) at
+# this share of the plain version's codes at least, the rest near ties.
+B1_ROWS, B1_MIN_MATCH = 100_000, 0.9999
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
 HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -109,6 +129,8 @@ KERNEL_CALLERS = (
     ("vq_tpu_torch.search", ("adc_scan_topk_fused",)),
     ("vq_tpu_torch.ivf", ("ivf_probe_adc_fused",)),
     ("vq_tpu_torch.ivf_flat", ("ivf_probe_matvec_fused", "ivf_probe_adc_fused")),
+    ("vq_tpu_torch.benchmarks.mpacked_encode", ("pq_encode_fused",)),
+    ("vq_tpu_torch.benchmarks.adc_vmem_bench", ("adc_lookup_fused",)),
 )
 
 
@@ -117,19 +139,11 @@ def log(phase: str, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after one warm-up call."""
-    import torch
+    """Mean milliseconds per call by CUDA events, after one warm-up call
+    (the benchmark twins' timer)."""
+    from vq_tpu_torch.benchmarks import cuda_ms as events_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return events_ms(fn, reps)
 
 
 def cuda_once(fn):
@@ -147,28 +161,35 @@ def cuda_once(fn):
 
 
 def all_kernels():
+    from vq_tpu_torch.benchmarks import adc_vmem_bench as av
+    from vq_tpu_torch.benchmarks import mpacked_encode as mp
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     return (ck.assign_fused, ck.lloyd_accumulate_fused, ck.pq_lloyd_accumulate_fused,
             ck.pq_encode_fused, ck.adc_scan_topk_fused, ck.ivf_probe_adc_fused,
-            ck.ivf_probe_matvec_fused, ck.adc_lookup_fused)
+            ck.ivf_probe_matvec_fused, ck.adc_lookup_fused, mp.mpacked_encode, av.adc_kt,
+            av.adc_gather, av.adc_floor)
 
 
 def reset_counts():
-    """Every launch count to 0 (K4's counts a precision too)."""
+    """Every launch count to 0 (K4's and B1's counts a precision too)."""
+    from vq_tpu_torch.benchmarks import mpacked_encode as mp
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     for fn in all_kernels():
         fn.launches = 0
     ck.pq_encode_fused.launches_by = dict.fromkeys(ck.ENCODE_PRECISIONS, 0)
+    mp.mpacked_encode.launches_by = dict.fromkeys(mp.PRECISIONS, 0)
 
 
 def read_counts():
-    """The launch counts by wrapper, K4 split by precision."""
+    """The launch counts by wrapper, K4 and B1 split by precision."""
+    from vq_tpu_torch.benchmarks import mpacked_encode as mp
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     out = {fn.__name__: fn.launches for fn in all_kernels()}
     out.update({f"pq_encode_fused[{p}]": n for p, n in ck.pq_encode_fused.launches_by.items()})
+    out.update({f"mpacked_encode[{p}]": n for p, n in mp.mpacked_encode.launches_by.items()})
     return out
 
 
@@ -1062,6 +1083,183 @@ def profile_paths(smi, corpus, queries, prec, rqres):
             + f" | {smi}")
 
 
+def make_bench_data(device):
+    """The benchmark twins' operands, seeded uniform data on the card."""
+    import torch
+
+    from vq_tpu_torch.benchmarks.mpacked_encode import build_w
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.rand(N_CORPUS, DIM, generator=g, device=device)
+    cb = torch.rand(M, K, DIM // M, generator=g, device=device)
+    w, cc = build_w(cb)
+    tables = torch.rand(N_QUERY, M, K, generator=g, device=device)
+    codes = torch.randint(0, K, (N_CORPUS, M), generator=g, device=device,
+                          dtype=torch.int32).to(torch.uint8)
+    return dict(x=x, cb=cb, w=w, cc=cc, tables=tables, codes=codes, codes_t=codes.T.contiguous(),
+                weights=torch.rand(N_IVF_TRAIN, generator=g, device=device) * 1.5 + 0.25)
+
+
+def phase_bench_kernels(bd, corpus, kres):
+    """B1-B4 held to their plain versions (and B1 to K4, B2 and B3 to K8)
+    on the card; K2 with weights twice and against its plain version."""
+    import torch
+
+    from vq_tpu_torch.benchmarks import adc_vmem_bench as av
+    from vq_tpu_torch.benchmarks import mpacked_encode as mp
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    x, cb, w, cc = bd["x"][:B1_ROWS], bd["cb"], bd["w"], bd["cc"]
+    got = mp.mpacked_encode(x, w, cc, "highest")
+    torch.cuda.synchronize()
+    assert torch.equal(got, mp.mpacked_encode_plain(x, w, cc, "highest")), (
+        "B1 highest: codes differ from the plain version")
+    k4 = ck.pq_encode_fused(x, cb)
+    flips, gap, ties = mp.near_ties(x, w, cc, got, k4, "highest")
+    assert ties, f"B1 highest: {flips} codes differ from K4's and are not near ties (gap {gap})"
+    log("kernels", f"B1 mpacked_encode highest {tuple(x.shape)} x W {tuple(w.shape)}: bit-identical "
+        f"to the plain version; {float((got == k4).float().mean()):.6f} of the codes equal K4's "
+        f"({flips} differ, all float64 near ties)")
+    errs = {"highest": 0.0}
+    for tag, xx, ww in (("f32", x, w), ("bf16-resident", x.to(torch.bfloat16), w.to(torch.bfloat16))):
+        got = mp.mpacked_encode(xx, ww, cc, "default")
+        torch.cuda.synchronize()
+        want = mp.mpacked_encode_plain(xx, ww, cc, "default")
+        match = float((got == want).float().mean())
+        flips, gap, ties = mp.near_ties(xx, ww, cc, got, want, "default")
+        assert match >= B1_MIN_MATCH and ties, (
+            f"B1 default {tag}: {match} of the codes equal the plain version's; {flips} differ, "
+            f"near ties {ties} (gap {gap})")
+        errs["default"] = max(errs.get("default", 0.0), gap)
+        k4b = ck.pq_encode_fused(xx, cb, precision="bf16_fast")
+        log("kernels", f"B1 mpacked_encode default {tag} {tuple(xx.shape)}: {match:.6f} of the codes "
+            f"equal the plain version's, {flips} differ, all float64 near ties (max gap {gap:.3g}); "
+            f"{float((got == k4b).float().mean()):.6f} equal K4-bf16's")
+
+    tables, codes, codes_t = bd["tables"], bd["codes"], bd["codes_t"]
+    k8 = ck.adc_lookup_fused(tables, codes)
+    outs = {"adc_kt": av.adc_kt(tables, codes_t), "adc_gather": av.adc_gather(tables, codes_t),
+            "adc_floor": av.adc_floor(tables, codes_t),
+            "adc_gather(only=1)": av.adc_gather(tables, codes_t, only=1)}
+    torch.cuda.synchronize()
+    plains = {"adc_kt": av.adc_kt_plain(tables, codes_t),
+              "adc_gather": av.adc_gather_plain(tables, codes_t),
+              "adc_floor": av.adc_floor_plain(tables, codes_t),
+              "adc_gather(only=1)": av.adc_gather_plain(tables, codes_t, only=1)}
+    for name, out in outs.items():
+        assert torch.equal(out, plains[name]), f"{name}: values differ from the plain version"
+    for name in ("adc_kt", "adc_gather"):
+        assert torch.equal(outs[name], k8), f"{name}: values differ from K8's"
+    log("kernels", f"B2 adc_kt, B3 adc_gather (all subspaces and only=1), B4 adc_floor: tables "
+        f"{tuple(tables.shape)} x codes_t {tuple(codes_t.shape)} u8: bit-identical to their plain "
+        "versions; B2 and B3 bit-identical to K8 on the same codes")
+    del outs, plains, k8
+
+    x2, cents, wt = corpus[:N_IVF_TRAIN], kres["cents"], bd["weights"]
+    first = ck.lloyd_accumulate_fused(x2, cents, wt)
+    again = ck.lloyd_accumulate_fused(x2, cents, wt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), "weighted K2 is not deterministic"
+    ps, pc, pi = ck.lloyd_accumulate_plain(x2, cents, wt)
+    sums, counts, inertia = first
+    for name, got_, want_ in (("sums", sums, ps), ("counts", counts, pc)):
+        tol = K3_RTOL * want_.abs() + K3_RTOL * float(want_.abs().max())
+        assert bool(((got_ - want_).abs() <= tol).all()), f"weighted K2 {name} off"
+    assert abs(float(inertia) - float(pi)) <= K3_RTOL * abs(float(pi)), (float(inertia), float(pi))
+    same = all(torch.equal(a, b) for a, b in zip(first, (ps, pc, pi)))
+    log("kernels", f"K2 lloyd_accumulate with weights {tuple(x2.shape)} vs {NLIST} centroids: "
+        f"bit-identical on a second run; {'bit-identical to' if same else 'within K3 tolerance of'} "
+        f"the weighted plain version (sums max abs err {float((sums - ps).abs().max()):.3g})")
+    return errs
+
+
+def phase_bench_path():
+    """The twins' ``main()`` at their default sizes, in this process: the
+    slice's main path. Returns the launch counts of that run."""
+    from vq_tpu_torch.benchmarks import adc_vmem_bench as av
+    from vq_tpu_torch.benchmarks import mpacked_encode as mp
+
+    reset_counts()
+    lines = []
+    for name, mod in (("mpacked_encode", mp), ("adc_vmem_bench", av)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert mod.main([]) == 0, name
+        for text in buf.getvalue().splitlines():
+            rec = json.loads(text)
+            log("bench", f"{name}: {text}")
+            assert rec.get("parity", True) is True, f"{name}: parity failed in {text}"
+            lines.append(rec)
+    launches = read_counts()
+    on_path = ("mpacked_encode[highest]", "mpacked_encode[default]", "adc_kt", "adc_gather", "adc_floor")
+    log("bench", f"launches in the twins' run: {launches}")
+    assert all(launches[n] > 0 for n in on_path), f"a kernel was not launched: {launches}"
+    return launches
+
+
+def phase_bench_timings(smi, bd):
+    """B1 beside K4 / K4-bf16 / K4-bf16x3 at 1M; B2, B3, B4 beside K8 and
+    ``embedding_bag`` at [128, 1M]; plain versions at their checks' sizes."""
+    import torch
+
+    from vq_tpu_torch.benchmarks import adc_vmem_bench as av
+    from vq_tpu_torch.benchmarks import mpacked_encode as mp
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    x, cb, w, cc = bd["x"], bd["cb"], bd["w"], bd["cc"]
+    xh, wh, xs = x.to(torch.bfloat16), w.to(torch.bfloat16), x[:B1_ROWS]
+    t = {
+        "B1_highest": (cuda_ms(lambda: mp.mpacked_encode(x, w, cc, "highest"), 3),
+                       cuda_ms(lambda: mp.mpacked_encode_plain(xs, w, cc, "highest"), 1)),
+        "B1_default": (cuda_ms(lambda: mp.mpacked_encode(x, w, cc, "default"), 10),
+                       cuda_ms(lambda: mp.mpacked_encode_plain(xs, w, cc, "default"), 1)),
+        "B1_bf16resident": (cuda_ms(lambda: mp.mpacked_encode(xh, wh, cc, "default"), 10), None),
+        "K4@bench": (cuda_ms(lambda: ck.pq_encode_fused(x, cb), 5), None),
+        "K4_bf16@bench": (cuda_ms(lambda: ck.pq_encode_fused(x, cb, precision="bf16_fast"), 5), None),
+        "K4_bf16x3@bench": (cuda_ms(lambda: ck.pq_encode_fused(x, cb, precision="bf16x3"), 3), None),
+    }
+    for name, (ms, pms) in t.items():
+        plain = "" if pms is None else f", plain {pms:.4f} ms on {B1_ROWS} rows"
+        log("time", f"{name} {N_CORPUS} x {DIM} vs {M}x{K}: kernel {ms:.4f} ms{plain} | {smi}")
+    tables, codes, codes_t = bd["tables"], bd["codes"], bd["codes_t"]
+    q, m, k = tables.shape
+    weight = tables.permute(1, 2, 0).reshape(m * k, q).contiguous()
+    index = (codes.long() + torch.arange(m, device=codes.device) * k).contiguous()
+    lib = cuda_ms(lambda: torch.nn.functional.embedding_bag(index, weight, mode="sum"), 20)
+    adc = {
+        "K8@bench": (lambda: ck.adc_lookup_fused(tables, codes), lambda: ck.adc_lookup_plain(tables, codes)),
+        "B2_adc_kt": (lambda: av.adc_kt(tables, codes_t), lambda: av.adc_kt_plain(tables, codes_t)),
+        "B3_adc_gather": (lambda: av.adc_gather(tables, codes_t),
+                          lambda: av.adc_gather_plain(tables, codes_t)),
+        "B4_adc_floor": (lambda: av.adc_floor(tables, codes_t),
+                         lambda: av.adc_floor_plain(tables, codes_t)),
+    }
+    for name, (fn, plain_fn) in adc.items():
+        t[name] = (cuda_ms(fn, 20), cuda_ms(plain_fn, 2), lib)
+        log("time", f"{name} [{q}, {N_CORPUS}] from {m}x{k} tables: kernel {t[name][0]:.4f} ms, plain "
+            f"{t[name][1]:.4f} ms, embedding_bag {lib:.4f} ms | {smi}")
+    return t
+
+
+def bench_bounds():
+    """``{kernel: (bound ms, "bytes" or "operations")}`` of B1-B4 at the
+    twins' shapes, as :func:`kernel_bounds` reckons them, and B2's own
+    design floor (its one-hot products at the bf16 peak)."""
+    x_bytes, codes_out = N_CORPUS * DIM * 4, N_CORPUS * M * 4
+    w_bytes = DIM * M * K * 4 + M * K * 4
+    ops = 2.0 * N_CORPUS * DIM * M * K
+    out_bytes = N_QUERY * N_CORPUS * 4
+    lookup = bound(out_bytes + N_CORPUS * M + N_QUERY * M * K * 4, 1.0 * N_QUERY * N_CORPUS * M, PEAK_F32)
+    return {
+        "B1_highest": bound(x_bytes + w_bytes + codes_out, ops, PEAK_F32),
+        "B1_default": bound(x_bytes + w_bytes + codes_out, ops, PEAK_BF16),
+        "B2": lookup,
+        "B3": lookup,
+        "B4": bound(out_bytes + N_CORPUS + 4, 1.0 * N_QUERY * N_CORPUS, PEAK_F32),
+        "B2_design_floor": 3 * 2.0 * N_QUERY * K * N_CORPUS * M / PEAK_BF16 * 1e3,
+    }
+
+
 def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec):
     """``{kernel: (bound ms, "bytes" or "operations")}`` at the shapes this
     run gave each kernel: each input read once, each output written once,
@@ -1131,6 +1329,11 @@ def main() -> None:
     rqres = phase_rq_path(corpus, queries, main_res["gt"])
     t_new = phase_new_timings(smi, corpus, queries, res, prec, rqres)
     profile_paths(smi, corpus, queries, prec, rqres)
+    bd = make_bench_data("cuda")
+    b_err = phase_bench_kernels(bd, corpus, kres)
+    bl = phase_bench_path()
+    t_bench = phase_bench_timings(smi, bd)
+    del bd
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
@@ -1139,13 +1342,16 @@ def main() -> None:
     launches["ivf_probe_matvec_fused"] = flat["launches"]["ivf_probe_matvec_fused"]
     pl, rl = prec["launches"], rqres["launches"]
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec)
+    bbounds = bench_bounds()
+    bounds.update({k: v for k, v in bbounds.items() if k != "B2_design_floor"})
     src = "vq_tpu_torch/csrc/"
     tpu = "vq_tpu/ops/pallas_kernels.py:"
 
     def row(name, source, replaces, n, err, key, times, extra=None):
         ms, pms = times[:2]
         b_ms, b_by = bounds[key]
-        entry = {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
+        entry = {"name": name, "route": "cuda", "source": src + source,
+                 "replaces": replaces if ":" in replaces else tpu + replaces,
                  "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": times[2] if len(times) > 2 else None}
         entry.update(extra or {})
@@ -1172,6 +1378,18 @@ def main() -> None:
         row("adc_lookup_fused", "adc_lookup.cu", "727", pl["adc_lookup_fused"] + rl["adc_lookup_fused"],
             0.0, "K8", t_new["K8"], {"launches_by_path": {"precision": pl["adc_lookup_fused"],
                                                           "rq": rl["adc_lookup_fused"]}}),
+        row("mpacked_encode[highest]", "mpacked_encode.cu", "benchmarks/mpacked_encode.py:46",
+            bl["mpacked_encode[highest]"], b_err["highest"], "B1_highest", t_bench["B1_highest"],
+            {"plain_rows": B1_ROWS}),
+        row("mpacked_encode[default]", "mpacked_encode.cu", "benchmarks/mpacked_encode.py:46",
+            bl["mpacked_encode[default]"], b_err["default"], "B1_default", t_bench["B1_default"],
+            {"plain_rows": B1_ROWS, "bf16_resident_ms": t_bench["B1_bf16resident"][0]}),
+        row("adc_kt", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:55", bl["adc_kt"], 0.0, "B2",
+            t_bench["B2_adc_kt"], {"design_floor_ms": bbounds["B2_design_floor"]}),
+        row("adc_gather", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:99", bl["adc_gather"], 0.0,
+            "B3", t_bench["B3_adc_gather"]),
+        row("adc_floor", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:156", bl["adc_floor"], 0.0,
+            "B4", t_bench["B4_adc_floor"][:2]),
     ]
     for k in kernels:
         log("bound", f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "

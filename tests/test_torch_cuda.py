@@ -11,13 +11,18 @@ IVF-RQ searches exact (the kernels repeat the plain versions' fp32
 arithmetic);
 K2 and K3 counts exact, sums at rtol 1e-5 / atol 1e-4 and inertia at
 rtol 1e-5 (fp32 summation order), and both bit-identical from one run
-to the next.
+to the next; weighted K2 equal to its plain version (both sum in
+ascending row order). The benchmark twins' kernels: B1 "highest", B2,
+B3 and B4 exact; B1 "default" (bf16 tensor cores, their own summation
+order) at >= 0.9999 of the codes, every other one a float64 near tie.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vq_tpu_torch.benchmarks import adc_vmem_bench as av
+from vq_tpu_torch.benchmarks import mpacked_encode as mp
 from vq_tpu_torch.ops import cuda_kernels as ck
 from vq_tpu_torch.ops.packing import pack_codes
 
@@ -381,4 +386,122 @@ def test_launch_counters_count_card_launches(card):
                            torch.zeros(1, 4, 2, dtype=torch.uint8, device=card))
     ck.ivf_probe_matvec_fused(torch.rand(3, 2, device=card), torch.zeros(3, dtype=torch.int32, device=card),
                               torch.zeros(1, 4, 2, dtype=torch.uint8, device=card))
+    assert [f.launches for f in fns] == [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("n", [20_000, 77])
+def test_weighted_lloyd_accumulate_matches_plain(card, n):
+    g = torch.Generator(device=card).manual_seed(13)
+    x = torch.randn(n, 64, generator=g, device=card)
+    c = torch.randn(300, 64, generator=g, device=card)
+    w = torch.rand(n, generator=g, device=card) * 2
+    got = ck.lloyd_accumulate_fused(x, c, w)
+    torch.cuda.synchronize()
+    want = ck.lloyd_accumulate_plain(x, c, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.lloyd_accumulate_fused(x, c, w)))
+
+
+def test_seeded_weighted_lloyd_is_reproducible(card):
+    """Two seeded weighted ``lloyd`` runs give bit-identical centroids,
+    assignments and inertia (K2 sums Σ w·x and Σ w in one fixed order)."""
+    from vq_tpu_torch.ops import kmeans
+
+    g = torch.Generator(device=card).manual_seed(14)
+    x = torch.randn(30_000, 32, generator=g, device=card)
+    w = torch.rand(30_000, generator=g, device=card) + 0.1
+    runs = [kmeans.lloyd(x, 128, max_iters=6, seed=3, weights=w) for _ in range(2)]
+    for field in ("centroids", "assignments", "inertia", "iterations"):
+        assert torch.equal(getattr(runs[0], field), getattr(runs[1], field)), field
+
+
+# (n, d, m, W): the script's shape (build_w), a dense W, a depth that is
+# no multiple of the 16 / 32-deep chunks, one subspace, a ragged tile.
+_MPACKED = [(5000, 128, 8, "build_w"), (3001, 128, 8, "dense"), (1000, 40, 3, "dense"),
+            (130, 16, 1, "build_w")]
+
+
+def _mpacked_inputs(card, n, d, m, kind):
+    g = torch.Generator(device=card).manual_seed(15)
+    x = torch.rand(n, d, generator=g, device=card)
+    if kind == "build_w":
+        return (x, *mp.build_w(torch.rand(m, 256, d // m, generator=g, device=card)))
+    return (x, torch.randn(d, m * 256, generator=g, device=card),
+            torch.rand(m * 256, generator=g, device=card))
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16-x", "bf16-x-w"])
+@pytest.mark.parametrize("shape", _MPACKED, ids=lambda s: "n%d-d%d-m%d-%s" % s)
+def test_mpacked_highest_matches_plain(card, shape, dtypes):
+    x, w, cc = _mpacked_inputs(card, *shape)
+    if dtypes != "f32":
+        x = x.to(torch.bfloat16)
+    if dtypes == "bf16-x-w":
+        w = w.to(torch.bfloat16)
+    before = mp.mpacked_encode.launches_by["highest"]
+    got = mp.mpacked_encode(x, w, cc, "highest", block_rows=256)
+    torch.cuda.synchronize()
+    assert mp.mpacked_encode.launches_by["highest"] == before + 1
+    assert torch.equal(got, mp.mpacked_encode_plain(x, w, cc, "highest"))
+
+
+def test_mpacked_highest_equals_k4(card):
+    """On build_w's operands B1 "highest" gives K4's codes exactly."""
+    g = torch.Generator(device=card).manual_seed(17)
+    x = torch.rand(20_000, 128, generator=g, device=card)
+    cb = torch.rand(8, 256, 16, generator=g, device=card)
+    w, cc = mp.build_w(cb)
+    assert torch.equal(mp.mpacked_encode(x, w, cc, "highest"), ck.pq_encode_fused(x, cb))
+
+
+@pytest.mark.parametrize("bf16_in", [False, True], ids=["f32-x", "bf16-resident"])
+@pytest.mark.parametrize("shape", _MPACKED, ids=lambda s: "n%d-d%d-m%d-%s" % s)
+def test_mpacked_default_matches_plain(card, shape, bf16_in):
+    x, w, cc = _mpacked_inputs(card, *shape)
+    if bf16_in:
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    got = mp.mpacked_encode(x, w, cc, "default", block_rows=192)
+    torch.cuda.synchronize()
+    want = mp.mpacked_encode_plain(x, w, cc, "default")
+    assert float((got == want).float().mean()) >= 0.9999
+    flips, gap, ties = mp.near_ties(x, w, cc, got, want, "default")
+    assert ties, (flips, gap)
+
+
+# (Q, m, k, n): the script's shape at a ragged Q and n; k = 128 with codes
+# up to 255 (out of range: 0); 40 subspaces (one query's B3 table is
+# 40 KB); 100 subspaces (past B3's shared-memory budget: tables read
+# from device memory); Q past one B2 block's 128 queries.
+_ADC = [(5, 4, 256, 1001), (20, 8, 128, 4096), (9, 40, 256, 3000), (3, 100, 256, 2002),
+        (130, 8, 256, 999)]
+
+
+@pytest.mark.parametrize("shape", _ADC, ids=lambda s: "Q%d-m%d-k%d-n%d" % s)
+def test_adc_variants_match_plain_and_k8(card, shape):
+    q, m, k, n = shape
+    g = torch.Generator(device=card).manual_seed(16)
+    tables = torch.rand(q, m, k, generator=g, device=card)
+    codes_t = torch.randint(0, 256, (m, n), generator=g, device=card).to(torch.uint8)
+    k8 = ck.adc_lookup_fused(tables, codes_t.T.contiguous())
+    kt = av.adc_kt(tables, codes_t)
+    gather = av.adc_gather(tables, codes_t)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, av.adc_kt_plain(tables, codes_t))
+    assert torch.equal(gather, av.adc_gather_plain(tables, codes_t))
+    assert torch.equal(kt, k8) and torch.equal(gather, k8)
+    for only in (1, m):
+        assert torch.equal(av.adc_gather(tables, codes_t, only=only, block_rows=100),
+                           av.adc_gather_plain(tables, codes_t, only=only))
+    assert torch.equal(av.adc_floor(tables, codes_t), av.adc_floor_plain(tables, codes_t))
+
+
+def test_bench_launch_counters_count_card_launches(card):
+    x, w, cc = _mpacked_inputs(card, 100, 16, 1, "build_w")
+    tables = torch.rand(3, 2, 16, device=card)
+    codes_t = torch.zeros(2, 7, dtype=torch.uint8, device=card)
+    fns = (mp.mpacked_encode, av.adc_kt, av.adc_gather, av.adc_floor)
+    before = [f.launches for f in fns]
+    mp.mpacked_encode(x, w, cc, "default")
+    for f in fns[1:]:
+        f(tables, codes_t)
     assert [f.launches for f in fns] == [b + 1 for b in before]

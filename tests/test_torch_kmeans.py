@@ -159,6 +159,71 @@ def test_lloyd_accumulate_matches_pallas(n):
     assert float(counts.sum()) == n
 
 
+@pytest.mark.parametrize("n", [700, 131, 1025])
+def test_weighted_lloyd_accumulate_matches_jax(n):
+    """K2 with sample weights (plain version here) against the JAX
+    package's weighted accumulate (``_assign_accumulate``, a fixed-order
+    XLA scan): Σ w·x, Σ w and Σ w·d to fp32 summation order."""
+    rng = np.random.default_rng(50)
+    x = rng.random((n, 32), dtype=np.float32)
+    c = rng.random((40, 32), dtype=np.float32)
+    w = rng.uniform(0.1, 3.0, n).astype(np.float32)
+    sums_w, counts_w, inertia_w = jkm._assign_accumulate(x, c, 256, jnp.asarray(w))
+    sums, counts, inertia = ck.lloyd_accumulate_fused(_t(x), _t(c), _t(w))
+    np.testing.assert_allclose(counts.numpy(), np.asarray(counts_w), rtol=1e-5)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(sums_w), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(float(inertia), float(inertia_w), rtol=1e-5)
+
+
+def test_weighted_plain_sums_in_ascending_row_order():
+    """The weighted plain K2 is the kernel's arithmetic: each cluster's
+    rounded w*x added from +0.0 in ascending row order, Σ w likewise, and
+    the inertia in K2's order (1024 strided partial sums folded in
+    halves). Checked bit for bit against a row-by-row float32 loop."""
+    rng = np.random.default_rng(51)
+    x = rng.standard_normal((3000, 5)).astype(np.float32)
+    c = rng.standard_normal((6, 5)).astype(np.float32)
+    w = rng.uniform(0.0, 2.0, 3000).astype(np.float32)
+    codes, dists = ck.assign_plain(_t(x), _t(c))
+    codes, dists = codes.numpy(), dists.numpy()
+    sums = np.zeros((6, 5), np.float32)
+    counts = np.zeros(6, np.float32)
+    for r in range(x.shape[0]):
+        sums[codes[r]] = sums[codes[r]] + w[r] * x[r]
+        counts[codes[r]] = counts[codes[r]] + w[r]
+    part = np.zeros(1024, np.float32)
+    wd = w * dists
+    for r in range(x.shape[0]):
+        part[r % 1024] = part[r % 1024] + wd[r]
+    while part.shape[0] > 1:
+        part = part[:part.shape[0] // 2] + part[part.shape[0] // 2:]
+    got = ck.lloyd_accumulate_fused(_t(x), _t(c), _t(w))
+    np.testing.assert_array_equal(got[0].numpy(), sums)
+    np.testing.assert_array_equal(got[1].numpy(), counts)
+    assert float(got[2]) == float(part[0])
+
+
+def test_unweighted_path_unchanged():
+    """``weights=None`` keeps the unweighted pass as it was: index_add_
+    sums, bincount counts, the distances' sum."""
+    rng = np.random.default_rng(52)
+    x = rng.random((500, 8), dtype=np.float32)
+    c = rng.random((9, 8), dtype=np.float32)
+    sums, counts, inertia = ck.lloyd_accumulate_fused(_t(x), _t(c), None)
+    codes, dists = ck.assign_plain(_t(x), _t(c))
+    want = torch.zeros(9, 8).index_add_(0, codes.long(), _t(x))
+    assert torch.equal(sums, want)
+    assert torch.equal(counts, torch.bincount(codes.long(), minlength=9).float())
+    assert torch.equal(inertia, dists.sum())
+    again = ck.lloyd_accumulate_fused(_t(x), _t(c))
+    assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
+
+
+def test_weighted_lloyd_accumulate_bad_weights():
+    with pytest.raises(terr.InvalidParameter):
+        ck.lloyd_accumulate_fused(torch.rand(10, 3), torch.rand(2, 3), torch.ones(9))
+
+
 def test_lloyd_accumulate_empty_input():
     c = torch.rand(5, 3)
     sums, counts, inertia = ck.lloyd_accumulate_fused(torch.zeros(0, 3), c)

@@ -1,6 +1,8 @@
-// K2: one unweighted Lloyd pass. x [n, d] f32 against centroids [k, d]
-// -> sums [k, d], counts [k] (f32, exact integers) and the inertia
-// sum(max(min_score + ||x||^2, 0)).
+// K2: one Lloyd pass. x [n, d] f32 against centroids [k, d] -> sums
+// [k, d], counts [k] (f32, exact integers) and the inertia
+// sum(max(min_score + ||x||^2, 0)). With sample weights w [n] f32 (a
+// null pointer means none) the sums are sum w*x, the counts sum w and the
+// inertia sum w*d, each product rounded before it is added.
 //
 // Replaces vq_tpu/ops/pallas_kernels.py::_lloyd_acc_kernel (reached
 // through lloyd_accumulate_fused / _lloyd_accumulate_jit).
@@ -19,11 +21,15 @@
 //     exclusive scan into cluster offsets, per-(chunk, cluster) cursors,
 //     then one warp per chunk places its rows in ascending order
 //     (__match_any_sync ranks equal codes inside a 32-row step);
-//  3. one block per cluster sums its rows in ascending row order;
-//  4. one block sums the distances in a fixed order for the inertia.
+//  3. one block per cluster sums its rows in ascending row order (with
+//     weights, w*x and, in one more column, w: the weighted count);
+//  4. one block sums the distances (or w*d) in a fixed order for the
+//     inertia.
 // Every sum has one fixed order, so the result is bit-identical from
-// run to run; against the plain version (index_add_) sums and inertia
-// differ by fp32 summation order only, and counts are exact. The
+// run to run, weighted or not; against the unweighted plain version
+// (index_add_) sums and inertia differ by fp32 summation order only, and
+// counts are exact; the weighted plain version sums in the kernel's
+// order and matches it bit for bit where the assignments agree. The
 // temporaries are O(n + chunks*k) ints at any k, with chunks*k kept at
 // or below 2^24 by the wrapper.
 #include "common.cuh"
@@ -126,29 +132,44 @@ __global__ void chunk_scatter_kernel(const int* __restrict__ codes,
   }
 }
 
+// Column e < d of cluster j sums x[r, e] (w[r]*x[r, e] when weighted)
+// over the cluster's rows r in ascending order; weighted, column d sums
+// w[r] into the count, which the scan wrote as a row count before.
+template <bool kWeighted>
 __global__ void cluster_sum_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ w,
                                    const int* __restrict__ perm,
                                    const int* __restrict__ offsets,
                                    const int* __restrict__ totals,
-                                   float* __restrict__ sums, int d) {
+                                   float* __restrict__ sums,
+                                   float* __restrict__ counts, int d) {
   const int j = blockIdx.x;
   const int off = offsets[j], cnt = totals[j];
-  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+  for (int e = threadIdx.x; e < d + (kWeighted ? 1 : 0); e += blockDim.x) {
     float a = 0.f;
+    if (kWeighted && e == d) {
+      for (int t = 0; t < cnt; ++t) a = __fadd_rn(a, w[perm[off + t]]);
+      counts[j] = a;
+      continue;
+    }
 #pragma unroll 8
-    for (int t = 0; t < cnt; ++t)
-      a = __fadd_rn(a, x[(long long)perm[off + t] * d + e]);
+    for (int t = 0; t < cnt; ++t) {
+      const long long r = perm[off + t];
+      const float v = x[r * d + e];
+      a = __fadd_rn(a, kWeighted ? __fmul_rn(w[r], v) : v);
+    }
     sums[(long long)j * d + e] = a;
   }
 }
 
 __global__ void __launch_bounds__(kScanThreads)
     inertia_kernel(const float* __restrict__ dists,
+                   const float* __restrict__ w,
                    float* __restrict__ inertia, long long n) {
   __shared__ float red[kScanThreads];
   float a = 0.f;
   for (long long r = threadIdx.x; r < n; r += kScanThreads)
-    a = __fadd_rn(a, dists[r]);
+    a = __fadd_rn(a, w ? __fmul_rn(w[r], dists[r]) : dists[r]);
   red[threadIdx.x] = a;
   __syncthreads();
   for (int w = kScanThreads / 2; w > 0; w >>= 1) {
@@ -161,8 +182,8 @@ __global__ void __launch_bounds__(kScanThreads)
 
 }  // namespace
 
-extern "C" int vq_lloyd(const float* x, const float* c, const float* cc,
-                        int* codes, float* dists, int* chunk_counts,
+extern "C" int vq_lloyd(const float* x, const float* w, const float* c,
+                        const float* cc, int* codes, float* dists, int* chunk_counts,
                         int* totals, int* offsets, int* perm, float* sums,
                         float* counts, float* inertia, long long n, int k,
                         int d, long long rows_per_chunk, int chunks,
@@ -182,7 +203,12 @@ extern "C" int vq_lloyd(const float* x, const float* c, const float* cc,
   chunk_cursor_kernel<<<kblk, 256, 0, st>>>(chunk_counts, offsets, k, chunks);
   chunk_scatter_kernel<<<chunks, 32, 0, st>>>(codes, chunk_counts, perm, n, k,
                                               rows_per_chunk);
-  cluster_sum_kernel<<<k, 128, 0, st>>>(x, perm, offsets, totals, sums, d);
-  inertia_kernel<<<1, kScanThreads, 0, st>>>(dists, inertia, n);
+  if (w)
+    cluster_sum_kernel<true><<<k, 128, 0, st>>>(x, w, perm, offsets, totals,
+                                                sums, counts, d);
+  else
+    cluster_sum_kernel<false><<<k, 128, 0, st>>>(x, w, perm, offsets, totals,
+                                                 sums, counts, d);
+  inertia_kernel<<<1, kScanThreads, 0, st>>>(dists, w, inertia, n);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@ them with ctypes.
 
 The sources (K1 ``assign.cu``, K2 ``lloyd.cu``, K3 ``pq_lloyd.cu``, K4 with
 K4-bf16 and K4-bf16x3 ``pq_encode.cu``, K5 ``adc_topk.cu``, K6
-``ivf_matvec.cu``, K7 ``ivf_probe.cu``, K8 ``adc_lookup.cu``) compile with
+``ivf_matvec.cu``, K7 ``ivf_probe.cu``, K8 ``adc_lookup.cu``, and the
+benchmark twins' B1 ``mpacked_encode.cu`` and B2-B4 ``adc_variants.cu``)
+compile with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds): one ``nvcc -c``
 a source, all started together, then one link. The library lands in
@@ -61,9 +63,10 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _P),
     # x, x_is_bf16, c, cc, codes, dists, n, k, d, stream
     "vq_assign": (_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P),
-    # x, c, cc, codes, dists, chunk_counts, totals, offsets, perm, sums,
-    # counts, inertia, n, k, d, rows_per_chunk, chunks, stream
-    "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # x, weights (null: none), c, cc, codes, dists, chunk_counts, totals,
+    # offsets, perm, sums, counts, inertia, n, k, d, rows_per_chunk,
+    # chunks, stream
+    "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _LL, _I, _I, _LL, _I, _P),
     # tables, chunks, codes, codes_are_u8, out, pairs, m, kk, nc, ch,
     # n_chunks, cap, gsub, slices, stream
@@ -72,6 +75,16 @@ _SIGNATURES = {
     # lhs, chunks, payload, payload_type, out, pairs, d, nc, ch, n_chunks,
     # cap, vec, slices, stream
     "vq_ivf_matvec": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _LL, _I, _I, _P),
+    # x, x_is_bf16, w, w_is_bf16, cc, codes, n, d, m, tensor_cores,
+    # rows_per_block, stream
+    "vq_mpacked_encode": (_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P),
+    # hi, mid, lo, codes_t, out, nq, qp, m, k, kp, n, stream
+    "vq_adc_kt": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P),
+    # tables, codes_t, out, nq, m, k, n, group, tab_in_smem, subspaces,
+    # rows_per_block, vec, stream
+    "vq_adc_gather": (_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _LL, _I, _P),
+    # tables, codes_t, out, nq, n, q_per_block, vec, stream
+    "vq_adc_floor": (_P, _P, _P, _I, _LL, _I, _I, _P),
 }
 
 

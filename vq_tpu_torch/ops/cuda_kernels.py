@@ -6,7 +6,7 @@ train, encode, flat ADC search and IVF search reach in
 * K1 :func:`assign_fused` (``csrc/assign.cu``) — nearest centroid and
   its squared distance;
 * K2 :func:`lloyd_accumulate_fused` (``csrc/lloyd.cu``) — one Lloyd pass
-  (sums, counts, inertia);
+  (sums, counts, inertia), unweighted or with sample weights;
 * K3 :func:`pq_lloyd_accumulate_fused` (``csrc/pq_lloyd.cu``) — one Lloyd
   pass of PQ training for all subspaces;
 * K4 :func:`pq_encode_fused` (``csrc/pq_encode.cu``) — PQ encode, exact
@@ -82,6 +82,7 @@ _PLAIN_ROWS = 16_384  # row block of the plain K3/K4 ([B, m, k] scores)
 _PLAIN_CELLS = 1 << 22  # [B, k] scores per block of the plain K1
 _CHUNK_ROWS = 1024  # K2's rows per counting-sort chunk, at least
 _CHUNK_CELLS = 1 << 24  # K2's (chunk, cluster) cursors, at most
+_INERTIA_THREADS = 1024  # K2's inertia partial sums (csrc/lloyd.cu kScanThreads)
 _PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
 _MATVEC_ROWS = 256  # row positions per K6 tile (csrc/ivf_matvec.cu kRows)
 _PLAIN_CELLS_K6 = 1 << 28  # gathered f32 values per block of the plain K6
@@ -282,31 +283,78 @@ def assign_fused(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor
 assign_fused.launches = 0
 
 
-def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor):
+def _check_weights(weights: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    if weights is None:
+        return None
+    w = weights.to(torch.float32).reshape(-1)
+    if w.shape[0] != n:
+        raise InvalidParameter("weights", f"expected [{n}], got [{w.shape[0]}]")
+    return w
+
+
+def _k2_inertia(v: torch.Tensor) -> torch.Tensor:
+    """``v``'s sum in K2's inertia order: thread t of 1024 sums rows t,
+    t + 1024, ... in ascending order, then the halves fold pairwise."""
+    n = v.shape[0]
+    rows = max(1, -(-n // _INERTIA_THREADS))
+    part = torch.nn.functional.pad(v, (0, rows * _INERTIA_THREADS - n)).view(rows, -1)
+    acc = torch.zeros(_INERTIA_THREADS, dtype=torch.float32, device=v.device)
+    for r in range(rows):
+        acc = acc + part[r]
+    while acc.shape[0] > 1:
+        half = acc.shape[0] // 2
+        acc = acc[:half] + acc[half:]
+    return acc[0]
+
+
+def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None):
     """Plain version of K2 -> ``(sums [k, d], counts [k], inertia [])``:
-    :func:`assign_plain`, then ``index_add_`` and ``bincount``."""
+    :func:`assign_plain`, then ``index_add_`` and ``bincount``. With
+    ``weights [n]`` the sums are Σ w·x and the counts Σ w, each cluster's
+    rows added in ascending row order one rounded product at a time, and
+    the inertia Σ w·d in K2's order: the kernel's arithmetic."""
     codes, dists = assign_plain(x, centroids)
     k, d = centroids.shape
+    w = _check_weights(weights, x.shape[0])
     idx = codes.to(torch.int64)
+    xf = x.to(torch.float32)
+    if w is None:
+        sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+        sums.index_add_(0, idx, xf)
+        counts = torch.bincount(idx, minlength=k).to(torch.float32)
+        return sums, counts, dists.sum()
+    rows = torch.sort(idx, stable=True)[1]  # by cluster, ascending rows within each
+    totals = torch.bincount(idx, minlength=k)
+    offsets = torch.cumsum(totals, 0) - totals
     sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    sums.index_add_(0, idx, x.to(torch.float32))
-    counts = torch.bincount(idx, minlength=k).to(torch.float32)
-    return sums, counts, dists.sum()
+    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    for t in range(int(totals.max()) if idx.numel() else 0):
+        live = totals > t
+        r = rows[torch.where(live, offsets + t, 0)]
+        sums = sums + torch.where(live[:, None], w[r, None] * xf[r], 0.0)
+        counts = counts + torch.where(live, w[r], 0.0)
+    return sums, counts, _k2_inertia(w * dists)
 
 
-def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor):
-    """One unweighted Lloyd pass over ``x [n, d]`` f32 against
-    ``centroids [k, d]`` -> ``(sums [k, d], counts [k], inertia [])``, f32.
+def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None):
+    """One Lloyd pass over ``x [n, d]`` f32 against ``centroids [k, d]`` ->
+    ``(sums [k, d], counts [k], inertia [])``, f32. ``weights [n]`` f32
+    (optional) make them Σ w·x, Σ w and Σ w·d.
 
-    On the card the result is bit-identical from run to run; against the
-    plain version counts are exact and sums and inertia differ by fp32
-    summation order only (``csrc/lloyd.cu``)."""
+    On the card the result is bit-identical from run to run, weighted or
+    not; against the plain version counts are exact and sums and inertia
+    differ by fp32 summation order only when unweighted, and are equal
+    where the assignments agree when weighted (``csrc/lloyd.cu``)."""
     x = x.to(torch.float32)
     c = centroids.to(torch.float32)
-    if not _on_card(x, c):
-        return lloyd_accumulate_plain(x, c)
+    w = _check_weights(weights, x.shape[0])
+    if not _on_card(x, c, *(() if w is None else (w,))):
+        return lloyd_accumulate_plain(x, c, w)
     _check_assign(x, c)
     x, c = x.contiguous(), c.contiguous()
+    w = None if w is None else w.contiguous()
     (n, d), k, dev = x.shape, c.shape[0], x.device
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
@@ -323,10 +371,10 @@ def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor):
     chunk_counts = torch.empty((chunks, k), **i32)
     totals, offsets = torch.empty((k,), **i32), torch.empty((k,), **i32)
     _launch(
-        "vq_lloyd", x.data_ptr(), c.data_ptr(), cc.data_ptr(), codes.data_ptr(),
-        dists.data_ptr(), chunk_counts.data_ptr(), totals.data_ptr(),
-        offsets.data_ptr(), perm.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        inertia.data_ptr(), n, k, d, rows, chunks,
+        "vq_lloyd", x.data_ptr(), None if w is None else w.data_ptr(), c.data_ptr(),
+        cc.data_ptr(), codes.data_ptr(), dists.data_ptr(), chunk_counts.data_ptr(),
+        totals.data_ptr(), offsets.data_ptr(), perm.data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), inertia.data_ptr(), n, k, d, rows, chunks,
     )
     lloyd_accumulate_fused.launches += 1
     return sums, counts, inertia

@@ -3,10 +3,10 @@
 * :func:`assign` — nearest centroid and squared distance, K1
   (:func:`assign_fused`: the kernel on the card, its plain version on
   the CPU).
-* :func:`lloyd` — k centroids of ``[n, d]`` data. Each unweighted
-  iteration is one K2 pass (:func:`lloyd_accumulate_fused`); with sample
-  ``weights`` the accumulation is plain PyTorch over K1's assignment, as
-  the JAX package runs it in XLA. Then the update: ``mean = sum /
+* :func:`lloyd` — k centroids of ``[n, d]`` data. Each iteration is one
+  K2 pass (:func:`lloyd_accumulate_fused`), with sample ``weights`` when
+  given (Σ w·x, Σ w in one fixed order, so a seeded weighted run is
+  bit-reproducible on the card too). Then the update: ``mean = sum /
   count``, empty clusters reseeded from random data rows (drawn in
   proportion to the weights when given), ``spherical`` projection, and
   convergence once every non-empty centroid moved less than ``eps``
@@ -209,18 +209,6 @@ def kmeans_plusplus_init_device(
     return _kpp_init(data, k, g, int(min(n, max(sample, k))), w)
 
 
-def _accumulate_weighted(data, centroids, w):
-    """Weighted Lloyd pass (Σ w·x, Σ w, Σ w·d²) over K1's assignment."""
-    codes, dists = assign_fused(data, centroids)
-    idx = codes.to(torch.int64)
-    k, d = centroids.shape
-    sums = torch.zeros((k, d), dtype=torch.float32, device=data.device)
-    sums.index_add_(0, idx, data * w[:, None])
-    counts = torch.zeros((k,), dtype=torch.float32, device=data.device)
-    counts.index_add_(0, idx, w)
-    return sums, counts, (dists * w).sum()
-
-
 def lloyd(
     data,
     k: int,
@@ -279,11 +267,10 @@ def lloyd(
     cw = None if w is None else _cumsum(w)
     it, changed = 0, True
     while changed and it < max_iters:
+        sums, counts, _ = lloyd_accumulate_fused(data, c, w)
         if w is None:
-            sums, counts, _ = lloyd_accumulate_fused(data, c)
             ridx = torch.randint(0, n, (k,), generator=g, device=dev)
         else:
-            sums, counts, _ = _accumulate_weighted(data, c, w)
             ridx = _draw(cw, torch.rand(k, generator=g, device=dev) * cw[-1])
         nonempty = counts > 0
         means = sums / counts.clamp_min(1.0)[:, None]
