@@ -62,9 +62,10 @@ Phases, one line each (any failure exits non-zero with no result line):
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
    transpose): B1 ``"highest"`` on 100k rows bit-identical to its plain
-   version and its code match against K4; B1 ``"default"`` with f32 and
-   bf16-resident operands at >= 0.9999 of the plain version's codes, the
-   rest float64 near ties, and its match against K4-bf16; B2 and B3 bit
+   version, and on all 1M rows to K4; B1 ``"default"`` with f32 and
+   bf16-resident operands held to its plain version by
+   ``mpacked_encode.kernel_parity`` (>= 0.9999 of the codes equal, the
+   rest float64 near ties), and its match against K4-bf16; B2 and B3 bit
    for bit against their plain versions and K8, B4 against its plain
    version; K2 with seeded weights at 200k x 1024 twice (bit-identical)
    and against its weighted plain version. Then the twins' ``main()``
@@ -94,18 +95,20 @@ import subprocess
 import sys
 import time
 
+from vq_tpu_torch.benchmarks import cuda_ms  # CUDA-event ms a call, after one warm-up
+
 N_CORPUS, DIM, N_QUERY = 1_000_000, 128, 128
 N_TRAIN, M, K = 100_000, 8, 256
 N_CLUSTERS, LATENT, SEED = 1024, 24, 0
 # K3: counts exact; sums within 1e-5 of the largest sum plus 1e-5
 # relative, inertia within 1e-5 relative (fp32 summation order only).
 K3_RTOL = 1e-5
-# K4: a code may differ from the plain version's only where the two
-# candidates' scores, recomputed in float64, are within this relative gap.
-K4_TIE_RTOL = 1e-5
+# K1, K4 and B1: a code may differ from the plain version's only where the
+# two candidates' scores, recomputed in float64, are near ties
+# (``mpacked_encode.near_ties``, its TIE_RTOL relative gap).
 # IVF path, the width of the repo's IVF benchmark (benchmarks/ivf_bench.py).
 NLIST, N_IVF_TRAIN, NPROBES, RERANKS = 1024, 200_000, (8, 64), (0, 500)
-# K1: codes exact but for float64-verified near ties (K4_TIE_RTOL), and
+# K1: codes exact but for float64-verified near ties, and
 # distances equal where codes are. K2: counts exact, sums and inertia as
 # K3 (fp32 summation order). K6 and K7: bit-identical.
 # IVF-Flat / IVF-SQ searches, the width of benchmarks/serving_bench.py.
@@ -113,10 +116,9 @@ FLAT_KINDS, FLAT_MIN_RECALL = ("flat_f32", "flat_bf16", "sq"), 0.9
 # RQ path, the width of benchmarks/serving_bench.py:186-204 (RQIndex 8x256
 # greedy over 1M x 128) and :327-351 (IVF-RQ); K8's chunk of the RQ scan.
 RQ_STAGES, RQ_ITERS, RQ_RERANK, RQ_CHUNK = 8, 8, 500, 262_144
-# The benchmark twins' kernels: B1 held on the scripts' 100k parity rows;
-# its "default" body (bf16 tensor cores, their own summation order) at
-# this share of the plain version's codes at least, the rest near ties.
-B1_ROWS, B1_MIN_MATCH = 100_000, 0.9999
+# The benchmark twins' kernels: B1 held to its plain version on the
+# scripts' 100k parity rows (``mpacked_encode.kernel_parity``).
+B1_ROWS = 100_000
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
 HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -136,14 +138,6 @@ KERNEL_CALLERS = (
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after one warm-up call
-    (the benchmark twins' timer)."""
-    from vq_tpu_torch.benchmarks import cuda_ms as events_ms
-
-    return events_ms(fn, reps)
 
 
 def cuda_once(fn):
@@ -295,54 +289,34 @@ def phase_build():
     return secs
 
 
-def _near_ties(x, cents, got, want, rows):
-    """Max float64 score gap of the rows where two assignments differ;
-    fails unless every one is a near tie."""
-    import torch
+def _near_ties(x, cents, got, want):
+    """``(rows, max gap)``: the rows where two assignments differ and their
+    largest float64 score gap; fails unless every one is a near tie (one
+    block of ``k`` columns, ``W = -2 c^T``)."""
+    from vq_tpu_torch.benchmarks.mpacked_encode import near_ties
 
-    if rows.numel() == 0:
-        return 0.0
-    xd = x[rows].double()
     cd = cents.double()
-
-    def score(idx):
-        c = cd[idx.long()]
-        return (c * c).sum(-1) - 2.0 * (xd * c).sum(-1)
-
-    sg, sw = score(got[rows]), score(want[rows])
-    gap = (sg - sw).abs()
-    ties = gap <= K4_TIE_RTOL * torch.clamp(sw.abs(), min=1.0)
-    assert bool(ties.all()), f"{int((~ties).sum())} differing codes are not near ties"
-    return float(gap.max())
+    flips, gap, ties = near_ties(x, -2.0 * cents.float().T, (cd * cd).sum(-1), got[:, None],
+                                 want[:, None], "highest")
+    assert ties, f"{flips} differing codes are not near ties"
+    return flips, gap
 
 
 def _k4_check(x, cb, tag):
     """K4 against its plain version; mismatches must be float64 near ties."""
     import torch
 
+    from vq_tpu_torch.benchmarks.mpacked_encode import build_w, near_ties
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     got = ck.pq_encode_fused(x, cb)
     torch.cuda.synchronize()
     want = ck.pq_encode_plain(x, cb)
-    rows, subs = torch.nonzero(got != want, as_tuple=True)
-    err = 0.0
-    if rows.numel():
-        s = cb.shape[2]
-        xs = x[rows].double().reshape(-1, cb.shape[0], s)[torch.arange(rows.numel()), subs]
-        cbd = cb.double()
-
-        def score(codes):
-            c = cbd[subs, codes.long()]
-            return (c * c).sum(-1) - 2.0 * (xs * c).sum(-1)
-
-        sg, sw = score(got[rows, subs]), score(want[rows, subs])
-        gap = (sg - sw).abs()
-        err = float(gap.max())
-        ties = gap <= K4_TIE_RTOL * torch.clamp(sw.abs(), min=1.0)
-        assert bool(ties.all()), f"K4 {tag}: {int((~ties).sum())} mismatches are not near ties"
+    cbd = cb.double()
+    flips, err, ties = near_ties(x, build_w(cb)[0], (cbd * cbd).sum(-1), got, want, "highest")
+    assert ties, f"K4 {tag}: {flips} mismatches are not near ties"
     log("kernels", f"K4 pq_encode {tag} {tuple(x.shape)} vs 8x256x16: "
-        f"{rows.numel()} mismatched codes of {got.numel()}, all float64 near ties "
+        f"{flips} mismatched codes of {got.numel()}, all float64 near ties "
         f"(max score gap {err:.3g})")
     return got, err
 
@@ -515,14 +489,13 @@ def phase_ivf_kernels(corpus, g):
         codes, dists = ck.assign_fused(x, cents)
         torch.cuda.synchronize()
         pc, pd = ck.assign_plain(x, cents)
-        rows = torch.nonzero(codes != pc)[:, 0]
-        gap = _near_ties(x.float(), cents, codes, pc, rows)
+        flips, gap = _near_ties(x.float(), cents, codes, pc)
         same = codes == pc
         err = float((dists - pd).abs()[same].max())
         assert err <= K3_RTOL * float(pd.abs().max()), f"K1 {tag}: distances off by {err}"
         res["k1_err"] = max(res["k1_err"], err)
         log("kernels", f"K1 assign {tag} {tuple(x.shape)} vs {NLIST} centroids: "
-            f"{rows.numel()} of {codes.numel()} codes differ, all float64 near ties "
+            f"{flips} of {codes.numel()} codes differ, all float64 near ties "
             f"(max score gap {gap:.3g}); distances max abs err {err:.3g} where codes agree")
     x2 = corpus[:N_IVF_TRAIN]
     sums, counts, inertia = ck.lloyd_accumulate_fused(x2, cents)
@@ -581,8 +554,7 @@ def phase_ivf_path(corpus, queries, gt):
     with plain_route():
         lists_p, _ = vq_tpu_torch.assign(corpus, index.coarse)
         lists = index._flat_lists
-        rows = torch.nonzero(lists != lists_p)[:, 0]
-        gap = _near_ties(corpus, index.coarse, lists, lists_p, rows)
+        flips, gap = _near_ties(corpus, index.coarse, lists, lists_p)
         enc_in = corpus - index.coarse[lists.long()]
         codes_p = index.pq.encode(enc_in)
         want = {key: index.search(queries, k=10, nprobe=key[0], rerank=key[1]) for key in out}
@@ -595,7 +567,7 @@ def phase_ivf_path(corpus, queries, gt):
         _check_search(name, ids, dist)
         _parity((ids, dist), want[(p, r)], name)
         recall[(p, r)] = _recall(ids, gt)
-    log("ivf", f"add: {rows.numel()} of {N_CORPUS} lists differ from the plain assign, all "
+    log("ivf", f"add: {flips} of {N_CORPUS} lists differ from the plain assign, all "
         f"float64 near ties (max gap {gap:.3g}); residual codes equal the plain encode; all "
         "searches equal the plain route; recall@10 " + ", ".join(
             f"nprobe={p} rerank={r}: {v:.4f}" for (p, r), v in recall.items()))
@@ -896,8 +868,10 @@ def phase_precision(corpus, queries, main):
 def _rq_near_ties(x, cbs, got, want):
     """Rows whose stage codes differ must be float64 near ties at the first
     stage they differ: the two prefixes' squared residuals within
-    K4_TIE_RTOL of ``||x||^2 + 1``. Returns ``(rows, max gap)``."""
+    ``TIE_RTOL`` of ``||x||^2 + 1``. Returns ``(rows, max gap)``."""
     import torch
+
+    from vq_tpu_torch.benchmarks.mpacked_encode import TIE_RTOL
 
     rows = torch.nonzero((got != want).any(1))[:, 0]
     if rows.numel() == 0:
@@ -910,7 +884,7 @@ def _rq_near_ties(x, cbs, got, want):
     cost_g = ((xd - (cd[stage[None, :], g] * upto).sum(1)) ** 2).sum(-1)
     cost_w = ((xd - (cd[stage[None, :], w] * upto).sum(1)) ** 2).sum(-1)
     gap = (cost_g - cost_w).abs()
-    ties = gap <= K4_TIE_RTOL * ((xd * xd).sum(-1) + 1.0)
+    ties = gap <= TIE_RTOL * ((xd * xd).sum(-1) + 1.0)
     assert bool(ties.all()), f"{int((~ties).sum())} differing RQ codes are not near ties"
     return rows.numel(), float(gap.max())
 
@@ -963,8 +937,7 @@ def phase_rq_path(corpus, queries, gt):
         want = {name: idx.search(queries, **kw) for name, (idx, kw) in searches.items()}
     n_codes, gap_codes = _rq_near_ties(corpus, rq.codebooks, indexes["l2"]._codes, codes_p)
     lists = ivf._flat_lists
-    rows = torch.nonzero(lists != lists_p)[:, 0]
-    gap_lists = _near_ties(corpus, ivf.coarse, lists, lists_p, rows)
+    flips, gap_lists = _near_ties(corpus, ivf.coarse, lists, lists_p)
     recall = {}
     for name, (ids, dist) in out.items():
         _check_search(name, ids, dist, descending=name == "rq dot")
@@ -973,7 +946,7 @@ def phase_rq_path(corpus, queries, gt):
     log("rq", f"trained {rq!r} in {t_train / 1e3:.4f} s; RQIndex add 1M {t_add['l2']:.4f} ms; "
         f"{n_codes} of {N_CORPUS} rows' codes differ from the plain encode, all float64 near ties "
         f"(max gap {gap_codes:.3g}); IVF-RQ trained in {t_ivf_train / 1e3:.4f} s, add 1M "
-        f"{t_ivf_add:.4f} ms, {rows.numel()} lists differ from the plain assign, all near ties "
+        f"{t_ivf_add:.4f} ms, {flips} lists differ from the plain assign, all near ties "
         f"(max gap {gap_lists:.3g}); every search equals the plain route; recall@10 " + ", ".join(
             f"{n}: {v:.4f}" for n, v in recall.items()))
     assert recall[f"rq rerank={RQ_RERANK}"] >= recall["rq"], recall
@@ -1109,32 +1082,30 @@ def phase_bench_kernels(bd, corpus, kres):
     from vq_tpu_torch.benchmarks import mpacked_encode as mp
     from vq_tpu_torch.ops import cuda_kernels as ck
 
-    x, cb, w, cc = bd["x"][:B1_ROWS], bd["cb"], bd["w"], bd["cc"]
-    got = mp.mpacked_encode(x, w, cc, "highest")
-    torch.cuda.synchronize()
-    assert torch.equal(got, mp.mpacked_encode_plain(x, w, cc, "highest")), (
-        "B1 highest: codes differ from the plain version")
-    k4 = ck.pq_encode_fused(x, cb)
-    flips, gap, ties = mp.near_ties(x, w, cc, got, k4, "highest")
-    assert ties, f"B1 highest: {flips} codes differ from K4's and are not near ties (gap {gap})"
+    cb, w, cc = bd["cb"], bd["w"], bd["cc"]
+    x = bd["x"][:B1_ROWS]
+    par = mp.kernel_parity(x, w, cc, mp.mpacked_encode(x, w, cc, "highest"), "highest")
+    assert par.ok, f"B1 highest: {par.flips} codes differ from the plain version"
+    # On build_w's operands the products are K4's times the exact -2, in
+    # K4's order, and the zero entries add exactly: K4's codes, at the
+    # main path's 1M rows.
+    full, k4 = mp.mpacked_encode(bd["x"], w, cc, "highest"), ck.pq_encode_fused(bd["x"], cb)
+    assert torch.equal(full, k4), f"B1 highest: {int((full != k4).sum())} codes differ from K4's"
     log("kernels", f"B1 mpacked_encode highest {tuple(x.shape)} x W {tuple(w.shape)}: bit-identical "
-        f"to the plain version; {float((got == k4).float().mean()):.6f} of the codes equal K4's "
-        f"({flips} differ, all float64 near ties)")
-    errs = {"highest": 0.0}
+        f"to the plain version; at {tuple(bd['x'].shape)} bit-identical to K4")
+    errs = {"highest": par.max_gap}
+    del full, k4
     for tag, xx, ww in (("f32", x, w), ("bf16-resident", x.to(torch.bfloat16), w.to(torch.bfloat16))):
         got = mp.mpacked_encode(xx, ww, cc, "default")
-        torch.cuda.synchronize()
-        want = mp.mpacked_encode_plain(xx, ww, cc, "default")
-        match = float((got == want).float().mean())
-        flips, gap, ties = mp.near_ties(xx, ww, cc, got, want, "default")
-        assert match >= B1_MIN_MATCH and ties, (
-            f"B1 default {tag}: {match} of the codes equal the plain version's; {flips} differ, "
-            f"near ties {ties} (gap {gap})")
-        errs["default"] = max(errs.get("default", 0.0), gap)
+        par = mp.kernel_parity(xx, ww, cc, got, "default")
+        assert par.ok, (
+            f"B1 default {tag}: {par.match} of the codes equal the plain version's (at least "
+            f"{mp.MIN_MATCH}); {par.flips} differ, max float64 gap {par.max_gap}")
+        errs["default"] = max(errs.get("default", 0.0), par.max_gap)
         k4b = ck.pq_encode_fused(xx, cb, precision="bf16_fast")
-        log("kernels", f"B1 mpacked_encode default {tag} {tuple(xx.shape)}: {match:.6f} of the codes "
-            f"equal the plain version's, {flips} differ, all float64 near ties (max gap {gap:.3g}); "
-            f"{float((got == k4b).float().mean()):.6f} equal K4-bf16's")
+        log("kernels", f"B1 mpacked_encode default {tag} {tuple(xx.shape)}: {par.match:.6f} of the "
+            f"codes equal the plain version's, {par.flips} differ, all float64 near ties (max gap "
+            f"{par.max_gap:.3g}); {float((got == k4b).float().mean()):.6f} equal K4-bf16's")
 
     tables, codes, codes_t = bd["tables"], bd["codes"], bd["codes_t"]
     k8 = ck.adc_lookup_fused(tables, codes)
@@ -1379,13 +1350,12 @@ def main() -> None:
             0.0, "K8", t_new["K8"], {"launches_by_path": {"precision": pl["adc_lookup_fused"],
                                                           "rq": rl["adc_lookup_fused"]}}),
         row("mpacked_encode[highest]", "mpacked_encode.cu", "benchmarks/mpacked_encode.py:46",
-            bl["mpacked_encode[highest]"], b_err["highest"], "B1_highest", t_bench["B1_highest"],
-            {"plain_rows": B1_ROWS}),
+            bl["mpacked_encode[highest]"], b_err["highest"], "B1_highest", t_bench["B1_highest"]),
         row("mpacked_encode[default]", "mpacked_encode.cu", "benchmarks/mpacked_encode.py:46",
             bl["mpacked_encode[default]"], b_err["default"], "B1_default", t_bench["B1_default"],
-            {"plain_rows": B1_ROWS, "bf16_resident_ms": t_bench["B1_bf16resident"][0]}),
+            {"bf16_resident_ms": t_bench["B1_bf16resident"][0]}),
         row("adc_kt", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:55", bl["adc_kt"], 0.0, "B2",
-            t_bench["B2_adc_kt"], {"design_floor_ms": bbounds["B2_design_floor"]}),
+            t_bench["B2_adc_kt"]),
         row("adc_gather", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:99", bl["adc_gather"], 0.0,
             "B3", t_bench["B3_adc_gather"]),
         row("adc_floor", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:156", bl["adc_floor"], 0.0,
@@ -1394,6 +1364,9 @@ def main() -> None:
     for k in kernels:
         log("bound", f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}), {k['bound_ms'] / k['ms']:.3f} of it | {smi}")
+    floor, kt_ms = bbounds["B2_design_floor"], t_bench["B2_adc_kt"][0]
+    log("bound", f"adc_kt's own design floor, its three one-hot bf16 products at the tensor-core "
+        f"peak: {floor:.4f} ms, {floor / kt_ms:.3f} of its time | {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -88,18 +88,6 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _sum_picks(tab: torch.Tensor, codes_t: torch.Tensor, subspaces: int) -> torch.Tensor:
-    """``[Q, n]``: ``tab[q, i, code]`` added from +0.0 in subspace order
-    for the first ``subspaces`` subspaces, a code >= k adding 0.0."""
-    k = tab.shape[2]
-    acc = torch.zeros((tab.shape[0], codes_t.shape[1]), dtype=torch.float32, device=tab.device)
-    for i in range(subspaces):
-        c = codes_t[i].to(torch.int64)
-        ok = c < k
-        acc = acc + torch.where(ok, tab[:, i, :][:, torch.where(ok, c, 0)], 0.0)
-    return acc
-
-
 def split3(tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(hi, mid, lo)`` bf16: ``hi = bf(t)``, ``mid = bf(t - hi)``, ``lo =
     bf(t - hi - mid)``; ``(hi + mid) + lo`` is ``t`` again for finite
@@ -113,11 +101,11 @@ def split3(tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
 
 def adc_kt_plain(tables: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     """Plain version of B2, bit-identical to it: each entry rebuilt as
-    ``(hi + mid) + lo`` from its three bf16 parts, then summed as K8's
-    plain version sums."""
+    ``(hi + mid) + lo`` from its three bf16 parts, then summed by K8's
+    plain version."""
     _check(tables, codes_t)
     hi, mid, lo = (p.to(torch.float32) for p in split3(tables))
-    return _sum_picks((hi + mid) + lo, codes_t, tables.shape[1])
+    return adc_lookup_plain((hi + mid) + lo, codes_t.T)
 
 
 def adc_kt(tables: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
@@ -157,9 +145,11 @@ def _check_only(only: int, m: int) -> int:
 
 
 def adc_gather_plain(tables: torch.Tensor, codes_t: torch.Tensor, only: int = 0) -> torch.Tensor:
-    """Plain version of B3, bit-identical to it."""
+    """Plain version of B3, bit-identical to it: K8's plain version over
+    the first ``only`` subspaces (all when 0)."""
     _check(tables, codes_t)
-    return _sum_picks(tables.to(torch.float32), codes_t, _check_only(only, tables.shape[1]))
+    subspaces = _check_only(only, tables.shape[1])
+    return adc_lookup_plain(tables[:, :subspaces], codes_t[:subspaces].T)
 
 
 def adc_gather(tables: torch.Tensor, codes_t: torch.Tensor, only: int = 0,

@@ -172,9 +172,9 @@ __global__ void __launch_bounds__(kScanThreads)
     a = __fadd_rn(a, w ? __fmul_rn(w[r], dists[r]) : dists[r]);
   red[threadIdx.x] = a;
   __syncthreads();
-  for (int w = kScanThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w)
-      red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + w]);
+  for (int half = kScanThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half)
+      red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + half]);
     __syncthreads();
   }
   if (threadIdx.x == 0) *inertia = red[0];

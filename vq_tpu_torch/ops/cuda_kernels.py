@@ -313,7 +313,11 @@ def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
     :func:`assign_plain`, then ``index_add_`` and ``bincount``. With
     ``weights [n]`` the sums are Σ w·x and the counts Σ w, each cluster's
     rows added in ascending row order one rounded product at a time, and
-    the inertia Σ w·d in K2's order: the kernel's arithmetic."""
+    the inertia Σ w·d in K2's order: the kernel's arithmetic. That order
+    is serial within a cluster, so the weighted sums take one step a
+    position up to the largest cluster's size, each step adding one row to
+    every cluster that still has one (O(n·d) work in all; the steps, not
+    the work, grow with skew)."""
     codes, dists = assign_plain(x, centroids)
     k, d = centroids.shape
     w = _check_weights(weights, x.shape[0])
@@ -327,13 +331,18 @@ def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
     rows = torch.sort(idx, stable=True)[1]  # by cluster, ascending rows within each
     totals = torch.bincount(idx, minlength=k)
     offsets = torch.cumsum(totals, 0) - totals
+    order = torch.argsort(totals, descending=True, stable=True)  # clusters, largest first
+    sizes = totals[order].tolist()
     sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
     counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    for t in range(int(totals.max()) if idx.numel() else 0):
-        live = totals > t
-        r = rows[torch.where(live, offsets + t, 0)]
-        sums = sums + torch.where(live[:, None], w[r, None] * xf[r], 0.0)
-        counts = counts + torch.where(live, w[r], 0.0)
+    live = k  # clusters with a row at the step: a prefix of ``order``
+    for t in range(sizes[0] if idx.numel() else 0):
+        while sizes[live - 1] <= t:
+            live -= 1
+        cl = order[:live]
+        r = rows[offsets[cl] + t]
+        sums[cl] = sums[cl] + w[r, None] * xf[r]
+        counts[cl] = counts[cl] + w[r]
     return sums, counts, _k2_inertia(w * dists)
 
 
