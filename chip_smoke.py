@@ -56,8 +56,10 @@ Phases, one line each (any failure exits non-zero with no result line):
 11. timings — CUDA events, kernel beside plain version (and, for K8, the
    one PyTorch call that computes the same function,
    ``embedding_bag``), each line stamped with the card's name and power
-   limit; then a ``torch.profiler`` line a call of the precision and RQ
-   paths (wall, device time, busy share, top kernels);
+   limit, with K1's floor under its exact contract and a cuBLAS fp32
+   product of its shape beside it; then a ``torch.profiler`` line a call
+   of the IVF-PQ trainer, the IVF adds, and the precision and RQ paths
+   (wall, device time, busy share, top kernels);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
@@ -108,9 +110,15 @@ K3_RTOL = 1e-5
 # (``mpacked_encode.near_ties``, its TIE_RTOL relative gap).
 # IVF path, the width of the repo's IVF benchmark (benchmarks/ivf_bench.py).
 NLIST, N_IVF_TRAIN, NPROBES, RERANKS = 1024, 200_000, (8, 64), (0, 500)
-# K1: codes exact but for float64-verified near ties, and
-# distances equal where codes are. K2: counts exact, sums and inertia as
-# K3 (fp32 summation order). K6 and K7: bit-identical.
+# K1 (csrc/assign.cu: 8 x 8 register tiles, x resident in shared memory,
+# a cp.async ring of centroid slices) sums each dot in the plain version's
+# order with no FMA, so it is bit-identical by design: the phase counts the
+# codes and distances that differ (0 expected) and still holds any code to
+# a float64-verified near tie, the distance to 1e-5 where codes agree. Its
+# floor under that contract is 2 n k d FP32 instructions over the card's
+# instruction rate (SMs x 128 lanes x max SM clock), not the FMA-counted bound.
+# K2: counts exact, sums and inertia as K3 (fp32 summation order). K6 and
+# K7: bit-identical.
 # IVF-Flat / IVF-SQ searches, the width of benchmarks/serving_bench.py.
 FLAT_KINDS, FLAT_MIN_RECALL = ("flat_f32", "flat_bf16", "sq"), 0.9
 # RQ path, the width of benchmarks/serving_bench.py:186-204 (RQIndex 8x256
@@ -152,6 +160,42 @@ def cuda_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def clocked(fn):
+    """``(fn(), note)``: fn runs while ``nvidia-smi`` samples the SM clock,
+    power draw and active clock-event reasons every 20 ms; the note gives
+    their range over fn's run, so that a time taken below the card's
+    maximum clock says so."""
+    import datetime
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw,clocks_event_reasons.active",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)  # nvidia-smi's start-up
+        t0 = datetime.datetime.now()
+        out = fn()
+        t1 = datetime.datetime.now()
+    finally:
+        proc.terminate()
+        lines = proc.communicate(timeout=60)[0].splitlines()
+    rows = []
+    for line in lines:
+        f = [s.strip() for s in line.split(",")]
+        try:
+            rows.append((datetime.datetime.strptime(f[0], "%Y/%m/%d %H:%M:%S.%f"),
+                         float(f[1]), float(f[2]), f[3]))
+        except (ValueError, IndexError):
+            continue
+    inside = [r for r in rows if t0 <= r[0] <= t1]
+    if not inside:
+        return out, "no clock sample inside the window"
+    mhz = [r[1] for r in inside]
+    return out, (f"SM clock {min(mhz):.0f}-{max(mhz):.0f} MHz, power up to "
+                 f"{max(r[2] for r in inside):.0f} W, clock-event reasons "
+                 f"{sorted({r[3] for r in inside})} ({len(inside)} samples)")
 
 
 def all_kernels():
@@ -494,9 +538,11 @@ def phase_ivf_kernels(corpus, g):
         err = float((dists - pd).abs()[same].max())
         assert err <= K3_RTOL * float(pd.abs().max()), f"K1 {tag}: distances off by {err}"
         res["k1_err"] = max(res["k1_err"], err)
+        n_dist = int((dists.view(torch.int32) != pd.view(torch.int32)).sum())
         log("kernels", f"K1 assign {tag} {tuple(x.shape)} vs {NLIST} centroids: "
-            f"{flips} of {codes.numel()} codes differ, all float64 near ties "
-            f"(max score gap {gap:.3g}); distances max abs err {err:.3g} where codes agree")
+            f"{flips} of {codes.numel()} codes differ from the plain version, all float64 near "
+            f"ties (max score gap {gap:.3g}); {n_dist} distances differ in their bits, max abs "
+            f"err {err:.3g} where codes agree")
     x2 = corpus[:N_IVF_TRAIN]
     sums, counts, inertia = ck.lloyd_accumulate_fused(x2, cents)
     again = ck.lloyd_accumulate_fused(x2, cents)
@@ -609,10 +655,12 @@ def phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases):
     cents, index = kres["cents"], ivf["index"]
     x2 = corpus[:N_IVF_TRAIN]
     t = {}
-    t["K1"] = (cuda_ms(lambda: ck.assign_fused(corpus, cents), 5),
-               cuda_ms(lambda: ck.assign_plain(corpus, cents), 1))
+    k1_ms, k1_clock = clocked(lambda: cuda_ms(lambda: ck.assign_fused(corpus, cents), 5))
+    t["K1"] = (k1_ms, cuda_ms(lambda: ck.assign_plain(corpus, cents), 1))
     xb = corpus.to(torch.bfloat16)
-    t["K1_bf16"] = (cuda_ms(lambda: ck.assign_fused(xb, cents), 5), None)
+    k1b_ms, k1b_clock = clocked(lambda: cuda_ms(lambda: ck.assign_fused(xb, cents), 5))
+    t["K1_bf16"] = (k1b_ms, None)
+    log("time", f"K1 f32 timed at {k1_clock}; bf16 at {k1b_clock} | {smi}")
     t["K2"] = (cuda_ms(lambda: ck.lloyd_accumulate_fused(x2, cents), 10),
                cuda_ms(lambda: ck.lloyd_accumulate_plain(x2, cents), 2))
     cap = index._pool.cap
@@ -622,6 +670,19 @@ def phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases):
     for name, (ms, pms) in t.items():
         plain = "not measured" if pms is None else f"{pms:.4f} ms"
         log("time", f"{name}: kernel {ms:.4f} ms, plain {plain} | {smi}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    floor = 2.0 * N_CORPUS * NLIST * DIM / (sms * 128 * mhz * 1e6) * 1e3
+    log("bound", f"K1's floor under its exact contract (a rounded multiply and a rounded add a "
+        f"term, no FMA): 2 n k d = {2.0 * N_CORPUS * NLIST * DIM:.4g} FP32 instructions over "
+        f"{sms} SMs x 128 lanes x {mhz:.0f} MHz = {floor:.4f} ms; K1 f32 at {floor / t['K1'][0]:.3f} "
+        f"of it, bf16 at {floor / t['K1_bf16'][0]:.3f} | {smi}")
+    mm = cuda_ms(lambda: corpus @ cents.T, 5)
+    log("time", f"cuBLAS fp32 corpus @ cents.T [{N_CORPUS}, {DIM}] x [{DIM}, {NLIST}], TF32 off "
+        f"(allow_tf32={torch.backends.cuda.matmul.allow_tf32}): the product alone, with FMA, no "
+        f"argmin; a yardstick for a tensor-core K1, not K1's library call: {mm:.4f} ms | {smi}")
 
     def add_fresh():
         fresh = vq_tpu_torch.IVFPQIndex(index.coarse, index.pq, keep_corpus=True)
@@ -1015,8 +1076,9 @@ def phase_new_timings(smi, corpus, queries, res, prec, rqres):
     return t
 
 
-def profile_paths(smi, corpus, queries, prec, rqres):
-    """Each call of the precision and RQ paths once warm,
+def profile_paths(smi, corpus, queries, prec, rqres, ivfpq, flat):
+    """Each call of the precision and RQ paths, and the IVF trainers and
+    adds that K1 dominates, once warm,
     then once under ``torch.profiler``: wall time (host clock to a
     synchronize), device time (the device activities' own time summed),
     busy share (device over wall, the profiler's host cost included) and
@@ -1027,7 +1089,16 @@ def profile_paths(smi, corpus, queries, prec, rqres):
     import vq_tpu_torch
 
     rq, ivf, pq, codes = rqres["rq"], rqres["ivf"], prec["pq"], prec["codes"]
+    pqi, fl, sq = ivfpq["index"], flat["indexes"]["flat_f32"], flat["indexes"]["sq"]
     calls = {
+        "IVFPQIndex.train 200k": lambda: vq_tpu_torch.IVFPQIndex.train(
+            corpus[:N_IVF_TRAIN], NLIST, M, K, max_iters=10, keep_corpus=True),
+        "IVFPQIndex.add 1M (fresh index)": lambda: vq_tpu_torch.IVFPQIndex(
+            pqi.coarse, pqi.pq, keep_corpus=True).add(corpus),
+        "IVFFlatIndex.add 1M f32 (fresh index)": lambda: vq_tpu_torch.IVFFlatIndex(fl.coarse).add(corpus),
+        "IVFFlatIndex.add 1M bf16 (fresh index)": lambda: vq_tpu_torch.IVFFlatIndex(
+            fl.coarse, store_dtype="bfloat16").add(corpus),
+        "IVFSQIndex.add 1M (fresh index)": lambda: vq_tpu_torch.IVFSQIndex(sq.coarse, sq.sq).add(corpus),
         "RQ train 200k, 8x256": lambda: vq_tpu_torch.ResidualQuantizer(
             corpus[:N_IVF_TRAIN], RQ_STAGES, K, max_iters=RQ_ITERS, seed=1),
         "RQIndex.add 1M (fresh index)": lambda: vq_tpu_torch.RQIndex(rq).add(corpus),
@@ -1299,7 +1370,7 @@ def main() -> None:
     prec = phase_precision(corpus, queries, main_res)
     rqres = phase_rq_path(corpus, queries, main_res["gt"])
     t_new = phase_new_timings(smi, corpus, queries, res, prec, rqres)
-    profile_paths(smi, corpus, queries, prec, rqres)
+    profile_paths(smi, corpus, queries, prec, rqres, ivf, flat)
     bd = make_bench_data("cuda")
     b_err = phase_bench_kernels(bd, corpus, kres)
     bl = phase_bench_path()
@@ -1335,7 +1406,8 @@ def main() -> None:
             "K4", t["K4"]),
         row("adc_scan_topk_fused", "adc_topk.cu", "802", launches["adc_scan_topk_fused"],
             res["k5_err"], "K5", t["K5"]),
-        row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"]),
+        row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"],
+            {"bf16_ms": t["K1_bf16"][0]}),
         row("lloyd_accumulate_fused", "lloyd.cu", "1473", launches["lloyd_accumulate_fused"],
             kres["k2_err"], "K2", t["K2"]),
         row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", launches["ivf_probe_adc_fused"], 0.0,

@@ -158,8 +158,15 @@ def test_adc_scan_topk_tiles(card, tile):
 
 
 # (n, k, d): the IVF coarse width, a ragged k and d, a k past every TPU
-# VMEM budget (65536 at d = 128, one launch), and a single centroid.
-_ASSIGN_SHAPES = [(5000, 1024, 128), (777, 300, 24), (300, 65536, 128), (65, 1, 7)]
+# VMEM budget (65536 at d = 128, one launch), and a single centroid. The
+# kernel's edges: n and k not multiples of its 128-row / 128-centroid
+# tiles throughout; d % 4 != 0 (4-byte copies and a zero-padded last
+# float4); d = 1; the widest d whose x rows stay resident in shared
+# memory (244) and the next (245, d % 4 != 0), and GIST's d = 960, both
+# staged in 64-wide e slices beside the centroids.
+_ASSIGN_SHAPES = [(5000, 1024, 128), (777, 300, 24), (300, 65536, 128), (65, 1, 7),
+                  (1031, 129, 131), (2000, 37, 1), (515, 70, 244), (515, 70, 245),
+                  (4099, 1000, 960)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -169,6 +176,21 @@ def test_assign_matches_plain(card, shape, dtype):
     g = torch.Generator(device=card).manual_seed(3)
     x = torch.randn(n, d, generator=g, device=card).to(dtype)
     c = torch.randn(k, d, generator=g, device=card)
+    codes, dists = ck.assign_fused(x, c)
+    torch.cuda.synchronize()
+    want_codes, want_dists = ck.assign_plain(x, c)
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(dists, want_dists)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_assign_unaligned_operands(card, dtype):
+    """x and the centroids one element past a 16-byte boundary (d % 4 ==
+    0): the kernel takes its element-wise copies and still matches."""
+    n, k, d = 1500, 200, 128
+    g = torch.Generator(device=card).manual_seed(13)
+    x = torch.randn(n * d + 1, generator=g, device=card).to(dtype)[1:].view(n, d)
+    c = torch.randn(k * d + 1, generator=g, device=card)[1:].view(k, d)
     codes, dists = ck.assign_fused(x, c)
     torch.cuda.synchronize()
     want_codes, want_dists = ck.assign_plain(x, c)
@@ -204,6 +226,20 @@ def test_lloyd_accumulate_matches_plain(card, shape):
     torch.testing.assert_close(inertia, pi, rtol=1e-5, atol=0.0)
     again = ck.lloyd_accumulate_fused(x, c)
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
+
+
+def test_lloyd_accumulate_d960_bit_identical(card):
+    """GIST's width, where K1 slices x through its ring: two runs agree bit
+    for bit."""
+    n, k, d = 30_000, 1000, 960
+    g = torch.Generator(device=card).manual_seed(14)
+    x = torch.randn(n, d, generator=g, device=card)
+    c = torch.randn(k, d, generator=g, device=card)
+    first = ck.lloyd_accumulate_fused(x, c)
+    again = ck.lloyd_accumulate_fused(x, c)
+    torch.cuda.synchronize()
+    assert int(first[1].sum()) == n
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 # (code type, m, kk, rows a chunk): the IVF-PQ shape (u8, 8 x 256), i32
