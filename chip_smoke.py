@@ -15,9 +15,10 @@ Phases, one line each (any failure exits non-zero with no result line):
    through the public entry points, with the launch counters of all three
    kernels checked, results held to the plain route on the same card and
    recall@10 against exact brute force;
-5. ivf kernels — K1 (assign) at 1M x 1024 x 128 in f32 and bf16 and K2
-   (Lloyd accumulate) at 200k x 1024 x 128, each held to its plain
-   version on the card;
+5. ivf kernels — K1 (assign) at 1M x 1024 x 128 in f32 and bf16, held to
+   its plain version on the card, and K2 (Lloyd accumulate) at 200k x
+   1024 x 128 (IVF) and 200k x 256 x 128 (an RQ stage), held bit for bit
+   to its plain version and to a second run;
 6. ivf path — ``IVFPQIndex.train`` (IVF1024, PQ 8x256 on residuals) on
    200k rows, ``add`` of the 1M corpus, ``search(k=10)`` at nprobe 8 and
    64 with rerank 0 and 500, through the public entry points: launch
@@ -57,7 +58,11 @@ Phases, one line each (any failure exits non-zero with no result line):
    one PyTorch call that computes the same function,
    ``embedding_bag``), each line stamped with the card's name and power
    limit, with K1's floor under its exact contract and a cuBLAS fp32
-   product of its shape beside it; then a ``torch.profiler`` line a call
+   product of its shape beside it; K2 at both shapes, with a
+   ``torch.profiler`` line a shape of the device time of each of its
+   stages, and its sums stage beside ``index_add_`` (one PyTorch call
+   with float atomics, a yardstick the port never calls) and its bytes
+   bound; then a ``torch.profiler`` line a call
    of the IVF-PQ trainer, the IVF adds, and the precision and RQ paths
    (wall, device time, busy share, top kernels);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
@@ -69,8 +74,8 @@ Phases, one line each (any failure exits non-zero with no result line):
    ``mpacked_encode.kernel_parity`` (>= 0.9999 of the codes equal, the
    rest float64 near ties), and its match against K4-bf16; B2 and B3 bit
    for bit against their plain versions and K8, B4 against its plain
-   version; K2 with seeded weights at 200k x 1024 twice (bit-identical)
-   and against its weighted plain version. Then the twins' ``main()``
+   version; K2 with seeded weights at both of its shapes twice and
+   against its weighted plain version, bit for bit. Then the twins' ``main()``
    (``vq_tpu_torch.benchmarks.mpacked_encode`` and ``.adc_vmem_bench``)
    run at their default sizes, the slice's main path: launch counts read
    from that run, every ``parity`` field true. Then timings: B1's three
@@ -117,8 +122,8 @@ NLIST, N_IVF_TRAIN, NPROBES, RERANKS = 1024, 200_000, (8, 64), (0, 500)
 # a float64-verified near tie, the distance to 1e-5 where codes agree. Its
 # floor under that contract is 2 n k d FP32 instructions over the card's
 # instruction rate (SMs x 128 lanes x max SM clock), not the FMA-counted bound.
-# K2: counts exact, sums and inertia as K3 (fp32 summation order). K6 and
-# K7: bit-identical.
+# K2 (kernel and plain version share one segmented summation order), K6
+# and K7: bit-identical.
 # IVF-Flat / IVF-SQ searches, the width of benchmarks/serving_bench.py.
 FLAT_KINDS, FLAT_MIN_RECALL = ("flat_f32", "flat_bf16", "sq"), 0.9
 # RQ path, the width of benchmarks/serving_bench.py:186-204 (RQIndex 8x256
@@ -130,6 +135,12 @@ B1_ROWS = 100_000
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
 HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# K2's kernels (csrc/lloyd.cu) by stage, as the profiler names them.
+K2_STAGES = (("assign", "assign_kernel"), ("memset", "Memset"), ("histogram", "chunk_hist_kernel"),
+             ("totals", "cluster_totals_kernel"), ("scan", "cluster_scan_kernel"),
+             ("cursor", "chunk_cursor_kernel"), ("scatter", "chunk_scatter_kernel"),
+             ("table", "segment_table_kernel"), ("sums", "segment_sum_kernel"),
+             ("combine", "segment_combine_kernel"), ("inertia", "inertia_kernel"))
 # Every kernel wrapper the paths call, and the modules that call it.
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
@@ -229,6 +240,24 @@ def read_counts():
     out.update({f"pq_encode_fused[{p}]": n for p, n in ck.pq_encode_fused.launches_by.items()})
     out.update({f"mpacked_encode[{p}]": n for p, n in mp.mpacked_encode.launches_by.items()})
     return out
+
+
+def k2_stage_times(events, calls: int = 1):
+    """``{stage: (ms a call, launches a call)}`` of K2's kernels among the
+    profiler's device events, over ``calls`` calls."""
+    out = {}
+    for e in events:
+        for stage, key in K2_STAGES:
+            if key in e.key:
+                ms, n = out.get(stage, (0.0, 0))
+                out[stage] = (ms + e.self_device_time_total / 1e3 / calls, n + e.count / calls)
+    return out
+
+
+def k2_shapes(kres):
+    """K2's two shapes: ``{tag: centroids}`` for the 200k training rows."""
+    return {f"{N_IVF_TRAIN} x {NLIST} x {DIM}": kres["cents"],
+            f"{N_IVF_TRAIN} x {K} x {DIM}": kres["cents_rq"]}
 
 
 def bound(nbytes: float, flops: float, peak: float):
@@ -544,22 +573,22 @@ def phase_ivf_kernels(corpus, g):
             f"ties (max score gap {gap:.3g}); {n_dist} distances differ in their bits, max abs "
             f"err {err:.3g} where codes agree")
     x2 = corpus[:N_IVF_TRAIN]
-    sums, counts, inertia = ck.lloyd_accumulate_fused(x2, cents)
-    again = ck.lloyd_accumulate_fused(x2, cents)
-    torch.cuda.synchronize()
-    ps, pc, pi = ck.lloyd_accumulate_plain(x2, cents)
-    assert torch.equal(counts, pc), "K2 counts differ from the plain version"
-    assert int(counts.sum()) == x2.shape[0]
-    err = float((sums - ps).abs().max())
-    bound = K3_RTOL * ps.abs() + K3_RTOL * float(ps.abs().max())
-    assert bool(((sums - ps).abs() <= bound).all()), f"K2 sums off by {err}"
-    assert abs(float(inertia) - float(pi)) <= K3_RTOL * abs(float(pi)), (float(inertia), float(pi))
-    assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again)), (
-        "K2 is not deterministic from run to run")
-    res["k2_err"] = err
-    log("kernels", f"K2 lloyd_accumulate {tuple(x2.shape)} vs {NLIST} centroids: counts exact, "
-        f"sums max abs err {err:.3g}, inertia {float(inertia):.6g} vs {float(pi):.6g}, "
-        "bit-identical on a second run")
+    res["cents_rq"] = cents[:K]  # an RQ stage's k
+    for tag, c in k2_shapes(res).items():
+        got = ck.lloyd_accumulate_fused(x2, c)
+        again = ck.lloyd_accumulate_fused(x2, c)
+        torch.cuda.synchronize()
+        want = ck.lloyd_accumulate_plain(x2, c)
+        diffs = [int((a != b).sum()) for a, b in zip(got, want)]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+            f"K2 {tag}: {diffs} sums / counts / inertia differ from the plain version")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+            f"K2 {tag} is not deterministic from run to run")
+        assert int(got[1].sum()) == x2.shape[0]
+        log("kernels", f"K2 lloyd_accumulate {tag}: sums, counts and inertia bit-identical to the "
+            f"plain version and on a second run (clusters: largest {int(got[1].max())} rows, mean "
+            f"{float(got[1].mean()):.1f}, empty {int((got[1] == 0).sum())})")
+    res["k2_err"] = 0.0
     return res
 
 
@@ -661,8 +690,9 @@ def phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases):
     k1b_ms, k1b_clock = clocked(lambda: cuda_ms(lambda: ck.assign_fused(xb, cents), 5))
     t["K1_bf16"] = (k1b_ms, None)
     log("time", f"K1 f32 timed at {k1_clock}; bf16 at {k1b_clock} | {smi}")
-    t["K2"] = (cuda_ms(lambda: ck.lloyd_accumulate_fused(x2, cents), 10),
-               cuda_ms(lambda: ck.lloyd_accumulate_plain(x2, cents), 2))
+    for name, c in (("K2", cents), ("K2_rq_shape", kres["cents_rq"])):
+        t[name] = (cuda_ms(lambda: ck.lloyd_accumulate_fused(x2, c), 10),
+                   cuda_ms(lambda: ck.lloyd_accumulate_plain(x2, c), 2))
     cap = index._pool.cap
     for p, args in k7_cases.items():
         t[f"K7_nprobe{p}"] = (cuda_ms(lambda: ck.ivf_probe_adc_fused(*args, cap=cap), 20),
@@ -710,6 +740,47 @@ def phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases):
                 f"{N_QUERY / ms * 1e3:.6g} QPS; plain route {pms:.4f} ms, "
                 f"{N_QUERY / pms * 1e3:.6g} QPS; recall@10 {ivf['recall'][(p, r)]:.4f} | {smi}")
     return t
+
+
+def phase_k2_stages(smi, corpus, kres):
+    """K2's stages at both of its shapes: a ``torch.profiler`` line of the
+    device time a call of each kernel of ``vq_lloyd``, and the sums stage
+    (the segment sums and their combine) beside its bytes bound and
+    ``index_add_``: one PyTorch call that sums the rows by cluster, with
+    float atomics whose order changes from run to run, a yardstick the
+    port never calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    x2, reps = corpus[:N_IVF_TRAIN], 5
+    cuda = torch.autograd.DeviceType.CUDA
+    for tag, c in k2_shapes(kres).items():
+        k, d = c.shape
+        ck.lloyd_accumulate_fused(x2, c)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                ck.lloyd_accumulate_fused(x2, c)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        stages = k2_stage_times(evts, reps)
+        total = sum(e.self_device_time_total for e in evts) / 1e3 / reps
+        log("profile", f"K2 {tag}, device ms a call by stage: " + ", ".join(
+            f"{s} {ms:.4f}" + (f" x{n:g}" if n != 1 else "") for s, (ms, n) in stages.items())
+            + f"; all device activity {total:.4f} ms | {smi}")
+        idx = ck.assign_fused(x2, c)[0].long()
+        lib = cuda_ms(lambda: torch.zeros(k, d, device=x2.device).index_add_(0, idx, x2), 20)
+        b_ms, b_by = bound(x2.numel() * 4 + x2.shape[0] * 4 + k * d * 4, 1.0 * x2.numel(), PEAK_F32)
+        if "sums" in stages and "combine" in stages:
+            sums_ms = stages["sums"][0] + stages["combine"][0]
+            stage = f"segment sums + combine {sums_ms:.4f} ms, {b_ms / sums_ms:.3f} of it"
+        else:  # the profiler dropped the call's kernels
+            stage = "segment sums + combine not measured"
+        log("bound", f"K2 sums stage {tag}: x read once, the row ids read and the sums written "
+            f"once, {b_ms:.4f} ms ({b_by}); {stage}; index_add_ (float atomics, the yardstick) "
+            f"{lib:.4f} ms | {smi}")
 
 
 def phase_flat_path(corpus, queries, gt):
@@ -1122,9 +1193,13 @@ def profile_paths(smi, corpus, queries, prec, rqres, ivfpq, flat):
         evts = [e for e in prof.key_averages() if e.device_type == cuda]
         dev = sum(e.self_device_time_total for e in evts) / 1e3
         top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
+        stages = k2_stage_times(evts)
+        k2 = ("; K2's sums stage: " + ", ".join(
+            f"{s} {stages[s][0]:.3f} ms x{stages[s][1]:g}" for s in ("sums", "combine") if s in stages)
+            if "sums" in stages else "")
         log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
             + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
-            + f" | {smi}")
+            + k2 + f" | {smi}")
 
 
 def make_bench_data(device):
@@ -1146,7 +1221,8 @@ def make_bench_data(device):
 
 def phase_bench_kernels(bd, corpus, kres):
     """B1-B4 held to their plain versions (and B1 to K4, B2 and B3 to K8)
-    on the card; K2 with weights twice and against its plain version."""
+    on the card; K2 with weights at both of its shapes twice and against
+    its plain version, bit for bit."""
     import torch
 
     from vq_tpu_torch.benchmarks import adc_vmem_bench as av
@@ -1197,21 +1273,19 @@ def phase_bench_kernels(bd, corpus, kres):
         "versions; B2 and B3 bit-identical to K8 on the same codes")
     del outs, plains, k8
 
-    x2, cents, wt = corpus[:N_IVF_TRAIN], kres["cents"], bd["weights"]
-    first = ck.lloyd_accumulate_fused(x2, cents, wt)
-    again = ck.lloyd_accumulate_fused(x2, cents, wt)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, again)), "weighted K2 is not deterministic"
-    ps, pc, pi = ck.lloyd_accumulate_plain(x2, cents, wt)
-    sums, counts, inertia = first
-    for name, got_, want_ in (("sums", sums, ps), ("counts", counts, pc)):
-        tol = K3_RTOL * want_.abs() + K3_RTOL * float(want_.abs().max())
-        assert bool(((got_ - want_).abs() <= tol).all()), f"weighted K2 {name} off"
-    assert abs(float(inertia) - float(pi)) <= K3_RTOL * abs(float(pi)), (float(inertia), float(pi))
-    same = all(torch.equal(a, b) for a, b in zip(first, (ps, pc, pi)))
-    log("kernels", f"K2 lloyd_accumulate with weights {tuple(x2.shape)} vs {NLIST} centroids: "
-        f"bit-identical on a second run; {'bit-identical to' if same else 'within K3 tolerance of'} "
-        f"the weighted plain version (sums max abs err {float((sums - ps).abs().max()):.3g})")
+    x2, wt = corpus[:N_IVF_TRAIN], bd["weights"]
+    for tag, cents in k2_shapes(kres).items():
+        first = ck.lloyd_accumulate_fused(x2, cents, wt)
+        again = ck.lloyd_accumulate_fused(x2, cents, wt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), (
+            f"weighted K2 {tag} is not deterministic")
+        want = ck.lloyd_accumulate_plain(x2, cents, wt)
+        diffs = [int((a != b).sum()) for a, b in zip(first, want)]
+        assert all(torch.equal(a, b) for a, b in zip(first, want)), (
+            f"weighted K2 {tag}: {diffs} sums / counts / inertia differ from the plain version")
+        log("kernels", f"K2 lloyd_accumulate with weights {tag}: bit-identical to the weighted plain "
+            "version and on a second run")
     return errs
 
 
@@ -1364,6 +1438,7 @@ def main() -> None:
     k7_cases = phase_k7(queries, ivf)
     t = phase_timings(smi, corpus, queries, res, main_res)
     t.update(phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases))
+    phase_k2_stages(smi, corpus, kres)
     flat = phase_flat_path(corpus, queries, main_res["gt"])
     k6_cases, k6_err = phase_k6(flat)
     t.update(phase_flat_timings(smi, queries, flat, k6_cases))
@@ -1409,7 +1484,7 @@ def main() -> None:
         row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"],
             {"bf16_ms": t["K1_bf16"][0]}),
         row("lloyd_accumulate_fused", "lloyd.cu", "1473", launches["lloyd_accumulate_fused"],
-            kres["k2_err"], "K2", t["K2"]),
+            kres["k2_err"], "K2", t["K2"], {"rq_shape_ms": t["K2_rq_shape"][0]}),
         row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", launches["ivf_probe_adc_fused"], 0.0,
             "K7", t["K7_nprobe8"], {"also_replaces": tpu + "1147"}),
         row("ivf_probe_matvec_fused", "ivf_matvec.cu", "1356", launches["ivf_probe_matvec_fused"],

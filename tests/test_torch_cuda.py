@@ -9,10 +9,11 @@ Tolerances: K1 codes and distances, K4 / K4-bf16 / K4-bf16x3 codes, K5
 values and ids, K6, K7 and K8 values, and IVF-Flat / IVF-SQ / RQ /
 IVF-RQ searches exact (the kernels repeat the plain versions' fp32
 arithmetic);
-K2 and K3 counts exact, sums at rtol 1e-5 / atol 1e-4 and inertia at
-rtol 1e-5 (fp32 summation order), and both bit-identical from one run
-to the next; weighted K2 equal to its plain version (both sum in
-ascending row order). The benchmark twins' kernels: B1 "highest", B2,
+K2 exact, weighted or not (kernel and plain version sum in one
+segmented order), and bit-identical from one run to the next; K3 counts
+exact, sums at rtol 1e-5 / atol 1e-4 and inertia at rtol 1e-5 (fp32
+summation order), and bit-identical from one run to the next. The
+benchmark twins' kernels: B1 "highest", B2,
 B3 and B4 exact; B1 "default" (bf16 tensor cores, their own summation
 order) at >= 0.9999 of the codes, every other one a float64 near tie.
 """
@@ -222,10 +223,58 @@ def test_lloyd_accumulate_matches_plain(card, shape):
     torch.cuda.synchronize()
     ps, pc, pi = ck.lloyd_accumulate_plain(x, c)
     assert torch.equal(counts, pc) and int(counts.sum()) == n
-    torch.testing.assert_close(sums, ps, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(inertia, pi, rtol=1e-5, atol=0.0)
+    assert torch.equal(sums, ps) and torch.equal(inertia, pi)
     again = ck.lloyd_accumulate_fused(x, c)
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
+
+
+# K2 where its segments begin and end (S = ck._SEGMENT_ROWS rows): every
+# row in one cluster; fewer rows than S; d = 5 (4-byte loads); GIST's
+# d = 960 (eight 128-column groups, the last half full); k = 65536 with
+# most clusters empty; one cluster of ~199k rows beside a few small ones;
+# x 4 bytes off 16-byte alignment (4-byte loads at d = 128).
+_K2_EDGES = {
+    "k1": (5000, 1, 128),
+    "n_below_S": (20, 3, 128),
+    "d5": (3001, 7, 5),
+    "d960": (4000, 50, 960),
+    "k65536_mostly_empty": (3000, 65536, 16),
+    "dominant_200k": (200_000, 256, 128),
+    "unaligned": (5000, 64, 128),
+}
+
+
+def _k2_case(card, name):
+    n, k, d = _K2_EDGES[name]
+    g = torch.Generator(device=card).manual_seed(15)
+    x = torch.randn(n, d, generator=g, device=card)
+    c = torch.randn(k, d, generator=g, device=card)
+    if name == "dominant_200k":
+        c = c * 10
+        c[7] = 0.0  # nearest to every row of N(0, I) ...
+        x[:1000] = c[torch.arange(1000, device=card) % k] + 0.1 * x[:1000]  # ... but these
+    if name == "unaligned":
+        x = torch.empty(n * d + 1, device=card)[1:].view(n, d).copy_(x)
+        assert x.data_ptr() % 16 != 0
+    return x, c
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("name", sorted(_K2_EDGES))
+def test_lloyd_accumulate_segment_edges(card, name, weighted):
+    x, c = _k2_case(card, name)
+    g = torch.Generator(device=card).manual_seed(16)
+    w = torch.rand(x.shape[0], generator=g, device=card) * 2 if weighted else None
+    got = ck.lloyd_accumulate_fused(x, c, w)
+    torch.cuda.synchronize()
+    want = ck.lloyd_accumulate_plain(x, c, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.lloyd_accumulate_fused(x, c, w)))
+    sizes = torch.bincount(ck.assign_plain(x, c)[0].long(), minlength=c.shape[0])
+    if name == "dominant_200k":
+        assert int(sizes.max()) > 190_000 and int((sizes > 0).sum()) > 100
+    if not weighted:
+        assert torch.equal(got[1], sizes.float())
 
 
 def test_lloyd_accumulate_d960_bit_identical(card):

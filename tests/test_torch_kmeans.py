@@ -13,7 +13,9 @@ Tolerances:
   (fp32 summation order of a d-term dot; no such near tie occurs on
   these inputs, the allowance only keeps the check honest);
 * distances at rtol 1e-5 / atol 1e-5 * scale (the same order);
-* K2 counts exact, sums at rtol 1e-5 / atol 1e-4, inertia at rtol 1e-5;
+* K2 counts exact, sums at rtol 1e-5 / atol 1e-4, inertia at rtol 1e-5
+  (the Pallas kernel's own summation order); the plain K2 against a
+  float32 loop of its segmented order, bit for bit;
 * warm-started ``lloyd``: assignments, iteration counts and the
   converged flag exact, centroids within 1e-5 (absolute and relative),
   inertia within 1e-7 * sum ||x||^2 (each distance carries the fp32
@@ -175,48 +177,68 @@ def test_weighted_lloyd_accumulate_matches_jax(n):
     np.testing.assert_allclose(float(inertia), float(inertia_w), rtol=1e-5)
 
 
-def test_weighted_plain_sums_in_ascending_row_order():
-    """The weighted plain K2 is the kernel's arithmetic: each cluster's
-    rounded w*x added from +0.0 in ascending row order, Σ w likewise, and
-    the inertia in K2's order (1024 strided partial sums folded in
-    halves). Checked bit for bit against a row-by-row float32 loop."""
-    rng = np.random.default_rng(51)
-    x = rng.standard_normal((3000, 5)).astype(np.float32)
-    c = rng.standard_normal((6, 5)).astype(np.float32)
-    w = rng.uniform(0.0, 2.0, 3000).astype(np.float32)
-    codes, dists = ck.assign_plain(_t(x), _t(c))
-    codes, dists = codes.numpy(), dists.numpy()
-    sums = np.zeros((6, 5), np.float32)
-    counts = np.zeros(6, np.float32)
-    for r in range(x.shape[0]):
-        sums[codes[r]] = sums[codes[r]] + w[r] * x[r]
-        counts[codes[r]] = counts[codes[r]] + w[r]
+_S = ck._SEGMENT_ROWS
+# Planted cluster sizes (rows interleaved): exactly S rows (one segment),
+# S + 1 (a second segment of one row), more than 3S (four segments), an
+# empty cluster, and all of them together.
+_SEGMENT_LAYOUTS = {
+    "exactly_S": (_S, 3),
+    "S_plus_1": (_S + 1, 2),
+    "over_3S": (3 * _S + 7, _S - 1),
+    "empty": (9, 0, 4),
+    "mixed": (_S, _S + 1, 3 * _S + 7, 0, 1, 2 * _S),
+}
+
+
+def _segmented_sums(x, w, codes, dists, k):
+    """K2's order as a row-by-row float32 loop: each cluster's rows in
+    ascending order, cut into segments of S; a segment's partial from
+    +0.0, the cluster's sum its partials added to +0.0 in order; the
+    inertia as 1024 strided partial sums folded in halves."""
+    sums = np.zeros((k, x.shape[1]), np.float32)
+    counts = np.zeros(k, np.float32)
+    for j in range(k):
+        members = np.nonzero(codes == j)[0]
+        for s0 in range(0, members.size, _S):
+            part = np.zeros(x.shape[1], np.float32)
+            wpart = np.float32(0.0)
+            for r in members[s0:s0 + _S]:
+                part = part + (x[r] if w is None else w[r] * x[r])
+                wpart = np.float32(wpart + (w[r] if w is not None else 1.0))
+            sums[j] = sums[j] + part
+            counts[j] = np.float32(counts[j] + wpart)
     part = np.zeros(1024, np.float32)
-    wd = w * dists
+    terms = dists if w is None else w * dists
     for r in range(x.shape[0]):
-        part[r % 1024] = part[r % 1024] + wd[r]
+        part[r % 1024] = part[r % 1024] + terms[r]
     while part.shape[0] > 1:
         part = part[:part.shape[0] // 2] + part[part.shape[0] // 2:]
-    got = ck.lloyd_accumulate_fused(_t(x), _t(c), _t(w))
+    return sums, counts, part[0]
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("layout", sorted(_SEGMENT_LAYOUTS))
+def test_plain_sums_in_segmented_order(layout, weighted):
+    """The plain K2 is the kernel's arithmetic, weighted or not: checked bit
+    for bit against a row-by-row float32 loop of the segmented order, on
+    clusters planted at the sizes where segments begin and end."""
+    sizes = _SEGMENT_LAYOUTS[layout]
+    k, d = len(sizes), 5
+    rng = np.random.default_rng(51)
+    c = (rng.standard_normal((k, d)) * 20).astype(np.float32)
+    lab = rng.permutation(np.repeat(np.arange(k), sizes))
+    x = (c[lab] + rng.standard_normal((lab.size, d))).astype(np.float32)
+    w = rng.uniform(0.0, 2.0, lab.size).astype(np.float32) if weighted else None
+    codes, dists = ck.assign_plain(_t(x), _t(c))
+    codes, dists = codes.numpy(), dists.numpy()
+    np.testing.assert_array_equal(np.bincount(codes, minlength=k), sizes)
+    sums, counts, inertia = _segmented_sums(x, w, codes, dists, k)
+    got = ck.lloyd_accumulate_fused(_t(x), _t(c), None if w is None else _t(w))
     np.testing.assert_array_equal(got[0].numpy(), sums)
     np.testing.assert_array_equal(got[1].numpy(), counts)
-    assert float(got[2]) == float(part[0])
-
-
-def test_unweighted_path_unchanged():
-    """``weights=None`` keeps the unweighted pass as it was: index_add_
-    sums, bincount counts, the distances' sum."""
-    rng = np.random.default_rng(52)
-    x = rng.random((500, 8), dtype=np.float32)
-    c = rng.random((9, 8), dtype=np.float32)
-    sums, counts, inertia = ck.lloyd_accumulate_fused(_t(x), _t(c), None)
-    codes, dists = ck.assign_plain(_t(x), _t(c))
-    want = torch.zeros(9, 8).index_add_(0, codes.long(), _t(x))
-    assert torch.equal(sums, want)
-    assert torch.equal(counts, torch.bincount(codes.long(), minlength=9).float())
-    assert torch.equal(inertia, dists.sum())
-    again = ck.lloyd_accumulate_fused(_t(x), _t(c))
-    assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
+    assert float(got[2]) == float(inertia)
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.lloyd_accumulate_plain(
+        _t(x), _t(c), None if w is None else _t(w))))
 
 
 def test_weighted_lloyd_accumulate_bad_weights():

@@ -64,10 +64,11 @@ _SIGNATURES = {
     # x, x_is_bf16, c, cc, codes, dists, n, k, d, stream
     "vq_assign": (_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P),
     # x, weights (null: none), c, cc, codes, dists, chunk_counts, totals,
-    # offsets, perm, sums, counts, inertia, n, k, d, rows_per_chunk,
-    # chunks, stream
-    "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _LL, _I, _I, _LL, _I, _P),
+    # offsets, perm, seg_off, pseg_off, seg_cluster, psums, pcounts, sums,
+    # counts, inertia, n, k, d, rows_per_chunk, chunks, max_segs, vec,
+    # stream
+    "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _P, _P, _P, _LL, _I, _I, _LL, _I, _LL, _I, _P),
     # tables, chunks, codes, codes_are_u8, out, pairs, m, kk, nc, ch,
     # n_chunks, cap, gsub, slices, stream
     "vq_ivf_probe": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _LL, _I,

@@ -83,6 +83,7 @@ _PLAIN_CELLS = 1 << 22  # [B, k] scores per block of the plain K1
 _CHUNK_ROWS = 1024  # K2's rows per counting-sort chunk, at least
 _CHUNK_CELLS = 1 << 24  # K2's (chunk, cluster) cursors, at most
 _INERTIA_THREADS = 1024  # K2's inertia partial sums (csrc/lloyd.cu kScanThreads)
+_SEGMENT_ROWS = 32  # K2's rows a segment of a cluster's sum (csrc/lloyd.cu kSegRows)
 _PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
 _MATVEC_ROWS = 256  # row positions per K6 tile (csrc/ivf_matvec.cu kRows)
 _PLAIN_CELLS_K6 = 1 << 28  # gathered f32 values per block of the plain K6
@@ -309,41 +310,56 @@ def _k2_inertia(v: torch.Tensor) -> torch.Tensor:
 
 def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
                            weights: Optional[torch.Tensor] = None):
-    """Plain version of K2 -> ``(sums [k, d], counts [k], inertia [])``:
-    :func:`assign_plain`, then ``index_add_`` and ``bincount``. With
-    ``weights [n]`` the sums are Σ w·x and the counts Σ w, each cluster's
-    rows added in ascending row order one rounded product at a time, and
-    the inertia Σ w·d in K2's order: the kernel's arithmetic. That order
-    is serial within a cluster, so the weighted sums take one step a
-    position up to the largest cluster's size, each step adding one row to
-    every cluster that still has one (O(n·d) work in all; the steps, not
-    the work, grow with skew)."""
+    """Plain version of K2 -> ``(sums [k, d], counts [k], inertia [])``, in
+    the kernel's segmented order: :func:`assign_plain`; each cluster's rows,
+    in ascending row order, cut into segments of ``_SEGMENT_ROWS`` (S)
+    rows; each segment's partial added from +0.0 in ascending row order,
+    one rounded add a row; each cluster's partials added to +0.0 in
+    ascending segment order. With ``weights [n]`` the terms are w·x, each
+    product rounded before it is added, and the counts Σ w in the same
+    order; without, the counts are the exact row counts. The inertia is
+    Σ d (Σ w·d) in K2's order. S steps over the position in a segment, each
+    adding one row to every segment that has one, then one step a segment
+    of the largest cluster, each adding one partial to every cluster that
+    still has one (O(n·d + k·S·d) work in all)."""
     codes, dists = assign_plain(x, centroids)
-    k, d = centroids.shape
-    w = _check_weights(weights, x.shape[0])
+    (n, d), k, dev = x.shape, centroids.shape[0], x.device
+    w = _check_weights(weights, n)
     idx = codes.to(torch.int64)
-    xf = x.to(torch.float32)
-    if w is None:
-        sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-        sums.index_add_(0, idx, xf)
-        counts = torch.bincount(idx, minlength=k).to(torch.float32)
-        return sums, counts, dists.sum()
     rows = torch.sort(idx, stable=True)[1]  # by cluster, ascending rows within each
     totals = torch.bincount(idx, minlength=k)
-    offsets = torch.cumsum(totals, 0) - totals
-    order = torch.argsort(totals, descending=True, stable=True)  # clusters, largest first
-    sizes = totals[order].tolist()
-    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    live = k  # clusters with a row at the step: a prefix of ``order``
-    for t in range(sizes[0] if idx.numel() else 0):
-        while sizes[live - 1] <= t:
+    ends = torch.cumsum(totals, 0)
+    nseg = -(-totals // _SEGMENT_ROWS)
+    seg_off = torch.cumsum(nseg, 0) - nseg
+    seg_cluster = torch.repeat_interleave(torch.arange(k, device=dev), nseg)
+    seg = torch.arange(seg_cluster.shape[0], device=dev) - seg_off[seg_cluster]
+    end = ends[seg_cluster]  # one past each segment's cluster's last position
+    first = end - totals[seg_cluster] + seg * _SEGMENT_ROWS
+    xf = x.to(torch.float32)
+    part = torch.zeros((seg_cluster.shape[0], d), dtype=torch.float32, device=dev)
+    wpart = torch.zeros((seg_cluster.shape[0],), dtype=torch.float32, device=dev)
+    for t in range(_SEGMENT_ROWS if n else 0):
+        pos = first + t
+        has_row = pos < end
+        r = rows[pos.clamp(max=n - 1)]
+        term = xf[r] if w is None else w[r, None] * xf[r]
+        part = torch.where(has_row[:, None], part + term, part)
+        if w is not None:
+            wpart = torch.where(has_row, wpart + w[r], wpart)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
+    counts = totals.to(torch.float32) if w is None else torch.zeros((k,), dtype=torch.float32, device=dev)
+    order = torch.argsort(nseg, descending=True, stable=True)  # clusters, most segments first
+    sizes = nseg[order].tolist()
+    live = k  # clusters with a segment at the step: a prefix of ``order``
+    for i in range(sizes[0]):
+        while sizes[live - 1] <= i:
             live -= 1
         cl = order[:live]
-        r = rows[offsets[cl] + t]
-        sums[cl] = sums[cl] + w[r, None] * xf[r]
-        counts[cl] = counts[cl] + w[r]
-    return sums, counts, _k2_inertia(w * dists)
+        p = seg_off[cl] + i
+        sums[cl] = sums[cl] + part[p]
+        if w is not None:
+            counts[cl] = counts[cl] + wpart[p]
+    return sums, counts, _k2_inertia(dists if w is None else w * dists)
 
 
 def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor,
@@ -352,10 +368,9 @@ def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor,
     ``(sums [k, d], counts [k], inertia [])``, f32. ``weights [n]`` f32
     (optional) make them Σ w·x, Σ w and Σ w·d.
 
-    On the card the result is bit-identical from run to run, weighted or
-    not; against the plain version counts are exact and sums and inertia
-    differ by fp32 summation order only when unweighted, and are equal
-    where the assignments agree when weighted (``csrc/lloyd.cu``)."""
+    On the card the result is bit-identical from run to run and to the
+    plain version, weighted or not: both sum in the segmented order
+    (``csrc/lloyd.cu``)."""
     x = x.to(torch.float32)
     c = centroids.to(torch.float32)
     w = _check_weights(weights, x.shape[0])
@@ -374,16 +389,25 @@ def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor,
     chunks = max(1, min(-(-n // _CHUNK_ROWS), _CHUNK_CELLS // k))
     rows = -(-n // chunks)
     chunks = -(-n // rows)
+    max_segs = n // _SEGMENT_ROWS + min(k, n)  # sum of ceil(total / S)
+    max_parts = max(1, 2 * n // _SEGMENT_ROWS)  # segments of clusters of > S rows
     i32 = dict(dtype=torch.int32, device=dev)
     codes, perm = torch.empty((n,), **i32), torch.empty((n,), **i32)
     dists = torch.empty((n,), dtype=torch.float32, device=dev)
     chunk_counts = torch.empty((chunks, k), **i32)
     totals, offsets = torch.empty((k,), **i32), torch.empty((k,), **i32)
+    seg_off, pseg_off = torch.empty((k + 1,), **i32), torch.empty((k,), **i32)
+    seg_cluster = torch.empty((max_segs,), **i32)
+    psums = torch.empty((max_parts, d), dtype=torch.float32, device=dev)
+    pcounts = None if w is None else torch.empty((max_parts,), dtype=torch.float32, device=dev)
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0
     _launch(
         "vq_lloyd", x.data_ptr(), None if w is None else w.data_ptr(), c.data_ptr(),
         cc.data_ptr(), codes.data_ptr(), dists.data_ptr(), chunk_counts.data_ptr(),
-        totals.data_ptr(), offsets.data_ptr(), perm.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), inertia.data_ptr(), n, k, d, rows, chunks,
+        totals.data_ptr(), offsets.data_ptr(), perm.data_ptr(), seg_off.data_ptr(),
+        pseg_off.data_ptr(), seg_cluster.data_ptr(), psums.data_ptr(),
+        None if pcounts is None else pcounts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        inertia.data_ptr(), n, k, d, rows, chunks, max_segs, int(vec),
     )
     lloyd_accumulate_fused.launches += 1
     return sums, counts, inertia

@@ -5,8 +5,8 @@
   the CPU).
 * :func:`lloyd` — k centroids of ``[n, d]`` data. Each iteration is one
   K2 pass (:func:`lloyd_accumulate_fused`), with sample ``weights`` when
-  given (Σ w·x, Σ w in one fixed order, so a seeded weighted run is
-  bit-reproducible on the card too). Then the update: ``mean = sum /
+  given (Σ w·x, Σ w), every sum in one fixed order, so a seeded run,
+  weighted or not, is bit-reproducible on the card. Then the update: ``mean = sum /
   count``, empty clusters reseeded from random data rows (drawn in
   proportion to the weights when given), ``spherical`` projection, and
   convergence once every non-empty centroid moved less than ``eps``
