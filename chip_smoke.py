@@ -9,7 +9,8 @@ Phases, one line each (any failure exits non-zero with no result line):
 2. build — nvcc builds ``vq_tpu_torch/csrc`` for sm_90a under ``build/``;
 3. kernels — K3, K4 and K5 each held to its plain PyTorch version on the
    card at the main path's shapes (1M x 128 corpus, 8x256x16 codebooks,
-   128-query batches);
+   128-query batches; K5 at fetch 1, 10, 100 and 128 and on tie-heavy
+   codes, bit for bit and on a second run);
 4. main path — ``ProductQuantizer`` trained on 100k rows, ``PQIndex.add``
    of the 1M corpus, ``search(k=10)`` and ``search(k=10, rerank=100)``
    through the public entry points, with the launch counters of all three
@@ -58,13 +59,14 @@ Phases, one line each (any failure exits non-zero with no result line):
    one PyTorch call that computes the same function,
    ``embedding_bag``), each line stamped with the card's name and power
    limit, with K1's floor under its exact contract and a cuBLAS fp32
-   product of its shape beside it; K2 at both shapes, with a
+   product of its shape beside it; K5 at fetch 1 to 128 and on tie-heavy
+   codes, with its shared-memory lookup floor; K2 at both shapes, with a
    ``torch.profiler`` line a shape of the device time of each of its
    stages, and its sums stage beside ``index_add_`` (one PyTorch call
    with float atomics, a yardstick the port never calls) and its bytes
    bound; then a ``torch.profiler`` line a call
-   of the IVF-PQ trainer, the IVF adds, and the precision and RQ paths
-   (wall, device time, busy share, top kernels);
+   of the IVF-PQ trainer, the IVF adds, ``PQIndex.search``, and the
+   precision and RQ paths (wall, device time, busy share, top kernels);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
@@ -260,6 +262,16 @@ def k2_shapes(kres):
             f"{N_IVF_TRAIN} x {K} x {DIM}": kres["cents_rq"]}
 
 
+def sm_rate():
+    """``(SMs, max SM clock in MHz)`` of card 0, for the floors of K1 and K5."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, mhz
+
+
 def bound(nbytes: float, flops: float, peak: float):
     """``(ms, "bytes" or "operations")``: the least time the card could
     take, the larger of bytes over HBM bandwidth and operations over
@@ -435,9 +447,17 @@ def phase_kernels(corpus, queries, g):
     cb16 = cb[:, :16].contiguous()
     codes16 = pack_codes(ck.pq_encode_fused(corpus, cb16), 4).T.contiguous()
     tables16 = _adc_tables(queries, cb16, Metric.SQUARED_EUCLIDEAN)
+    # Tie-heavy: codes from 4 values a subspace and integer tables in
+    # [0, 3), so a tile's 2048 sums take at most 17 values.
+    tied_t = torch.randint(0, 4, (M, N_CORPUS), generator=g, device=dev, dtype=torch.uint8)
+    tied_tab = torch.randint(0, 3, (N_QUERY, M, K), generator=g, device=dev).float()
     cases = [
         ("u8 8x256 fetch=10", tables, codes_t, 10, {}),
         ("u8 8x256 fetch=100", tables, codes_t, 100, {}),
+        ("u8 8x256 fetch=1", tables, codes_t, 1, {}),
+        ("u8 8x256 fetch=128", tables, codes_t, 128, {}),
+        ("tie-heavy u8 8x256 fetch=10", tied_tab, tied_t, 10, {}),
+        ("tie-heavy u8 8x256 fetch=100", tied_tab, tied_t, 100, {}),
         ("4-bit 8x16 fetch=10", tables16, codes16, 10, {"pack_bits": 4}),
     ]
     small = min(50_000, N_CORPUS)
@@ -451,15 +471,18 @@ def phase_kernels(corpus, queries, g):
     err5 = 0.0
     for name, tab, ct, fetch, kw in cases:
         v, i = ck.adc_scan_topk_fused(tab, ct, fetch, **kw)
+        v2, i2 = ck.adc_scan_topk_fused(tab, ct, fetch, **kw)
         torch.cuda.synchronize()
         pv, pidx = ck.adc_scan_topk_plain(tab, ct, fetch, **kw)
         fin = torch.isfinite(pv)
         err5 = max(err5, float(torch.where(fin, (v - pv).abs(), 0.0).max()))
         assert torch.equal(i, pidx), f"K5 {name}: ids differ"
         assert torch.equal(v, pv), f"K5 {name}: values differ"
+        assert torch.equal(i2, i) and torch.equal(v2, v), f"K5 {name}: a second run differs"
+        hits = int((pidx >= 0).sum())
         log("kernels", f"K5 adc_scan_topk {name} Q={tab.shape[0]} n={ct.shape[1]}: "
-            "values and ids bit-identical")
-    res.update(codes_t=codes_t, tables=tables, k5_err=err5)
+            f"values and ids bit-identical ({hits} candidates), and on a second run")
+    res.update(codes_t=codes_t, tables=tables, k5_err=err5, k5_tied=(tied_tab, tied_t))
     return res
 
 
@@ -501,7 +524,6 @@ def phase_main_path(corpus, queries):
     import vq_tpu_torch
     from vq_tpu_torch.models.pq import _merge_candidates
     from vq_tpu_torch.ops import cuda_kernels as ck
-    from vq_tpu_torch.ops.distance import Metric
 
     kernels = (ck.pq_lloyd_accumulate_fused, ck.pq_encode_fused, ck.adc_scan_topk_fused)
     for fn in kernels:
@@ -534,9 +556,9 @@ def phase_main_path(corpus, queries):
     n_diff = int((codes_plain != index._codes).sum())
     codes_t = index._codes.T.contiguous()
     tables = pq.adc_tables(queries)
-    want = _merge_candidates(*ck.adc_scan_topk_plain(tables, codes_t, 10), 10, Metric.EUCLIDEAN)
+    want = _merge_candidates(*ck.adc_scan_topk_plain(tables, codes_t, 10), 10, True)
     _parity((ids, dist), want, "search")
-    short = _merge_candidates(*ck.adc_scan_topk_plain(tables, codes_t, 100), 100, Metric.EUCLIDEAN)[0]
+    short = _merge_candidates(*ck.adc_scan_topk_plain(tables, codes_t, 100), 100, True)[0]
     want_r = pq._rerank(queries, short, corpus, 10)
     _parity((ids_r, dist_r), want_r, "search rerank=100")
 
@@ -700,10 +722,7 @@ def phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases):
     for name, (ms, pms) in t.items():
         plain = "not measured" if pms is None else f"{pms:.4f} ms"
         log("time", f"{name}: kernel {ms:.4f} ms, plain {plain} | {smi}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    sms, mhz = sm_rate()
     floor = 2.0 * N_CORPUS * NLIST * DIM / (sms * 128 * mhz * 1e6) * 1e3
     log("bound", f"K1's floor under its exact contract (a rounded multiply and a rounded add a "
         f"term, no FMA): 2 n k d = {2.0 * N_CORPUS * NLIST * DIM:.4g} FP32 instructions over "
@@ -894,7 +913,6 @@ def phase_timings(smi, corpus, queries, res, main):
 
     from vq_tpu_torch.models.pq import _merge_candidates
     from vq_tpu_torch.ops import cuda_kernels as ck
-    from vq_tpu_torch.ops.distance import Metric
 
     cb, pq, index = res["cb"], main["pq"], main["index"]
     x3 = corpus[:N_TRAIN]
@@ -911,10 +929,23 @@ def phase_timings(smi, corpus, queries, res, main):
     codes_t = index._codes.T.contiguous()
     search_ms = cuda_ms(lambda: index.search(queries, k=10), 10)
     search_plain_ms = cuda_ms(lambda: _merge_candidates(
-        *ck.adc_scan_topk_plain(pq.adc_tables(queries), codes_t, 10), 10, Metric.EUCLIDEAN), 3)
+        *ck.adc_scan_topk_plain(pq.adc_tables(queries), codes_t, 10), 10, True), 3)
     rerank_ms = cuda_ms(lambda: index.search(queries, k=10, rerank=100), 10)
     for name, (ms, pms) in t.items():
         log("time", f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms | {smi}")
+    # K5 keeps F = 32, 64 or 128 words a warp (the power of two >= fetch,
+    # at least 32): its time at each width's edges, and on tie-heavy data.
+    widths = {f: cuda_ms(lambda: ck.adc_scan_topk_fused(tab, ct, f), 10) for f in (1, 32, 33, 64, 65, 128)}
+    tied = {f: cuda_ms(lambda: ck.adc_scan_topk_fused(*res["k5_tied"], f), 10) for f in (10, 100)}
+    log("time", "K5 by fetch: " + ", ".join(f"{f} {ms:.4f} ms" for f, ms in widths.items())
+        + "; tie-heavy " + ", ".join(f"{f} {ms:.4f} ms" for f, ms in tied.items()) + f" | {smi}")
+    sms, mhz = sm_rate()
+    lookups = float(tab.shape[0]) * ct.shape[1] * ct.shape[0]
+    floor = lookups / (sms * 32 * mhz * 1e6) * 1e3
+    log("bound", f"K5's shared-memory lookup floor: Q n m = {lookups:.4g} 4-byte table lookups at "
+        f"32 a clock an SM, {sms} SMs x {mhz:.0f} MHz = {floor:.4f} ms; K5 at "
+        f"{floor / t['K5'][0]:.3f} of it (fetch 10), {floor / t['K5_fetch100'][0]:.3f} (fetch 100) "
+        f"| {smi}")
     log("time", f"PQ train 100k x 128, 8x256, 10 iterations: {main['t_train']:.4f} s, "
         f"{main['t_train'] / 10:.5f} s per Lloyd iteration (host clock) | {smi}")
     log("time", f"encode 1M x 128: kernel {N_CORPUS / t['K4'][0] * 1e3:.6g} vectors/s, plain "
@@ -1147,9 +1178,9 @@ def phase_new_timings(smi, corpus, queries, res, prec, rqres):
     return t
 
 
-def profile_paths(smi, corpus, queries, prec, rqres, ivfpq, flat):
-    """Each call of the precision and RQ paths, and the IVF trainers and
-    adds that K1 dominates, once warm,
+def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
+    """Each call of the precision, PQ search and RQ paths, and the IVF
+    trainers and adds that K1 dominates, once warm,
     then once under ``torch.profiler``: wall time (host clock to a
     synchronize), device time (the device activities' own time summed),
     busy share (device over wall, the profiler's host cost included) and
@@ -1178,6 +1209,8 @@ def profile_paths(smi, corpus, queries, prec, rqres, ivfpq, flat):
         "PQIndex.add precision=default 1M": lambda: vq_tpu_torch.PQIndex(pq).add(
             corpus, precision="default"),
         "adc_distances [128, 1M]": lambda: pq.adc_distances(queries, codes),
+        "PQIndex.search k=10": lambda: main["index"].search(queries, k=10),
+        "PQIndex.search k=10 rerank=100": lambda: main["index"].search(queries, k=10, rerank=100),
     }
     for name, (idx, kw) in rqres["searches"].items():
         calls[f"{name} search"] = lambda idx=idx, kw=kw: idx.search(queries, **kw)
@@ -1445,7 +1478,7 @@ def main() -> None:
     prec = phase_precision(corpus, queries, main_res)
     rqres = phase_rq_path(corpus, queries, main_res["gt"])
     t_new = phase_new_timings(smi, corpus, queries, res, prec, rqres)
-    profile_paths(smi, corpus, queries, prec, rqres, ivf, flat)
+    profile_paths(smi, corpus, queries, main_res, prec, rqres, ivf, flat)
     bd = make_bench_data("cuda")
     b_err = phase_bench_kernels(bd, corpus, kres)
     bl = phase_bench_path()

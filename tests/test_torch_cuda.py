@@ -122,15 +122,26 @@ def test_pq_lloyd_matches_plain(card, shape, n):
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
 
 
-def _adc_inputs(mode, pack_bits, device, n=5000):
+def _adc_inputs(mode, pack_bits, device, n=5000, *, q=3, m=5, k=None, codes="random",
+                special=False):
+    """K5 operands. codes: "random" in [0, k), "wide" in [0, 256) (past k
+    and, where k <= 128, past kpad), "tied" one code row for every column
+    (every score of a query ties). special: NaN, +inf, -inf and -0.0
+    entries in query 0's first subspace, and query q-1's table all -0.0
+    (dot mode scores -0.0)."""
     rng = np.random.default_rng(10)
-    q, m = 3, 5
-    k = {8: 200, 4: 16, 2: 4, 1: 2}[pack_bits]
+    k = k or {8: 200, 4: 16, 2: 4, 1: 2}[pack_bits]
     tables = torch.from_numpy(rng.random((q, m, k), dtype=np.float32))
-    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
-    codes[900] = codes[100]  # exact ties: the lowest id must come first
-    codes[n - 1] = codes[100]
-    codes_t = pack_codes(codes, pack_bits).T.contiguous()
+    c = torch.from_numpy(rng.integers(0, 256 if codes == "wide" else k, (n, m)).astype(np.uint8))
+    if codes == "tied":
+        c[:] = c[0].clone()
+    c[900 % n] = c[100 % n]  # exact ties: the lowest id must come first
+    c[n - 1] = c[100 % n]
+    if special:
+        odd = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0])[:k]
+        tables[0, 0, :len(odd)] = odd
+        tables[-1] = -0.0
+    codes_t = pack_codes(c, pack_bits).T.contiguous()
     kw = {}
     if mode == "l2":
         kw = {"qn2": torch.from_numpy(rng.random(q, dtype=np.float32) * 4),
@@ -138,24 +149,62 @@ def _adc_inputs(mode, pack_bits, device, n=5000):
     return tables.to(device), codes_t.to(device), {a: b.to(device) for a, b in kw.items()}
 
 
+def _bits(v):
+    """Values as their bits, NaN canonical (its payload is not K5's contract)."""
+    return torch.where(torch.isnan(v), float("nan"), v).view(torch.int32)
+
+
+def _check_topk(tables, codes_t, fetch, **kw):
+    """K5 bit for bit against its plain version, and on a second launch."""
+    before = ck.adc_scan_topk_fused.launches
+    got = ck.adc_scan_topk_fused(tables, codes_t, fetch, **kw)
+    again = ck.adc_scan_topk_fused(tables, codes_t, fetch, **kw)
+    torch.cuda.synchronize()
+    assert ck.adc_scan_topk_fused.launches == before + 2
+    want = ck.adc_scan_topk_plain(tables, codes_t, fetch, **kw)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], again[1]) and torch.equal(_bits(got[0]), _bits(again[0]))
+
+
+# fetch: each width of the kept list (32, 64 and 128 words) at and around
+# its edges.
+_FETCHES = [1, 10, 31, 32, 33, 100, 127, 128]
+
+
 @pytest.mark.parametrize("pack_bits", [8, 4, 2, 1])
 @pytest.mark.parametrize("mode", ["sum", "l2", "dot"])
-@pytest.mark.parametrize("fetch", [1, 10, 128])
+@pytest.mark.parametrize("fetch", _FETCHES)
 def test_adc_scan_topk_matches_plain(card, mode, pack_bits, fetch):
     tables, codes_t, kw = _adc_inputs(mode, pack_bits, card)
-    got = ck.adc_scan_topk_fused(tables, codes_t, fetch, mode=mode, pack_bits=pack_bits, **kw)
-    torch.cuda.synchronize()
-    want = ck.adc_scan_topk_plain(tables, codes_t, fetch, mode=mode, pack_bits=pack_bits, **kw)
-    assert torch.equal(got[1], want[1])
-    assert torch.equal(got[0], want[0])
+    _check_topk(tables, codes_t, fetch, mode=mode, pack_bits=pack_bits, **kw)
 
 
+@pytest.mark.parametrize("fetch", [10, 100])
+@pytest.mark.parametrize("n", [3000, 7])
 @pytest.mark.parametrize("tile", [128, 512, 2048])
-def test_adc_scan_topk_tiles(card, tile):
-    tables, codes_t, _ = _adc_inputs("sum", 8, card, n=3000)
-    got = ck.adc_scan_topk_fused(tables, codes_t, 16, tile=tile)
-    want = ck.adc_scan_topk_plain(tables, codes_t, 16, tile=tile)
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+def test_adc_scan_topk_tiles(card, tile, n, fetch):
+    """n not a multiple of the tile, and n below fetch."""
+    tables, codes_t, _ = _adc_inputs("sum", 8, card, n=n)
+    _check_topk(tables, codes_t, fetch, tile=tile)
+
+
+# (name, _adc_inputs arguments): every score of a query tied (the lowest
+# columns win); NaN, +-inf and -0.0 scores; codes >= k = 200 (zero-padded
+# entries) and >= kpad = 128 (k = 100: masked to code & 127); Q = 1 and
+# 129; m = 64 at k = 256, whose 64 KB table is read through L1 rather than
+# shared memory.
+_ADC_EDGES = [("tied", dict(codes="tied")), ("special", dict(special=True)),
+              ("codes-past-k", dict(codes="wide")), ("codes-past-kpad", dict(codes="wide", k=100)),
+              ("Q1", dict(q=1)), ("Q129", dict(q=129)), ("m64-k256", dict(m=64, k=256))]
+
+
+@pytest.mark.parametrize("fetch", [1, 33, 128])
+@pytest.mark.parametrize("mode", ["sum", "l2", "dot"])
+@pytest.mark.parametrize("edge", _ADC_EDGES, ids=lambda e: e[0])
+def test_adc_scan_topk_edges(card, edge, mode, fetch):
+    tables, codes_t, kw = _adc_inputs(mode, 8, card, n=4099, **edge[1])
+    _check_topk(tables, codes_t, fetch, mode=mode, **kw)
 
 
 # (n, k, d): the IVF coarse width, a ragged k and d, a k past every TPU

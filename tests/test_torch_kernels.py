@@ -144,6 +144,47 @@ def test_adc_scan_topk_matches_pallas(mode, pack_bits):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 
 
+def _merge_inputs(case, mode, rng):
+    """K5 operands: tie-heavy (3 codes a subspace, integer tables, so most
+    scores of a tile tie), n < fetch, or query 0's scores all +inf."""
+    q, m, k, n = 3, 4, 3, 3000
+    tables = rng.integers(0, 3, (q, m, k)).astype(np.float32)
+    if case == "n_below_fetch":
+        n = 5
+    if case == "all_inf" and mode != "l2":
+        tables[0] = np.inf if mode == "sum" else -np.inf
+    codes = rng.integers(0, k, (m, n)).astype(np.uint8)
+    qn2 = rng.random(q, dtype=np.float32) * 4
+    if case == "all_inf":
+        qn2[0] = np.inf
+    kw = {"qn2": _t(qn2), "offsets": _t(rng.random(n, dtype=np.float32))} if mode == "l2" else {}
+    return _t(tables), _t(codes), kw
+
+
+@pytest.mark.parametrize("case", ["ties", "n_below_fetch", "all_inf"])
+@pytest.mark.parametrize("mode", ["sum", "l2", "dot"])
+@pytest.mark.parametrize("fetch", [1, 10, 128])
+def test_merge_candidates_matches_full_merge(case, mode, fetch):
+    """The PQ / RQ merge sorts only each tile's first ``fetch`` lanes; it
+    equals one stable sort over all T*128 lanes of K5's output."""
+    from vq_tpu_torch.models.pq import _merge_candidates
+
+    rng = np.random.default_rng(fetch + len(case) + len(mode))
+    tables, codes_t, kw = _merge_inputs(case, mode, rng)
+    vals, ids = ck.adc_scan_topk_fused(tables, codes_t, fetch, mode=mode, tile=128, **kw)
+    dist, pos = torch.sort(vals, dim=1, stable=True)
+    dist, pos = dist[:, :fetch], pos[:, :fetch]
+    idx = torch.gather(ids, 1, pos)
+    want_i = torch.where(torch.isinf(dist), -1, idx)
+    euclidean = mode == "l2"
+    got_i, got_d = _merge_candidates(vals, ids, fetch, euclidean)
+    want_d = torch.sqrt(dist.clamp_min(0.0)) if euclidean else dist
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d, want_d)
+    if case == "all_inf":
+        assert bool((got_i[0] == -1).all()) and bool(torch.isinf(got_d[0]).all())
+
+
 def test_adc_scan_topk_rejects_bad_contract():
     tables, codes_t, _ = _adc_inputs("sum", 8)
     for kwargs in ({"fetch": 0}, {"fetch": 129}):

@@ -51,6 +51,7 @@ from vq_tpu_torch.models.base import (
     resolve_device,
 )
 from vq_tpu_torch.ops.cuda_kernels import (
+    TOP_LANES,
     adc_lookup_fused,
     adc_scan_topk_fused,
     int_argmin,
@@ -142,14 +143,21 @@ def _smallest(d: torch.Tensor, k: int):
     return vals[:, :k], pos[:, :k]
 
 
-def _merge_candidates(vals, ids, fetch: int, metric: Metric):
-    """Merge K5's per-tile candidates into the top ``fetch``: one stable
-    sort (candidates lie in ascending id order within equal values), ids
-    of +inf distances become -1, Euclidean takes its sqrt after."""
+def _merge_candidates(vals, ids, fetch: int, euclidean: bool = False):
+    """Merge K5's per-tile candidates into the top ``fetch`` -> ``(ids,
+    values)``. Only the first ``fetch`` lanes of each tile can hold a
+    finite value (the rest are inf / -1 padding), so only they are sorted:
+    one stable sort, candidates lying in ascending id order within equal
+    values. Ids of +inf values become -1; ``euclidean`` takes the sqrt
+    after."""
+    q, width = vals.shape
+    tiles = width // TOP_LANES
+    vals = vals.view(q, tiles, TOP_LANES)[..., :fetch].reshape(q, tiles * fetch)
+    ids = ids.view(q, tiles, TOP_LANES)[..., :fetch].reshape(q, tiles * fetch)
     dist, pos = _smallest(vals, fetch)
     idx = torch.gather(ids, 1, pos)
     idx = torch.where(torch.isinf(dist), torch.full_like(idx, -1), idx)
-    if metric == Metric.EUCLIDEAN:
+    if euclidean:
         dist = torch.sqrt(dist.clamp_min(0.0))
     return idx, dist
 
@@ -158,7 +166,7 @@ def _adc_search_fused(tables, codes, fetch: int, metric: Metric, pack_bits: int 
     """Flat ADC top-``fetch`` through K5 -> ``(ids [Q, fetch] i32, dist)``."""
     codes_t = codes.to(torch.uint8).T.contiguous()  # [m | B, n]
     vals, ids = adc_scan_topk_fused(tables, codes_t, fetch, pack_bits=pack_bits)
-    return _merge_candidates(vals, ids, fetch, metric)
+    return _merge_candidates(vals, ids, fetch, metric == Metric.EUCLIDEAN)
 
 
 # ---------------------------------------------------------------------------

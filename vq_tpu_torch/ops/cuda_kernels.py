@@ -664,7 +664,8 @@ def adc_scan_topk_fused(
     (``[ceil(m*b/8), n]`` when sub-byte packed with ``pack_bits`` b). Returns
     ``(vals [Q, T*128], ids [Q, T*128])``: tile ``t`` of ``tile`` columns
     holds its best ``fetch`` in lanes ``[t*128, t*128+fetch)``, ascending
-    (value, id), padded with inf / -1; merge with one stable sort. Modes:
+    (value, id), padded with inf / -1; merge the first ``fetch`` lanes of
+    each tile with one stable sort (``models.pq._merge_candidates``). Modes:
     ``"sum"`` (PQ), ``"l2"`` (``max(qn2 - 2*sum + offsets, 0)``, pass
     ``qn2 [Q]`` and ``offsets [n]``) and ``"dot"`` (``-sum``)."""
     _check_adc(tables, codes_t, fetch, mode, qn2, offsets, pack_bits)
@@ -690,7 +691,7 @@ def adc_scan_topk_fused(
     ids = torch.empty((q, ntiles * TOP_LANES), dtype=torch.int32, device=tables.device)
     if q == 0 or n == 0:
         return vals, ids
-    tab_in_smem = tile * 8 + m * kpad * 4 <= _SMEM_BYTES
+    tab_in_smem = m * kpad * 4 <= _SMEM_BYTES
     l2 = mode == "l2"
     _launch(
         "vq_adc_topk", tables.data_ptr(), codes_t.data_ptr(),

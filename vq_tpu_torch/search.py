@@ -40,7 +40,7 @@ from vq_tpu_torch.errors import (
 )
 from vq_tpu_torch.convert import from_state
 from vq_tpu_torch.models.base import _HALF_DTYPES, as_tensor
-from vq_tpu_torch.models.pq import ProductQuantizer, _adc_lookup, _smallest
+from vq_tpu_torch.models.pq import ProductQuantizer, _adc_lookup, _merge_candidates, _smallest
 from vq_tpu_torch.models.rq import ResidualQuantizer
 from vq_tpu_torch.ops.cuda_kernels import adc_scan_topk_fused
 from vq_tpu_torch.ops.distance import COSINE_NORM_EPS, _PAIRWISE, Metric
@@ -361,12 +361,7 @@ class RQIndex:
         else:
             vals, ids = adc_scan_topk_fused(tables, codes_t, fetch, mode="l2", qn2=qn2,
                                             offsets=self._row_sqn)
-        dist, pos = _smallest(vals, fetch)
-        idx = torch.gather(ids, 1, pos)
-        idx = torch.where(torch.isinf(dist), -1, idx)
-        if self.metric == "euclidean":
-            dist = torch.sqrt(dist.clamp_min(0.0))
-        return idx, dist
+        return _merge_candidates(vals, ids, fetch, self.metric == "euclidean")
 
     def _scan_chunked(self, tables, qn2, fetch: int, chunk: int):
         """The chunked scan: K8 a chunk, the metric assembled
