@@ -9,8 +9,9 @@ Phases, one line each (any failure exits non-zero with no result line):
 2. build — nvcc builds ``vq_tpu_torch/csrc`` for sm_90a under ``build/``;
 3. kernels — K3, K4 and K5 each held to its plain PyTorch version on the
    card at the main path's shapes (1M x 128 corpus, 8x256x16 codebooks,
-   128-query batches; K5 at fetch 1, 10, 100 and 128 and on tie-heavy
-   codes, bit for bit and on a second run);
+   128-query batches; K4 bit for bit with f32 and bf16 input; K5 at
+   fetch 1, 10, 100 and 128 and on tie-heavy codes, bit for bit and on a
+   second run);
 4. main path — ``ProductQuantizer`` trained on 100k rows, ``PQIndex.add``
    of the 1M corpus, ``search(k=10)`` and ``search(k=10, rerank=100)``
    through the public entry points, with the launch counters of all three
@@ -59,14 +60,18 @@ Phases, one line each (any failure exits non-zero with no result line):
    one PyTorch call that computes the same function,
    ``embedding_bag``), each line stamped with the card's name and power
    limit, with K1's floor under its exact contract and a cuBLAS fp32
-   product of its shape beside it; K5 at fetch 1 to 128 and on tie-heavy
-   codes, with its shared-memory lookup floor; K2 at both shapes, with a
+   product of its shape beside it; K3 at 100k and 200k rows and K4 at 1M
+   with their floors under the same contract; K5 at fetch 1 to 128 and on
+   tie-heavy codes, with its shared-memory lookup floor; K2 at both
+   shapes, with a
    ``torch.profiler`` line a shape of the device time of each of its
    stages, and its sums stage beside ``index_add_`` (one PyTorch call
    with float atomics, a yardstick the port never calls) and its bytes
-   bound; then a ``torch.profiler`` line a call
-   of the IVF-PQ trainer, the IVF adds, ``PQIndex.search``, and the
-   precision and RQ paths (wall, device time, busy share, top kernels);
+   bound; K3 at 100k and 200k rows with a ``torch.profiler`` line of the
+   device time of each of its launches (scan, sums walk, reduce); then a
+   ``torch.profiler`` line a call of the PQ and IVF-PQ trainers,
+   ``PQIndex.add``, the IVF adds, ``PQIndex.search``, and the precision
+   and RQ paths (wall, device time, busy share, top kernels);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
@@ -112,9 +117,12 @@ N_CLUSTERS, LATENT, SEED = 1024, 24, 0
 # K3: counts exact; sums within 1e-5 of the largest sum plus 1e-5
 # relative, inertia within 1e-5 relative (fp32 summation order only).
 K3_RTOL = 1e-5
-# K1, K4 and B1: a code may differ from the plain version's only where the
-# two candidates' scores, recomputed in float64, are near ties
-# (``mpacked_encode.near_ties``, its TIE_RTOL relative gap).
+# K1 and B1 "default": a code may differ from the plain version's only
+# where the two candidates' scores, recomputed in float64, are near ties
+# (``mpacked_encode.near_ties``, its TIE_RTOL relative gap). K4 (the
+# register-tiled scan of csrc/pq_encode.cu, the plain version's order, no
+# FMA) is held bit for bit; its floor, like K1's, is 2 n m k s FP32
+# instructions over the card's instruction rate.
 # IVF path, the width of the repo's IVF benchmark (benchmarks/ivf_bench.py).
 NLIST, N_IVF_TRAIN, NPROBES, RERANKS = 1024, 200_000, (8, 64), (0, 500)
 # K1 (csrc/assign.cu: 8 x 8 register tiles, x resident in shared memory,
@@ -143,6 +151,9 @@ K2_STAGES = (("assign", "assign_kernel"), ("memset", "Memset"), ("histogram", "c
              ("cursor", "chunk_cursor_kernel"), ("scatter", "chunk_scatter_kernel"),
              ("table", "segment_table_kernel"), ("sums", "segment_sum_kernel"),
              ("combine", "segment_combine_kernel"), ("inertia", "inertia_kernel"))
+# K3's launches (csrc/pq_lloyd.cu), as the profiler names them.
+K3_STAGES = (("scan", "pq_scan_"), ("sums walk", "pq_lloyd_partial_kernel"),
+             ("reduce", "pq_lloyd_reduce_kernel"))
 # Every kernel wrapper the paths call, and the modules that call it.
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
@@ -244,12 +255,13 @@ def read_counts():
     return out
 
 
-def k2_stage_times(events, calls: int = 1):
-    """``{stage: (ms a call, launches a call)}`` of K2's kernels among the
-    profiler's device events, over ``calls`` calls."""
+def stage_times(events, table=None, calls: int = 1):
+    """``{stage: (ms a call, launches a call)}`` of the kernels of ``table``
+    (K2's stages by default) among the profiler's device events, over
+    ``calls`` calls."""
     out = {}
     for e in events:
-        for stage, key in K2_STAGES:
+        for stage, key in table or K2_STAGES:
             if key in e.key:
                 ms, n = out.get(stage, (0.0, 0))
                 out[stage] = (ms + e.self_device_time_total / 1e3 / calls, n + e.count / calls)
@@ -388,22 +400,20 @@ def _near_ties(x, cents, got, want):
 
 
 def _k4_check(x, cb, tag):
-    """K4 against its plain version; mismatches must be float64 near ties."""
+    """K4 against its plain version, bit for bit."""
     import torch
 
-    from vq_tpu_torch.benchmarks.mpacked_encode import build_w, near_ties
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     got = ck.pq_encode_fused(x, cb)
     torch.cuda.synchronize()
     want = ck.pq_encode_plain(x, cb)
-    cbd = cb.double()
-    flips, err, ties = near_ties(x, build_w(cb)[0], (cbd * cbd).sum(-1), got, want, "highest")
-    assert ties, f"K4 {tag}: {flips} mismatches are not near ties"
-    log("kernels", f"K4 pq_encode {tag} {tuple(x.shape)} vs 8x256x16: "
-        f"{flips} mismatched codes of {got.numel()}, all float64 near ties "
-        f"(max score gap {err:.3g})")
-    return got, err
+    assert torch.equal(got, want), (
+        f"K4 {tag}: {int((got != want).sum())} codes differ from the plain version")
+    plan = ck.pq_scan_plan(x.shape[0], *cb.shape)
+    log("kernels", f"K4 pq_encode {tag} {tuple(x.shape)} vs 8x256x16: {got.numel()} codes "
+        f"bit-identical to the plain version (scan plan {plan})")
+    return got
 
 
 def phase_kernels(corpus, queries, g):
@@ -420,9 +430,9 @@ def phase_kernels(corpus, queries, g):
     cb = corpus[pick].reshape(K, M, s).permute(1, 0, 2).contiguous()  # [m, k, s]
     res = {"cb": cb}
 
-    codes, err_f32 = _k4_check(corpus, cb, "f32")
-    _, err_bf16 = _k4_check(corpus.to(torch.bfloat16), cb, "bf16")
-    res["k4_err"] = max(err_f32, err_bf16)
+    codes = _k4_check(corpus, cb, "f32")
+    _k4_check(corpus.to(torch.bfloat16), cb, "bf16")
+    res["k4_err"] = 0.0
 
     x3 = corpus[:N_TRAIN]
     sums, counts, inertia = ck.pq_lloyd_accumulate_fused(x3, cb)
@@ -554,6 +564,7 @@ def phase_main_path(corpus, queries):
 
     codes_plain = ck.pq_encode_plain(corpus, pq.codebooks).to(torch.uint8)
     n_diff = int((codes_plain != index._codes).sum())
+    assert n_diff == 0, f"{n_diff} codes of PQIndex.add differ from the plain encode"
     codes_t = index._codes.T.contiguous()
     tables = pq.adc_tables(queries)
     want = _merge_candidates(*ck.adc_scan_topk_plain(tables, codes_t, 10), 10, True)
@@ -566,7 +577,7 @@ def phase_main_path(corpus, queries):
     r_adc, r_rr = _recall(ids, gt), _recall(ids_r, gt)
     assert r_rr >= r_adc, (r_rr, r_adc)
     log("main", f"trained {pq!r} in {t_train:.3f} s; add 1M in {t_add:.3f} s "
-        f"({n_diff} codes differ from the plain encode); search and rerank=100 equal "
+        f"(codes equal the plain encode); search and rerank=100 equal "
         f"the plain route; recall@10 ADC {r_adc:.4f}, rerank=100 {r_rr:.4f}")
     return dict(pq=pq, index=index, t_train=t_train, t_add=t_add, launches=launches,
                 recall=(r_adc, r_rr), gt=gt)
@@ -784,7 +795,7 @@ def phase_k2_stages(smi, corpus, kres):
                 ck.lloyd_accumulate_fused(x2, c)
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages() if e.device_type == cuda]
-        stages = k2_stage_times(evts, reps)
+        stages = stage_times(evts, calls=reps)
         total = sum(e.self_device_time_total for e in evts) / 1e3 / reps
         log("profile", f"K2 {tag}, device ms a call by stage: " + ", ".join(
             f"{s} {ms:.4f}" + (f" x{n:g}" if n != 1 else "") for s, (ms, n) in stages.items())
@@ -800,6 +811,34 @@ def phase_k2_stages(smi, corpus, kres):
         log("bound", f"K2 sums stage {tag}: x read once, the row ids read and the sums written "
             f"once, {b_ms:.4f} ms ({b_by}); {stage}; index_add_ (float atomics, the yardstick) "
             f"{lib:.4f} ms | {smi}")
+
+
+def phase_k3_stages(smi, corpus, res):
+    """K3 at 100k (PQ training) and 200k rows (IVF-PQ training) against
+    the 8x256x16 codebooks: a ``torch.profiler`` line a shape of the device
+    time a call of each of its launches (the scan, the sums walk, the
+    reduce)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    cb, reps = res["cb"], 5
+    cuda = torch.autograd.DeviceType.CUDA
+    for n in (N_TRAIN, N_IVF_TRAIN):
+        x = corpus[:n]
+        ck.pq_lloyd_accumulate_fused(x, cb)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                ck.pq_lloyd_accumulate_fused(x, cb)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        stages = stage_times(evts, K3_STAGES, reps)
+        total = sum(e.self_device_time_total for e in evts) / 1e3 / reps
+        log("profile", f"K3 {n} x {DIM} vs {M}x{K}x{DIM // M}, device ms a call by launch: " + ", ".join(
+            f"{s} {ms:.4f}" + (f" x{c:g}" if c != 1 else "") for s, (ms, c) in stages.items())
+            + f"; all device activity {total:.4f} ms | {smi}")
 
 
 def phase_flat_path(corpus, queries, gt):
@@ -919,6 +958,9 @@ def phase_timings(smi, corpus, queries, res, main):
     t = {}
     t["K3"] = (cuda_ms(lambda: ck.pq_lloyd_accumulate_fused(x3, cb), 10),
                cuda_ms(lambda: ck.pq_lloyd_accumulate_plain(x3, cb), 3))
+    x3_ivf = corpus[:N_IVF_TRAIN]  # IVFPQIndex.train's K3 rows
+    t["K3_200k"] = (cuda_ms(lambda: ck.pq_lloyd_accumulate_fused(x3_ivf, cb), 10),
+                    cuda_ms(lambda: ck.pq_lloyd_accumulate_plain(x3_ivf, cb), 2))
     t["K4"] = (cuda_ms(lambda: ck.pq_encode_fused(corpus, cb), 5),
                cuda_ms(lambda: ck.pq_encode_plain(corpus, cb), 2))
     tab, ct = res["tables"], res["codes_t"]
@@ -946,6 +988,14 @@ def phase_timings(smi, corpus, queries, res, main):
         f"32 a clock an SM, {sms} SMs x {mhz:.0f} MHz = {floor:.4f} ms; K5 at "
         f"{floor / t['K5'][0]:.3f} of it (fetch 10), {floor / t['K5_fetch100'][0]:.3f} (fetch 100) "
         f"| {smi}")
+    s = DIM // M
+    for name, n in (("K4", N_CORPUS), ("K3", N_TRAIN), ("K3_200k", N_IVF_TRAIN)):
+        instr = 2.0 * n * M * K * s
+        floor = instr / (sms * 128 * mhz * 1e6) * 1e3
+        log("bound", f"{name}'s floor under its exact contract (a rounded multiply and a rounded "
+            f"add a term, no FMA): 2 n m k s = {instr:.4g} FP32 instructions at n = {n} over {sms} "
+            f"SMs x 128 lanes x {mhz:.0f} MHz = {floor:.4f} ms; {name} at {floor / t[name][0]:.3f} "
+            f"of it | {smi}")
     log("time", f"PQ train 100k x 128, 8x256, 10 iterations: {main['t_train']:.4f} s, "
         f"{main['t_train'] / 10:.5f} s per Lloyd iteration (host clock) | {smi}")
     log("time", f"encode 1M x 128: kernel {N_CORPUS / t['K4'][0] * 1e3:.6g} vectors/s, plain "
@@ -1193,6 +1243,9 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     rq, ivf, pq, codes = rqres["rq"], rqres["ivf"], prec["pq"], prec["codes"]
     pqi, fl, sq = ivfpq["index"], flat["indexes"]["flat_f32"], flat["indexes"]["sq"]
     calls = {
+        "ProductQuantizer train 100k, 10 iterations": lambda: vq_tpu_torch.ProductQuantizer(
+            corpus[:N_TRAIN], M, K, max_iters=10, device=corpus.device),
+        "PQIndex.add 1M (exact)": lambda: vq_tpu_torch.PQIndex(pq).add(corpus),
         "IVFPQIndex.train 200k": lambda: vq_tpu_torch.IVFPQIndex.train(
             corpus[:N_IVF_TRAIN], NLIST, M, K, max_iters=10, keep_corpus=True),
         "IVFPQIndex.add 1M (fresh index)": lambda: vq_tpu_torch.IVFPQIndex(
@@ -1226,7 +1279,7 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
         evts = [e for e in prof.key_averages() if e.device_type == cuda]
         dev = sum(e.self_device_time_total for e in evts) / 1e3
         top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
-        stages = k2_stage_times(evts)
+        stages = stage_times(evts)
         k2 = ("; K2's sums stage: " + ", ".join(
             f"{s} {stages[s][0]:.3f} ms x{stages[s][1]:g}" for s in ("sums", "combine") if s in stages)
             if "sums" in stages else "")
@@ -1472,6 +1525,7 @@ def main() -> None:
     t = phase_timings(smi, corpus, queries, res, main_res)
     t.update(phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases))
     phase_k2_stages(smi, corpus, kres)
+    phase_k3_stages(smi, corpus, res)
     flat = phase_flat_path(corpus, queries, main_res["gt"])
     k6_cases, k6_err = phase_k6(flat)
     t.update(phase_flat_timings(smi, queries, flat, k6_cases))
@@ -1491,6 +1545,9 @@ def main() -> None:
         launches[name] = ivf["launches"][name]
     launches["ivf_probe_matvec_fused"] = flat["launches"]["ivf_probe_matvec_fused"]
     pl, rl = prec["launches"], rqres["launches"]
+    k3_paths = {"pq": launches["pq_lloyd_accumulate_fused"],
+                "ivf_pq": ivf["launches"]["pq_lloyd_accumulate_fused"]}
+    k4_paths = {"pq": launches["pq_encode_fused"], "ivf_pq": ivf["launches"]["pq_encode_fused[highest]"]}
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec)
     bbounds = bench_bounds()
     bounds.update({k: v for k, v in bbounds.items() if k != "B2_design_floor"})
@@ -1508,10 +1565,11 @@ def main() -> None:
         return entry
 
     kernels = [
-        row("pq_lloyd_accumulate_fused", "pq_lloyd.cu", "569", launches["pq_lloyd_accumulate_fused"],
-            res["k3_err"], "K3", t["K3"]),
-        row("pq_encode_fused", "pq_encode.cu", "379", launches["pq_encode_fused"], res["k4_err"],
-            "K4", t["K4"]),
+        row("pq_lloyd_accumulate_fused", "pq_lloyd.cu", "569", sum(k3_paths.values()),
+            res["k3_err"], "K3", t["K3"], {"launches_by_path": k3_paths, "ms_200k": t["K3_200k"][0],
+                                          "plain_ms_200k": t["K3_200k"][1]}),
+        row("pq_encode_fused", "pq_encode.cu", "379", sum(k4_paths.values()), res["k4_err"],
+            "K4", t["K4"], {"launches_by_path": k4_paths}),
         row("adc_scan_topk_fused", "adc_topk.cu", "802", launches["adc_scan_topk_fused"],
             res["k5_err"], "K5", t["K5"]),
         row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"],

@@ -37,9 +37,11 @@ def card():
     return torch.device("cuda")
 
 
-# (m, k, s): the main configuration; s > 16 (slice read through L1); a
-# subspace codebook too large for shared memory (streamed in chunks).
-_PQ_SHAPES = [(8, 256, 16), (4, 300, 24), (2, 1000, 12)]
+# (m, k, s): the main configuration; s > 16; k = 1000 (eight passes over
+# a resident codebook, and past the bf16 encodes' 48 KB chunks); s not a
+# multiple of 4 (4-byte copies, zeros past s) with k odd and three
+# 128-centroid passes; a codebook past shared memory (the streamed scan).
+_PQ_SHAPES = [(8, 256, 16), (4, 300, 24), (2, 1000, 12), (3, 257, 5), (1, 4096, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -93,6 +95,67 @@ def test_adc_lookup_matches_plain(card, shape):
     torch.cuda.synchronize()
     assert torch.equal(got, ck.adc_lookup_plain(tables, codes))
     assert torch.equal(ck.adc_lookup_fused(tables, codes.to(torch.int64)), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _PQ_SHAPES)
+@pytest.mark.parametrize("n", [1, 77, 129])
+def test_pq_encode_row_edges(card, n, shape, dtype):
+    """One row, a part tile, and one row past a 128-row tile."""
+    m, k, s = shape
+    g = torch.Generator(device=card).manual_seed(13)
+    x = torch.randn(n, m * s, generator=g, device=card).to(dtype)
+    cb = torch.randn(m, k, s, generator=g, device=card)
+    assert torch.equal(ck.pq_encode_fused(x, cb), ck.pq_encode_plain(x, cb))
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 16), (3, 257, 5), (1, 4096, 64)])
+def test_pq_encode_tie_across_passes(card, shape):
+    """Centroid 130 (second 128-centroid pass) equals centroid 2 and every
+    row is centroid 2: the lower index must win in every subspace."""
+    m, k, s = shape
+    g = torch.Generator(device=card).manual_seed(14)
+    cb = torch.randn(m, k, s, generator=g, device=card)
+    cb[:, 130] = cb[:, 2]
+    x = cb[:, 2].reshape(1, m * s).repeat(300, 1)
+    got = ck.pq_encode_fused(x, cb)
+    assert torch.equal(got, ck.pq_encode_plain(x, cb))
+    assert bool((got == 2).all())
+
+
+@pytest.mark.parametrize("nan_bits", [0x7FC00000, -0x400000], ids=["nan", "negative-nan"])
+@pytest.mark.parametrize("shape", [(8, 256, 16), (3, 257, 5), (1, 4096, 64)])
+def test_pq_encode_nan_then_inf(card, shape, nan_bits):
+    """A NaN centroid at j = 0 (either sign) and +inf scores after it
+    (||c||^2 overflows): int2 takes index 1, where a float < from +inf
+    keeps 0."""
+    m, k, s = shape
+    g = torch.Generator(device=card).manual_seed(15)
+    cb = torch.full((m, k, s), 1e20, device=card)
+    cb[:, 0] = torch.tensor(nan_bits, dtype=torch.int32, device=card).view(torch.float32)
+    x = torch.randn(200, m * s, generator=g, device=card)
+    got = ck.pq_encode_fused(x, cb)
+    assert torch.equal(got, ck.pq_encode_plain(x, cb))
+    assert bool((got == 1).all())
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 16), (3, 257, 5), (1, 4096, 64)])
+def test_pq_encode_nan_and_inf_rows(card, shape):
+    """Rows with a NaN (every score NaN: code 0), +-inf and -0.0 entries,
+    through the encode and K3's minimum scores (its inertia)."""
+    m, k, s = shape
+    g = torch.Generator(device=card).manual_seed(16)
+    x = torch.randn(300, m * s, generator=g, device=card)
+    cb = torch.randn(m, k, s, generator=g, device=card)
+    x[3, 0], x[40, -1], x[41, 1 % (m * s)] = float("nan"), float("inf"), -float("inf")
+    x[200:] = -0.0
+    got = ck.pq_encode_fused(x, cb)
+    assert torch.equal(got, ck.pq_encode_plain(x, cb))
+    assert int(got[3, 0]) == 0
+    sums, counts, inertia = ck.pq_lloyd_accumulate_fused(x, cb)
+    ps, pc, pi = ck.pq_lloyd_accumulate_plain(x, cb)
+    assert torch.equal(counts, pc)
+    assert bool(torch.isnan(inertia)) and bool(torch.isnan(pi))
 
 
 def test_pq_encode_nan_and_ties(card):

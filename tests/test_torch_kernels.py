@@ -267,3 +267,59 @@ def test_adc_lookup_rejects_bad_operands(bad):
         codes = codes[:, 0]
     with pytest.raises(ValueError):
         ck.adc_lookup_fused(tables, codes)
+
+
+# (m, k, s) around the resident scan's limits: the main configuration,
+# odd k and s, wide subspaces where only a 2-stage ring fits, and
+# codebooks past shared memory.
+_PLAN_GRID = [(m, k, s) for m in (1, 8) for k in (1, 127, 256, 257, 1000, 4096, 65536)
+              for s in (1, 5, 16, 64, 128, 200, 960)]
+
+
+def test_pq_scan_plan_fits_shared_memory():
+    """K3's and K4's scan plan: never past the opt-in limit, at least one
+    centroid in shared memory, the streamed mode exactly where a resident
+    codebook with a 2-stage ring does not fit, 3 stages wherever they fit,
+    and blocks of whole 128-row tiles that cover n."""
+    modes = set()
+    for m, k, s in _PLAN_GRID:
+        for n in (1, 129, 1_000_000):
+            plan = ck.pq_scan_plan(n, m, k, s)
+            kp, s4 = -(-k // 128) * 128, -(-s // 4) * 4
+            resident = {st: 4 * (kp * s4 + kp + st * 128 * s4) for st in (2, 3)}
+            assert 0 < plan.smem <= ck.SMEM_OPTIN, (m, k, s, plan)
+            assert plan.centroids >= 1
+            assert plan.resident == (resident[2] <= ck.SMEM_OPTIN), (m, k, s, plan)
+            if plan.resident:
+                assert plan.centroids >= k
+                assert plan.stages == (3 if resident[3] <= ck.SMEM_OPTIN else 2)
+                assert plan.smem == resident[plan.stages]
+            assert plan.rows_per_block % 128 == 0
+            blocks = -(-n // plan.rows_per_block)
+            assert blocks * plan.rows_per_block >= n > (blocks - 1) * plan.rows_per_block
+            modes.add((plan.resident, plan.stages))
+    assert modes == {(True, 3), (True, 2), (False, 3)}
+
+
+def test_pq_scan_plan_main_shape():
+    """8x256x16 at 1M rows: the codebook resident (17 KB) beside three 8 KB
+    x tiles, 33 blocks a subspace (264 in all)."""
+    plan = ck.pq_scan_plan(1_000_000, 8, 256, 16)
+    assert plan == ck.ScanPlan(True, 3, 4 * (256 * 16 + 256 + 3 * 128 * 16), 256, 237 * 128)
+    assert -(-1_000_000 // plan.rows_per_block) * 8 == 264
+
+
+def test_pq_scan_ab_loads_another_checkout():
+    """The A/B script's loader: another checkout's wrappers as a module of
+    their own (here this checkout's), whose plain versions on CPU tensors
+    give this module's results."""
+    from pathlib import Path
+
+    from vq_tpu_torch.benchmarks import pq_scan_ab
+
+    other = pq_scan_ab.other_kernels(Path(__file__).resolve().parent.parent)
+    assert other is not ck and other.__name__ == "_other_cuda_kernels"
+    x, cb = torch.rand(300, 12), torch.rand(3, 20, 4)
+    assert torch.equal(other.pq_encode_fused(x, cb), ck.pq_encode_fused(x, cb))
+    got, want = other.pq_lloyd_accumulate_fused(x, cb), ck.pq_lloyd_accumulate_fused(x, cb)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -200,7 +200,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, vq_tpu_torch, vq_tpu_torch.ops._build, "
         "vq_tpu_torch.convert, vq_tpu_torch.utils, "
-        "vq_tpu_torch.benchmarks.mpacked_encode, vq_tpu_torch.benchmarks.adc_vmem_bench\n"
+        "vq_tpu_torch.benchmarks.mpacked_encode, vq_tpu_torch.benchmarks.adc_vmem_bench, "
+        "vq_tpu_torch.benchmarks.pq_scan_ab\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'vq_tpu', 'benchmarks') "
         "or m.startswith(('jax.', 'vq_tpu.', 'benchmarks.')))\n"
         "assert not bad, bad\n"

@@ -1,0 +1,116 @@
+"""K3 and K4 of this checkout beside another checkout's, on one card.
+
+    python3 -m vq_tpu_torch.benchmarks.pq_scan_ab --against DIR
+
+``DIR`` is another checkout of the repository, e.g. a parent commit
+unpacked with ``git archive``. Its kernel library is built from its own
+sources by its own ``ops/_build.py`` (under ``DIR/build/``), and its wrappers
+(``DIR/vq_tpu_torch/ops/cuda_kernels.py``) are loaded by file path under
+another module name and launch into that library; so the two versions run
+in one process on the same operands. On a seeded Gaussian mixture (1M x
+128, codebooks 8x256x16 drawn from it) the script encodes the 1M rows
+with f32 and bf16 input (K4) and runs one PQ Lloyd pass on the first 100k
+and 200k rows (K3), and prints one JSON line a case: whether the outputs
+are equal bit for bit, and the milliseconds a call (CUDA events, 5 calls
+a round) of each version in rounds other, this, this, other. The last
+line is the card's ``nvidia-smi`` name and power limit. Exits 1 if any
+output differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+from types import ModuleType
+from typing import Callable, Sequence
+
+import torch
+
+from vq_tpu_torch.benchmarks import cuda_ms
+from vq_tpu_torch.ops import cuda_kernels as ck
+
+N, DIM, M, K, SEED = 1_000_000, 128, 8, 256, 0
+K3_ROWS = (100_000, 200_000)
+
+
+def _load(name: str, path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def other_kernels(root: Path) -> ModuleType:
+    """``root``'s ``cuda_kernels`` module, launching into ``root``'s own
+    kernel library (built on first use from ``root``'s sources)."""
+    build = _load("_other_build", root / "vq_tpu_torch" / "ops" / "_build.py")
+    mod = _load("_other_cuda_kernels", root / "vq_tpu_torch" / "ops" / "cuda_kernels.py")
+
+    def launch(fn, *args):
+        err = getattr(build.LIBRARY.get(), fn)(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{root}: {fn}: CUDA launch failed with error {err}")
+
+    mod._launch = launch
+    return mod
+
+
+def make_operands(device):
+    """Seeded mixture ``x [N, DIM]`` (1024 rank-24 clusters) and codebooks
+    ``[M, K, DIM / M]`` drawn from its rows."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    centres = torch.randn(1024, DIM, generator=g, device=device) * 4.0
+    lab = torch.randint(0, 1024, (N,), generator=g, device=device)
+    basis = torch.randn(24, DIM, generator=g, device=device) * (2.0 / 24 ** 0.5)
+    x = (centres[lab] + torch.randn(N, 24, generator=g, device=device) @ basis
+         + 0.1 * torch.randn(N, DIM, generator=g, device=device))
+    pick = torch.randperm(N, generator=g, device=device)[:K]
+    cb = x[pick].reshape(K, M, DIM // M).permute(1, 0, 2).contiguous()
+    return x.contiguous(), cb
+
+
+def compare(this: Callable, other: Callable, reps: int = 5):
+    """``(equal, this ms [2], other ms [2])``: outputs bit for bit, then
+    rounds other, this, this, other."""
+    a, b = this(), other()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    equal = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+    o1, t1, t2, o2 = (cuda_ms(f, reps) for f in (other, this, this, other))
+    return equal, [t1, t2], [o1, o2]
+
+
+def main(argv: Sequence[str] = ()) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", required=True, type=Path, help="another checkout's root")
+    args = ap.parse_args(list(argv))
+    if not torch.cuda.is_available():
+        raise SystemExit("pq_scan_ab: needs an NVIDIA GPU")
+    other = other_kernels(args.against.resolve())
+    x, cb = make_operands("cuda")
+    xb = x.to(torch.bfloat16)
+    cases = {
+        "K4 f32 1M": (lambda: ck.pq_encode_fused(x, cb), lambda: other.pq_encode_fused(x, cb)),
+        "K4 bf16 1M": (lambda: ck.pq_encode_fused(xb, cb), lambda: other.pq_encode_fused(xb, cb)),
+    }
+    for n in K3_ROWS:
+        cases[f"K3 {n}"] = (lambda n=n: ck.pq_lloyd_accumulate_fused(x[:n], cb),
+                            lambda n=n: other.pq_lloyd_accumulate_fused(x[:n], cb))
+    ok = True
+    for name, (this, oth) in cases.items():
+        equal, t_ms, o_ms = compare(this, oth)
+        ok &= equal
+        print(json.dumps({"case": name, "equal": equal, "this_ms": t_ms, "other_ms": o_ms,
+                          "other": str(args.against)}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

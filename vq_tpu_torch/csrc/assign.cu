@@ -60,6 +60,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tile_scan.cuh"
 
 using namespace vqk;
 
@@ -74,27 +75,6 @@ constexpr int kTM = 8, kTN = 8;  // register tile: rows x centroids a thread
 constexpr int kAssignThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kSliceFloats = kBN * kStr;  // one [128 x 68] slice
 static_assert(kBM == kBN, "stage_async copies kBM rows of either operand");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Starts copying columns [e0, e0 + w) of rows [r0, r0 + 128) of src
 // [rows, d] f32 into dst (row stride dstr), zero past `rows` and past d.
@@ -162,15 +142,6 @@ __device__ __forceinline__ void stage_x(float* dst, int dstr,
       }
     }
   }
-}
-
-__device__ __forceinline__ void mac(float& acc, float a, float b) {
-  acc = __fadd_rn(acc, __fmul_rn(a, b));
-}
-
-// Component e of v (e is a constant once the caller's loop is unrolled).
-__device__ __forceinline__ float at(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
 // acc[i][j] += x[row i] . c[centroid j] over the slice's q4 float4

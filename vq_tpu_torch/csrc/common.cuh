@@ -1,5 +1,5 @@
-// Shared device code of the PQ kernels: the int2 argmin rule and the
-// per-(row, subspace) nearest-centroid scan that K3 and K4 both run.
+// Shared code of the PQ kernels: the int2 argmin rule, the chunk loader
+// of the bf16 encodes, and the PQ scan that K3 and K4 both run.
 //
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic, and the library is built with -fmad=false as well, so no
@@ -48,52 +48,17 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ cbi,
   for (int t = threadIdx.x; t < cnt; t += blockDim.x) ccs[t] = cci[j0 + t];
 }
 
-// Nearest centroid of one subspace for this thread's row under the int2
-// rule: minimum orderable key, lowest index among equal keys (a strict <
-// over ascending j, starting from key INT_MAX at index 0, gives exactly
-// that, NaN rows included). Every thread of the block must call it: when
-// the codebook does not fit shared memory (resident == false) it streams
-// through in chunks of kc centroids with a running minimum, and the
-// loads synchronise the block. Scores are compared unclamped.
-template <typename T>
-__device__ __forceinline__ void nearest_centroid(
-    const T* __restrict__ xs, bool valid, int s,
-    const float* __restrict__ cbi, const float* __restrict__ cci, int k,
-    int kc, bool resident, float* cbs, float* ccs, int& best_key,
-    int& best_idx) {
-  const bool in_regs = s <= kXRegs;
-  float xr[kXRegs];
-#pragma unroll
-  for (int e = 0; e < kXRegs; ++e)
-    xr[e] = (valid && in_regs && e < s) ? to_f32(xs[e]) : 0.f;
-  best_key = INT_MAX;
-  best_idx = 0;
-  for (int j0 = 0; j0 < k; j0 += kc) {
-    const int cnt = min(kc, k - j0);
-    if (!resident) {
-      __syncthreads();
-      load_chunk(cbi, cci, cbs, ccs, j0, cnt, s);
-      __syncthreads();
-    }
-    if (!valid) continue;
-    for (int j = 0; j < cnt; ++j) {
-      const float* c = cbs + (size_t)j * s;
-      float dot = 0.f;
-      if (in_regs) {
-#pragma unroll
-        for (int e = 0; e < kXRegs; ++e)
-          if (e < s) dot = __fadd_rn(dot, __fmul_rn(xr[e], c[e]));
-      } else {
-        for (int e = 0; e < s; ++e)
-          dot = __fadd_rn(dot, __fmul_rn(to_f32(xs[e]), c[e]));
-      }
-      const int key = orderable_key(__fsub_rn(ccs[j], __fmul_rn(2.0f, dot)));
-      if (key < best_key) {
-        best_key = key;
-        best_idx = j0 + j;
-      }
-    }
-  }
-}
+// The PQ scan (defined in pq_encode.cu): codes [n, m] i32, the int2 argmin
+// of cc - 2 x_s.c for every row and subspace, and, where minval is not
+// null, the minimum score itself [n, m] f32 (key_to_f32 of the winning
+// key). x is [n, m*s] f32 or bf16 (x_is_bf16); cb [m, k, s] and cc [m, k]
+// f32. resident: the subspace's codebook stays in shared memory while x
+// tiles stream through a ring of `stages` stages (blocks of
+// rows_per_block rows); otherwise one block a 128-row tile, the codebook
+// streaming past it in slices. smem: dynamic shared-memory bytes a block,
+// as cuda_kernels.pq_scan_plan reckons them. Returns cudaGetLastError().
+int pq_scan(const void* x, bool x_is_bf16, const float* cb, const float* cc, int* codes,
+            float* minval, long long n, int m, int k, int s, bool resident, int stages,
+            int smem, long long rows_per_block, cudaStream_t st);
 
 }  // namespace vqk

@@ -5,43 +5,44 @@
 // Replaces vq_tpu/ops/pallas_kernels.py::_pq_lloyd_acc_kernel (reached
 // through pq_lloyd_accumulate_fused / _pq_lloyd_accumulate_jit).
 //
-// What bounds it on the card: the assignment, as in K4 (2*n*m*k*s exact
-// fp32 flops); the accumulation adds n*m*s more adds and read-modify-
-// writes that hit L2.
+// What bounds it on the card: the assignment, as in K4 (2*n*m*k*s FP32
+// instructions, no FMA); the accumulation adds n*m*s more adds and
+// read-modify-writes that hit L2.
 //
 // Design: the TPU grid ran in order and carried the sums in VMEM from
 // one step to the next. Hopper blocks run in parallel, so the pass is
-// split in two launches, with no atomics anywhere:
-//  1. Block (c, i) assigns subspace i of its row range (the same scan as
-//     K4) and accumulates into its own partial slice: thread j owns
-//     centroid j (and j + 256, ...) and walks the tile's rows in
-//     ascending order, so every partial sum has one fixed order. Counts
-//     are integers. Inertia is summed per thread over its rows, then
-//     tree-reduced in a fixed order into one partial per block.
-//  2. A reduce kernel sums the partials over c in ascending order.
+// three launches, with no atomics anywhere:
+//  1. K4's register-tiled scan (pq_scan, pq_encode.cu) writes each row's
+//     code [n, m] i32 and its minimum score [n, m] f32, the exact float
+//     of the winning key.
+//  2. Block (c, i) walks subspace i of its row range in 256-row tiles
+//     and accumulates into its own partial slice: thread j owns centroid
+//     j (and j + 256, ...) and walks the tile's rows in ascending order,
+//     so every partial sum has one fixed order. Counts are integers.
+//     Inertia is summed per thread over its rows, then tree-reduced in a
+//     fixed order into one partial per block.
+//  3. A reduce kernel sums the partials over c in ascending order.
 // The result is deterministic from run to run for a given n (the row
-// partition depends only on n, m, k and s). Against the plain version,
-// which sums in another order, sums and inertia differ by fp32 rounding
-// only; counts are exact, because both assign with the same arithmetic.
-// Rows past n are never read, so they add nothing to sums, counts or
-// inertia.
+// partition depends only on n, m, k and s), and equal bit for bit to the
+// one-launch design it replaced, whose scan computed the same keys.
+// Against the plain version, which sums in another order, sums and
+// inertia differ by fp32 rounding only; counts are exact, because both
+// assign with the same arithmetic. Rows past n are never read, so they
+// add nothing to sums, counts or inertia.
 #include "common.cuh"
 
 using namespace vqk;
 
 __global__ void __launch_bounds__(kThreads)
     pq_lloyd_partial_kernel(const float* __restrict__ x,
-                            const float* __restrict__ cb,
-                            const float* __restrict__ cc,
+                            const int* __restrict__ codes,
+                            const float* __restrict__ minval,
                             float* __restrict__ psums,
                             int* __restrict__ pcounts,
                             float* __restrict__ pinertia, long long n, int m,
-                            int k, int s, int kc, long long rows_per_block) {
-  extern __shared__ float smem[];
-  float* cbs = smem;
-  float* ccs = cbs + (size_t)kc * s;
-  int* tile_codes = reinterpret_cast<int*>(ccs + kc);
-  float* red = reinterpret_cast<float*>(tile_codes + kThreads);
+                            int k, int s, long long rows_per_block) {
+  __shared__ int tile_codes[kThreads];
+  __shared__ float red[kThreads];
 
   const int i = blockIdx.y;
   const size_t slot = (size_t)blockIdx.x * m + i;
@@ -52,13 +53,6 @@ __global__ void __launch_bounds__(kThreads)
     pc[j] = 0;
   }
 
-  const float* cbi = cb + (size_t)i * k * s;
-  const float* cci = cc + (size_t)i * k;
-  const bool resident = kc >= k;
-  if (resident) {
-    load_chunk(cbi, cci, cbs, ccs, 0, k, s);
-    __syncthreads();
-  }
   const long long d = (long long)m * s;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(n, r0 + rows_per_block);
@@ -67,16 +61,14 @@ __global__ void __launch_bounds__(kThreads)
     const long long row = base + threadIdx.x;
     const bool valid = row < r1;
     const float* xs = x + (valid ? row : 0) * d + (long long)i * s;
-    int best_key, best_idx;
-    nearest_centroid(xs, valid, s, cbi, cci, k, kc, resident, cbs, ccs,
-                     best_key, best_idx);
+    const int best_idx = valid ? codes[row * m + i] : -1;
     if (valid) {
       float xx = 0.f;
       for (int e = 0; e < s; ++e) xx = __fadd_rn(xx, __fmul_rn(xs[e], xs[e]));
-      const float t = __fadd_rn(key_to_f32(best_key), xx);
+      const float t = __fadd_rn(minval[row * m + i], xx);
       inertia = __fadd_rn(inertia, isnan(t) ? t : fmaxf(t, 0.f));
     }
-    tile_codes[threadIdx.x] = valid ? best_idx : -1;
+    tile_codes[threadIdx.x] = best_idx;
     __syncthreads();
     const int rows = (int)min((long long)blockDim.x, r1 - base);
     for (int j = threadIdx.x; j < k; j += blockDim.x) {
@@ -127,19 +119,21 @@ __global__ void pq_lloyd_reduce_kernel(const float* __restrict__ psums,
 }
 
 extern "C" int vq_pq_lloyd(const float* x, const float* cb, const float* cc,
-                           float* psums, int* pcounts, float* pinertia,
-                           float* sums, float* counts, float* inertia,
-                           long long n, int m, int k, int s, int kc,
-                           long long rows_per_block, int chunks,
-                           void* stream) {
+                           int* codes, float* minval, float* psums,
+                           int* pcounts, float* pinertia, float* sums,
+                           float* counts, float* inertia, long long n, int m,
+                           int k, int s, int resident, int stages, int smem,
+                           long long scan_rows, long long rows_per_block,
+                           int chunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = pq_scan(x, false, cb, cc, codes, minval, n, m, k, s, resident != 0,
+                    stages, smem, scan_rows, st);
+  if (err != 0) return err;
   const dim3 grid((unsigned)chunks, (unsigned)m);
-  const size_t smem =
-      ((size_t)kc * s + kc) * sizeof(float) + 2 * kThreads * sizeof(float);
-  pq_lloyd_partial_kernel<<<grid, kThreads, smem, st>>>(
-      x, cb, cc, psums, pcounts, pinertia, n, m, k, s, kc, rows_per_block);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  pq_lloyd_partial_kernel<<<grid, kThreads, 0, st>>>(
+      x, codes, minval, psums, pcounts, pinertia, n, m, k, s, rows_per_block);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
   const long long mks = (long long)m * k * s;
   const unsigned nblk = (unsigned)((mks + kThreads - 1) / kThreads);
   pq_lloyd_reduce_kernel<<<nblk, kThreads, 0, st>>>(

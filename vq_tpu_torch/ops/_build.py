@@ -45,18 +45,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # x, x_is_bf16, cb, cc, codes, n, m, k, s, kc, rows_per_block, stream
-    "vq_pq_encode": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _P),
+    # x, x_is_bf16, cb, cc, codes, n, m, k, s, resident, stages, smem,
+    # rows_per_block, stream
+    "vq_pq_encode": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
     # x, x_is_bf16, cbh, cbl, cc, codes, n, m, k, s, kc, rows_per_block,
     # bf16x3, stream
     "vq_pq_encode_lowp": (_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P),
     # tables, codes, codes_are_u8, out, nq, m, k, n, group, tab_in_smem,
     # rows_per_block, stream
     "vq_adc_lookup": (_P, _P, _I, _P, _I, _I, _I, _LL, _I, _I, _LL, _P),
-    # x, cb, cc, psums, pcounts, pinertia, sums, counts, inertia,
-    # n, m, k, s, kc, rows_per_block, chunks, stream
-    "vq_pq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _LL, _I, _I, _I, _I, _LL, _I, _P),
+    # x, cb, cc, codes, minval, psums, pcounts, pinertia, sums, counts,
+    # inertia, n, m, k, s, resident, stages, smem, scan_rows,
+    # rows_per_block, chunks, stream
+    "vq_pq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _LL, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _P),
     # tables, codes_t, qn2, offsets, vals, ids, nq, m, k, kpad, n, tile,
     # fetch, mode, pack_bits, tab_in_smem, ntiles, stream
     "vq_adc_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,

@@ -40,7 +40,7 @@ uses it.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,6 +56,8 @@ __all__ = [
     "lloyd_accumulate_plain",
     "pq_encode_fused",
     "pq_encode_plain",
+    "pq_scan_plan",
+    "ScanPlan",
     "ENCODE_PRECISIONS",
     "adc_lookup_fused",
     "adc_lookup_plain",
@@ -73,8 +75,12 @@ __all__ = [
 _INT_MAX = 0x7FFFFFFF
 _INF_KEY = 0x7F800000  # orderable_key(+inf)
 TOP_LANES = 128  # candidate lanes per tile, as on the TPU
-_THREADS = 256  # rows per tile in K3 and K4 (csrc/common.cuh kThreads)
+_THREADS = 256  # rows per tile of K3's sums walk and K4-bf16 (csrc/common.cuh kThreads)
 _SMEM_BYTES = 48 * 1024  # shared memory a block uses without opting in
+SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (227 KB)
+_SCAN_ROWS = 128  # rows of a PQ scan tile, and centroids a pass (csrc/pq_encode.cu kBM, kBN)
+_SCAN_SLICE = 64  # dimensions of a streamed PQ scan slice (kBK)
+_SCAN_BLOCKS = 2 * 132  # resident PQ scan blocks: two waves of one a SM
 _TARGET_BLOCKS = 132 * 8  # SMs x resident 256-thread blocks
 _PARTIAL_BYTES = 256 << 20  # K3's per-block partial sums, at most
 _ADC_MODES = {"sum": 0, "l2": 1, "dot": 2}
@@ -153,10 +159,10 @@ def _launch(fn, *args) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
 
 
-def _centroid_chunk(k: int, s: int, extra_bytes: int, copies: int = 1) -> int:
-    """Centroids of one subspace staged in shared memory at a time
-    (``copies`` values a coordinate, plus the squared norm)."""
-    kc = (_SMEM_BYTES - extra_bytes) // ((copies * s + 1) * 4)
+def _centroid_chunk(k: int, s: int, copies: int = 1) -> int:
+    """Centroids of one subspace the bf16 encodes stage in shared memory at
+    a time (``copies`` values a coordinate, plus the squared norm)."""
+    kc = _SMEM_BYTES // ((copies * s + 1) * 4)
     if kc < 1:
         raise InvalidParameter(
             "codebooks", f"sub_dim {s} leaves no room for one centroid in "
@@ -437,6 +443,42 @@ def _split_codebooks(cb: torch.Tensor):
     return cbh, _bf16(cb - cbh)
 
 
+class ScanPlan(NamedTuple):
+    """Launch plan of the PQ scan of K3 and K4 (``csrc/pq_encode.cu``)."""
+
+    resident: bool  # the subspace's codebook stays in shared memory
+    stages: int  # depth of the cp.async ring
+    smem: int  # dynamic shared-memory bytes a block
+    centroids: int  # centroids of a subspace in shared memory at a time
+    rows_per_block: int  # rows a (row range, subspace) block scans
+
+
+def _resident_bytes(k: int, s: int, stages: int) -> int:
+    """Shared memory of the resident scan: the codebook padded to whole
+    128-centroid passes, its norms and ``stages`` 128-row x tiles, all
+    ``s`` rounded up to 4."""
+    kp, s4 = -(-k // _SCAN_ROWS) * _SCAN_ROWS, -(-s // 4) * 4
+    return 4 * (kp * s4 + kp + stages * _SCAN_ROWS * s4)
+
+
+def pq_scan_plan(n: int, m: int, k: int, s: int) -> ScanPlan:
+    """How the PQ scan runs ``n`` rows against ``m`` subspaces of ``k``
+    centroids of width ``s``: with the codebook resident beside a 3-stage
+    ring of x tiles (2 stages where 3 do not fit) in blocks of whole
+    128-row tiles, two waves of blocks over the card; or, where even 2
+    do not fit in ``SMEM_OPTIN``, one block a 128-row tile with the
+    codebook streaming past in [128 x 64] slices (3 stages)."""
+    for stages in (3, 2):
+        smem = _resident_bytes(k, s, stages)
+        if smem <= SMEM_OPTIN:
+            tiles = -(-n // _SCAN_ROWS)
+            chunks = max(1, min(tiles, -(-_SCAN_BLOCKS // max(m, 1))))
+            rows = -(-tiles // chunks) * _SCAN_ROWS
+            return ScanPlan(True, stages, smem, -(-k // _SCAN_ROWS) * _SCAN_ROWS, rows)
+    smem = 4 * 3 * 2 * _SCAN_ROWS * _SCAN_SLICE
+    return ScanPlan(False, 3, smem, _SCAN_ROWS, _SCAN_ROWS)
+
+
 def pq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor,
                     precision: str = "highest") -> torch.Tensor:
     """Plain version of K4 / K4-bf16 / K4-bf16x3: ``x [n, m*s]`` -> codes
@@ -490,9 +532,11 @@ def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor,
         return codes
     bf16 = int(x.dtype == torch.bfloat16)
     if precision == "highest":
+        plan = pq_scan_plan(n, m, k, s)
         _launch(
             "vq_pq_encode", x.data_ptr(), bf16, cb.data_ptr(), cc.data_ptr(),
-            codes.data_ptr(), n, m, k, s, _centroid_chunk(k, s, 0), _rows_per_block(n, m),
+            codes.data_ptr(), n, m, k, s, int(plan.resident), plan.stages, plan.smem,
+            plan.rows_per_block,
         )
     else:
         x3 = precision == "bf16x3"
@@ -501,7 +545,7 @@ def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor,
         _launch(
             "vq_pq_encode_lowp", x.data_ptr(), bf16, cbh.data_ptr(), cbl.data_ptr(),
             cc.data_ptr(), codes.data_ptr(), n, m, k, s,
-            _centroid_chunk(k, s, 0, copies=2 if x3 else 1), _rows_per_block(n, m), int(x3),
+            _centroid_chunk(k, s, copies=2 if x3 else 1), _rows_per_block(n, m), int(x3),
         )
     pq_encode_fused.launches += 1
     pq_encode_fused.launches_by[precision] += 1
@@ -544,7 +588,8 @@ def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor):
 
     On the card the result is deterministic from run to run; against the
     plain version counts are exact and sums and inertia differ by fp32
-    summation order only (``csrc/pq_lloyd.cu``)."""
+    summation order only (``csrc/pq_lloyd.cu``: K4's scan, then the sums
+    walk and the reduce)."""
     x = x.to(torch.float32)
     cb = codebooks.to(torch.float32)
     if not _on_card(x, cb):
@@ -558,17 +603,19 @@ def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor):
     if n == 0:
         return sums, counts, inertia
     cc = (cb * cb).sum(-1).contiguous()
-    kc = _centroid_chunk(k, s, 2 * _THREADS * 4)
+    plan = pq_scan_plan(n, m, k, s)
     rpb = _rows_per_block(n, m, _PARTIAL_BYTES // (m * k * s * 4))
     chunks = -(-n // rpb)
+    codes = torch.empty((n, m), dtype=torch.int32, device=dev)
+    minval = torch.empty((n, m), dtype=torch.float32, device=dev)
     psums = torch.empty((chunks, m, k, s), dtype=torch.float32, device=dev)
     pcounts = torch.empty((chunks, m, k), dtype=torch.int32, device=dev)
     pinertia = torch.empty((chunks, m), dtype=torch.float32, device=dev)
     _launch(
-        "vq_pq_lloyd", x.data_ptr(), cb.data_ptr(), cc.data_ptr(),
-        psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
+        "vq_pq_lloyd", x.data_ptr(), cb.data_ptr(), cc.data_ptr(), codes.data_ptr(),
+        minval.data_ptr(), psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
         sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
-        n, m, k, s, kc, rpb, chunks,
+        n, m, k, s, int(plan.resident), plan.stages, plan.smem, plan.rows_per_block, rpb, chunks,
     )
     pq_lloyd_accumulate_fused.launches += 1
     return sums, counts, inertia
