@@ -5,10 +5,16 @@ installed; ``tests/conftest.py`` needs JAX, so there run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 codes and distances, K4 / K4-bf16 / K4-bf16x3 codes, K5
+Tolerances: K1 codes and distances, K4 codes, K5
 values and ids, K6, K7 and K8 values, and IVF-Flat / IVF-SQ / RQ /
 IVF-RQ searches exact (the kernels repeat the plain versions' fp32
-arithmetic);
+arithmetic); K4-bf16 and K4-bf16x3 codes (bf16 products on the tensor
+cores, which sum a tile's 16 products in their own order) by
+``cuda_kernels.encode_parity``: >= 0.9999 of the codes equal, every
+other one a float64 near tie on the precision's own operands, and bit
+for bit where every partial sum is exact (small integers), at exact
+ties (duplicated centroids), on NaN centroids and rows and on zero
+scores;
 K2 exact, weighted or not (kernel and plain version sum in one
 segmented order), and bit-identical from one run to the next; K3 counts
 exact, sums at rtol 1e-5 / atol 1e-4 and inertia at rtol 1e-5 (fp32
@@ -42,6 +48,8 @@ def card():
 # multiple of 4 (4-byte copies, zeros past s) with k odd and three
 # 128-centroid passes; a codebook past shared memory (the streamed scan).
 _PQ_SHAPES = [(8, 256, 16), (4, 300, 24), (2, 1000, 12), (3, 257, 5), (1, 4096, 64)]
+# K4-bf16 / K4-bf16x3 also past 64 e (x reloaded in chunks of 4 k-steps).
+_LOWP_SHAPES = _PQ_SHAPES + [(2, 100, 130)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -58,19 +66,94 @@ def test_pq_encode_matches_plain(card, shape, dtype):
 
 @pytest.mark.parametrize("precision", ["bf16_fast", "bf16x3"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", _PQ_SHAPES)
+@pytest.mark.parametrize("shape", _LOWP_SHAPES)
 def test_pq_encode_lowp_matches_plain(card, shape, dtype, precision):
-    """K4-bf16 and K4-bf16x3: products of bf16 values are exact in f32,
-    so the CUDA-core sums equal the plain version bit for bit."""
+    """K4-bf16 and K4-bf16x3 on the tensor cores: the products of bf16
+    values are exact, but a tile's 16 are summed in the tensor core's
+    order, so codes are held by the near-tie rule (encode_parity)."""
     m, k, s = shape
     g = torch.Generator(device=card).manual_seed(11)
     x = torch.randn(5001, m * s, generator=g, device=card).to(dtype)
     cb = torch.randn(m, k, s, generator=g, device=card)
-    before = ck.pq_encode_fused.launches
+    before = ck.pq_encode_fused.launches_by[precision]
     got = ck.pq_encode_fused(x, cb, precision=precision)
     torch.cuda.synchronize()
-    assert ck.pq_encode_fused.launches == before + 1
+    assert ck.pq_encode_fused.launches_by[precision] == before + 1
+    par = ck.encode_parity(x, cb, got, precision)
+    assert par.ok, par
+
+
+def _exact_case(kind, shape, dtype, g, card, n=3001):
+    """Operands on which K4-bf16 / K4-bf16x3 must equal the plain version
+    bit for bit: small integers (exact in bf16, every partial sum exact in
+    f32 in any order), with NaN centroids and rows ("nan"), with -0.0
+    entries and zero centroids of both signs ("zeros"); or Gaussian
+    centroids duplicated at 2, 9, 130 and k - 1 and every row near
+    centroid 2 ("dups": exact ties, the lowest index wins)."""
+    m, k, s = shape
+    if kind == "dups":
+        cb = torch.randn(m, k, s, generator=g, device=card)
+        for j in (9, 130, k - 1):
+            if j < k:
+                cb[:, j] = cb[:, 2]
+        x = cb[:, 2].reshape(1, m * s) + 1e-3 * torch.randn(n, m * s, generator=g, device=card)
+        return x.to(dtype), cb
+    x = torch.randint(-4, 5, (n, m * s), generator=g, device=card).float()
+    cb = torch.randint(-4, 5, (m, k, s), generator=g, device=card).float()
+    if kind == "nan":
+        cb[:, 0] = float("nan")
+        cb[:, 5, s - 1] = float("nan")
+        x[7] = float("nan")
+        x[11, 0] = float("nan")
+    elif kind == "zeros":
+        cb[:, 0] = -0.0
+        cb[:, 1] = 0.0
+        cb[cb == 0] = -0.0
+        x[x == 0] = -0.0
+        x[: n // 2] = (cb[:, 3].reshape(1, m * s) / 2).round()  # scores of exactly 0 nearby
+    return x.to(dtype), cb
+
+
+@pytest.mark.parametrize("kind", ["integers", "dups", "nan", "zeros"])
+@pytest.mark.parametrize("precision", ["bf16_fast", "bf16x3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _LOWP_SHAPES)
+def test_pq_encode_lowp_exact_cases(card, shape, dtype, precision, kind):
+    g = torch.Generator(device=card).manual_seed(16)
+    x, cb = _exact_case(kind, shape, dtype, g, card)
+    got = ck.pq_encode_fused(x, cb, precision=precision)
+    torch.cuda.synchronize()
     assert torch.equal(got, ck.pq_encode_plain(x, cb, precision))
+    if kind == "dups":
+        assert bool((got == 2).all())
+    if kind == "nan":
+        assert bool((got[7] == 0).all()) and not bool((got == 0).any(1)[:7].any())
+
+
+@pytest.mark.parametrize("bad", ["nan", "negative-nan", "inf"])
+@pytest.mark.parametrize("precision", ["highest", "bf16_fast", "bf16x3"])
+def test_pq_encode_nan_centroid_same_codes_on_the_card(card, precision, bad):
+    """A NaN (either sign) or +inf entry in centroid 3 (its score NaN or
+    inf - inf): kernel and plain version give the same codes on the card,
+    and neither picks centroid 3. The card's arithmetic makes only
+    positive NaNs, so the device orderable_key (csrc/common.cuh), which
+    keys a negative NaN below -inf, never meets one."""
+    g = torch.Generator(device=card).manual_seed(17)
+    x = torch.rand(4000, 3 * 16, generator=g, device=card) + 0.1
+    cb = torch.randn(3, 10, 16, generator=g, device=card)
+    value = {"nan": 0x7FC00000, "negative-nan": -0x400000, "inf": 0x7F800000}[bad]
+    cb[:, 3, 5] = torch.tensor(value, dtype=torch.int32, device=card).view(torch.float32)
+    got = ck.pq_encode_fused(x, cb, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.pq_encode_plain(x, cb, precision))
+    assert not bool((got == 3).any())
+    inf = torch.tensor([float("inf")], device=card)
+    neg = torch.tensor([-0x400000], dtype=torch.int32, device=card).view(torch.float32)
+    made = torch.cat([inf - inf, inf * 0.0, neg * 2.0, neg - 1.0, cb[:, 3, 5] - inf,
+                      ck._bf16(neg), ck._bf16(cb[:, 3, 5]), (cb * cb).sum(-1)[:, 3]])
+    nans = made[torch.isnan(made)]
+    assert nans.numel() >= 5
+    assert not bool(torch.signbit(nans).any()), nans.view(torch.int32)
 
 
 # (code type, Q, m, k, n): tables of six queries in shared memory with a

@@ -46,13 +46,22 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
 from vq_tpu_torch.benchmarks import Emitter, timed
 from vq_tpu_torch.errors import InvalidParameter
-from vq_tpu_torch.ops.cuda_kernels import _bf16, _launch, _on_card, int_argmin, pq_encode_fused
+from vq_tpu_torch.ops.cuda_kernels import (  # the near-tie rule of every tensor-core encode
+    EncodeParity,
+    MIN_MATCH,
+    TIE_RTOL,
+    _bf16,
+    _launch,
+    _on_card,
+    int_argmin,
+    pq_encode_fused,
+)
 
 __all__ = [
     "K",
@@ -70,8 +79,6 @@ __all__ = [
 
 K = 256  # columns a subspace: the TPU function fixes k = 256
 PRECISIONS = ("highest", "default")
-TIE_RTOL = 1e-5  # near tie: a float64 score gap within this of max(|score|, 1)
-MIN_MATCH = 0.9999  # "default": least share of codes equal to the plain version's
 _ROW_TILE = 64  # rows of a kernel tile (csrc/mpacked_encode.cu kTile)
 _PLAIN_CELLS = 1 << 25  # [rows, m*k] scores a block of the plain version
 
@@ -191,15 +198,7 @@ def near_ties(x, w, cc, got, want, precision: str = "default"):
     return rows.numel(), float(gap.max()), bool(ties.all())
 
 
-class Parity(NamedTuple):
-    """B1's codes against its plain version's: ``ok`` under the
-    precision's rule, the share equal, the count that differ and their
-    largest float64 score gap."""
-
-    ok: bool
-    match: float
-    flips: int
-    max_gap: float
+Parity = EncodeParity  # B1's codes against its plain version's, as every encode's
 
 
 def kernel_parity(x, w, cc, got, precision: str) -> Parity:

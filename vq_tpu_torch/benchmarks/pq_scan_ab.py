@@ -1,4 +1,5 @@
-"""K3 and K4 of this checkout beside another checkout's, on one card.
+"""K3, K4, K4-bf16 and K4-bf16x3 of this checkout beside another
+checkout's, on one card.
 
     python3 -m vq_tpu_torch.benchmarks.pq_scan_ab --against DIR
 
@@ -9,12 +10,16 @@ sources by its own ``ops/_build.py`` (under ``DIR/build/``), and its wrappers
 another module name and launch into that library; so the two versions run
 in one process on the same operands. On a seeded Gaussian mixture (1M x
 128, codebooks 8x256x16 drawn from it) the script encodes the 1M rows
-with f32 and bf16 input (K4) and runs one PQ Lloyd pass on the first 100k
-and 200k rows (K3), and prints one JSON line a case: whether the outputs
-are equal bit for bit, and the milliseconds a call (CUDA events, 5 calls
-a round) of each version in rounds other, this, this, other. The last
-line is the card's ``nvidia-smi`` name and power limit. Exits 1 if any
-output differs.
+with f32 and bf16 input exactly (K4), at ``"bf16_fast"`` with f32 and
+bf16 input (K4-bf16) and at ``"bf16x3"`` (K4-bf16x3), and runs one PQ
+Lloyd pass on the first 100k and 200k rows (K3), and prints one JSON line
+a case: whether the outputs agree, and the milliseconds a call (CUDA
+events, 5 calls a round) of each version in rounds other, this, this,
+other. K3 and K4 agree bit for bit; the lower-precision encodes by
+``cuda_kernels.encode_parity`` (their tensor-core sums may flip a code at
+a float64 near tie), with the share of codes equal. The last line is the
+card's ``nvidia-smi`` name and power limit. Exits 1 if any case
+disagrees.
 """
 
 from __future__ import annotations
@@ -74,20 +79,24 @@ def make_operands(device):
     return x.contiguous(), cb
 
 
-def compare(this: Callable, other: Callable, reps: int = 5):
-    """``(equal, this ms [2], other ms [2])``: outputs bit for bit, then
-    rounds other, this, this, other."""
+def compare(this: Callable, other: Callable, agree: Callable = None, reps: int = 5):
+    """``(agree, this ms [2], other ms [2])``: the outputs bit for bit (or
+    by ``agree(this's, other's)``), then rounds other, this, this, other."""
     a, b = this(), other()
-    a = a if isinstance(a, tuple) else (a,)
-    b = b if isinstance(b, tuple) else (b,)
-    equal = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+    if agree is not None:
+        ok = agree(a, b)
+    else:
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        ok = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
     o1, t1, t2, o2 = (cuda_ms(f, reps) for f in (other, this, this, other))
-    return equal, [t1, t2], [o1, o2]
+    return ok, [t1, t2], [o1, o2]
 
 
 def main(argv: Sequence[str] = ()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True, type=Path, help="another checkout's root")
+    ap.add_argument("--only", nargs="*", default=(), help="run the cases whose names hold one of these")
     args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         raise SystemExit("pq_scan_ab: needs an NVIDIA GPU")
@@ -101,11 +110,27 @@ def main(argv: Sequence[str] = ()) -> int:
     for n in K3_ROWS:
         cases[f"K3 {n}"] = (lambda n=n: ck.pq_lloyd_accumulate_fused(x[:n], cb),
                             lambda n=n: other.pq_lloyd_accumulate_fused(x[:n], cb))
+    rules = {}
+    for name, xx, p in (("K4-bf16 f32 1M", x, "bf16_fast"), ("K4-bf16 bf16 1M", xb, "bf16_fast"),
+                        ("K4-bf16x3 1M", x, "bf16x3")):
+        cases[name] = (lambda xx=xx, p=p: ck.pq_encode_fused(xx, cb, precision=p),
+                       lambda xx=xx, p=p: other.pq_encode_fused(xx, cb, precision=p))
+        rules[name] = (xx, p)
     ok = True
     for name, (this, oth) in cases.items():
-        equal, t_ms, o_ms = compare(this, oth)
+        if args.only and not any(s in name for s in args.only):
+            continue
+        extra, agree = {}, None
+        if name in rules:
+            xx, p = rules[name]
+
+            def agree(a, b, xx=xx, p=p):
+                par = ck.encode_parity(xx, cb, a, p, want=b)
+                extra.update(match=par.match, flips=par.flips, max_gap=par.max_gap)
+                return par.ok
+        equal, t_ms, o_ms = compare(this, oth, agree)
         ok &= equal
-        print(json.dumps({"case": name, "equal": equal, "this_ms": t_ms, "other_ms": o_ms,
+        print(json.dumps({"case": name, "equal": equal, **extra, "this_ms": t_ms, "other_ms": o_ms,
                           "other": str(args.against)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)

@@ -1,12 +1,13 @@
-// Shared code of the PQ kernels: the int2 argmin rule, the chunk loader
-// of the bf16 encodes, and the PQ scan that K3 and K4 both run.
+// Shared code of the PQ kernels: the int2 argmin rule and the PQ scan
+// that K3 and K4 both run.
 //
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic, and the library is built with -fmad=false as well, so no
 // multiply-add is contracted into an FMA. The score of centroid j is
 //     cc[j] - 2 * dot,   dot = ((0 + x0*c0) + x1*c1) + ... (e ascending)
 // which is exactly what the plain PyTorch versions compute elementwise,
-// so kernel and plain agree bit for bit.
+// so kernel and plain agree bit for bit (but K4-bf16 and K4-bf16x3, whose
+// dots the tensor cores sum in their own order: pq_encode.cu).
 #pragma once
 
 #include <climits>
@@ -16,12 +17,16 @@
 namespace vqk {
 
 constexpr int kThreads = 256;  // rows per tile: one thread per row
-constexpr int kXRegs = 16;     // subspace widths up to this sit in registers
 constexpr int kInfKey = 0x7F800000;  // orderable_key(+inf)
 
 // Monotone f32 -> i32 map (integer order == float order), the TPU
 // kernels' _orderable_key: negative floats flip their low 31 bits, NaN
 // keys above +inf so it never wins a min, and -0.0 shares +0.0's key.
+// A NaN with its sign bit set would key below -inf (the plain versions'
+// orderable_key clears that bit first). None reaches this key: the card's
+// arithmetic returns the positive canonical NaN (0x7FFFFFFF), which
+// tests/test_torch_cuda.py checks, and the encodes fold their scores by
+// float compares that let no NaN in.
 __device__ __forceinline__ int orderable_key(float f) {
   const int b = __float_as_int(f);
   const int key = b < 0 ? (b ^ 0x7FFFFFFF) : b;
@@ -35,17 +40,6 @@ __device__ __forceinline__ float key_to_f32(int key) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Copies centroids [j0, j0 + cnt) of one subspace (and their squared
-// norms) into shared memory.
-__device__ __forceinline__ void load_chunk(const float* __restrict__ cbi,
-                                           const float* __restrict__ cci,
-                                           float* cbs, float* ccs, int j0,
-                                           int cnt, int s) {
-  const float* src = cbi + (size_t)j0 * s;
-  for (int t = threadIdx.x; t < cnt * s; t += blockDim.x) cbs[t] = src[t];
-  for (int t = threadIdx.x; t < cnt; t += blockDim.x) ccs[t] = cci[j0 + t];
 }
 
 // The PQ scan (defined in pq_encode.cu): codes [n, m] i32, the int2 argmin

@@ -4,9 +4,10 @@
 // launch (pq_lloyd.cu), which keeps the minimum score too.
 //
 // Replaces vq_tpu/ops/pallas_kernels.py::_pq_encode_kernel (reached
-// through pq_encode_fused / _pq_encode_fused_jit), and, in the second
-// kernel below, its two lower-precision bodies K4-bf16
-// (_pq_encode_bf16_kernel) and K4-bf16x3 (_pq_encode_bf16x3_kernel).
+// through pq_encode_fused / _pq_encode_fused_jit), and, in the
+// tensor-core kernel at the end of this file, its two lower-precision
+// bodies K4-bf16 (_pq_encode_bf16_kernel) and K4-bf16x3
+// (_pq_encode_bf16x3_kernel).
 //
 // What bounds it on the card: 2*n*m*k*s FP32 instructions, each term a
 // separately rounded multiply and add (no FMA, no tensor cores: TF32 or
@@ -387,142 +388,6 @@ int vqk::pq_scan(const void* x, bool x_is_bf16, const float* cb, const float* cc
                      stages, smem, rows_per_block, st);
 }
 
-// K4-bf16 and K4-bf16x3: the same encode with the dot taken at a lower
-// precision, as the TPU runs it on its matrix unit.
-//
-// * bf16 (kX3 = false): x and the codebook rounded to bf16, products
-//   summed in f32: dot = sum_e bf(x_e) * bf(c_e).
-// * bf16x3 (kX3 = true): each f32 operand split into a bf16 high half
-//   and the bf16 of its remainder, dot = (xh.ch + xh.cl) + xl.ch, each of
-//   the three dots summed from 0 (~2^-16 relative accuracy).
-//
-// cc = ||c||^2 stays f32 from the f32 codebook, as on the TPU. A product
-// of two bf16 values is exact in f32, so summing them on the CUDA cores
-// with __fmul_rn / __fadd_rn in ascending e gives, bit for bit, what the
-// plain PyTorch version computes; the argmin is the int2 rule, where the
-// TPU bodies take jnp.argmin.
-//
-// What bounds them on the card: the same 2*n*m*k*s products as K4 (3x
-// for bf16x3), here on the CUDA cores in f32. On tensor cores the bf16
-// work is 67 GFLOP (201 for bf16x3) at 989 TFLOP/s, 0.07 (0.2) ms, so
-// the 512 MB of f32 x read (0.155 ms) would bound bf16 and the products
-// bf16x3. This first design keeps K4's structure (one thread a row and
-// subspace, the codebook chunk in shared memory, pre-rounded by the
-// wrapper: cbh = bf(c), cbl = bf(c - cbh)) and does the rounding of x in
-// registers; a wgmma design is the next step.
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T, bool kX3>
-__global__ void __launch_bounds__(kThreads)
-    pq_encode_lowp_kernel(const T* __restrict__ x, const float* __restrict__ cbh,
-                          const float* __restrict__ cbl,
-                          const float* __restrict__ cc, int* __restrict__ codes,
-                          long long n, int m, int k, int s, int kc,
-                          long long rows_per_block) {
-  extern __shared__ float smem[];
-  float* hs = smem;
-  float* ls = hs + (size_t)kc * s;
-  float* ccs = ls + (kX3 ? (size_t)kc * s : 0);
-  const int i = blockIdx.y;
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = min(n, r0 + rows_per_block);
-  const float* hi_i = cbh + (size_t)i * k * s;
-  const float* lo_i = cbl + (size_t)i * k * s;
-  const float* cci = cc + (size_t)i * k;
-  const bool resident = kc >= k;
-  const bool in_regs = s <= kXRegs;
-  if (resident) {
-    load_chunk(hi_i, cci, hs, ccs, 0, k, s);
-    if (kX3) load_chunk(lo_i, cci, ls, ccs, 0, k, s);
-    __syncthreads();
-  }
-  const long long d = (long long)m * s;
-  for (long long base = r0; base < r1; base += blockDim.x) {
-    const long long row = base + threadIdx.x;
-    const bool valid = row < r1;
-    const T* xs = x + (valid ? row : 0) * d + (long long)i * s;
-    float xh[kXRegs], xl[kXRegs];
-#pragma unroll
-    for (int e = 0; e < kXRegs; ++e) {
-      const float v = (valid && in_regs && e < s) ? to_f32(xs[e]) : 0.f;
-      xh[e] = bf16_round(v);
-      xl[e] = kX3 ? bf16_round(__fsub_rn(v, xh[e])) : 0.f;
-    }
-    int best_key = INT_MAX, best_idx = 0;
-    for (int j0 = 0; j0 < k; j0 += kc) {
-      const int cnt = min(kc, k - j0);
-      if (!resident) {
-        __syncthreads();
-        load_chunk(hi_i, cci, hs, ccs, j0, cnt, s);
-        if (kX3) load_chunk(lo_i, cci, ls, ccs, j0, cnt, s);
-        __syncthreads();
-      }
-      if (!valid) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const float* ch = hs + (size_t)j * s;
-        const float* cl = ls + (size_t)j * s;
-        float hh = 0.f, hl = 0.f, lh = 0.f;
-        if (in_regs) {
-#pragma unroll
-          for (int e = 0; e < kXRegs; ++e) {
-            if (e < s) {
-              hh = __fadd_rn(hh, __fmul_rn(xh[e], ch[e]));
-              if (kX3) {
-                hl = __fadd_rn(hl, __fmul_rn(xh[e], cl[e]));
-                lh = __fadd_rn(lh, __fmul_rn(xl[e], ch[e]));
-              }
-            }
-          }
-        } else {
-          for (int e = 0; e < s; ++e) {
-            const float v = to_f32(xs[e]);
-            const float vh = bf16_round(v);
-            hh = __fadd_rn(hh, __fmul_rn(vh, ch[e]));
-            if (kX3) {
-              hl = __fadd_rn(hl, __fmul_rn(vh, cl[e]));
-              lh = __fadd_rn(lh, __fmul_rn(bf16_round(__fsub_rn(v, vh)), ch[e]));
-            }
-          }
-        }
-        const float dot = kX3 ? __fadd_rn(__fadd_rn(hh, hl), lh) : hh;
-        const int key = orderable_key(__fsub_rn(ccs[j], __fmul_rn(2.0f, dot)));
-        if (key < best_key) {
-          best_key = key;
-          best_idx = j0 + j;
-        }
-      }
-    }
-    if (valid) codes[row * m + i] = best_idx;
-  }
-}
-
-extern "C" int vq_pq_encode_lowp(const void* x, int x_is_bf16, const float* cbh,
-                                 const float* cbl, const float* cc, int* codes,
-                                 long long n, int m, int k, int s, int kc,
-                                 long long rows_per_block, int bf16x3,
-                                 void* stream) {
-  const unsigned nblk = (unsigned)((n + rows_per_block - 1) / rows_per_block);
-  const dim3 grid(nblk, (unsigned)m);
-  const size_t smem = ((size_t)(bf16x3 ? 2 : 1) * kc * s + kc) * sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16x3) {  // the wrapper upcasts a bf16 x for bf16x3, as the TPU caller does
-    pq_encode_lowp_kernel<float, true><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(x), cbh, cbl, cc, codes, n, m, k, s, kc,
-        rows_per_block);
-  } else if (x_is_bf16) {
-    pq_encode_lowp_kernel<__nv_bfloat16, false><<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), cbh, cbl, cc, codes, n, m, k, s,
-        kc, rows_per_block);
-  } else {
-    pq_encode_lowp_kernel<float, false><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(x), cbh, cbl, cc, codes, n, m, k, s, kc,
-        rows_per_block);
-  }
-  return (int)cudaGetLastError();
-}
-
 extern "C" int vq_pq_encode(const void* x, int x_is_bf16, const float* cb,
                             const float* cc, int* codes, long long n, int m,
                             int k, int s, int resident, int stages, int smem,
@@ -530,4 +395,377 @@ extern "C" int vq_pq_encode(const void* x, int x_is_bf16, const float* cb,
   return pq_scan(x, x_is_bf16 != 0, cb, cc, codes, nullptr, n, m, k, s,
                  resident != 0, stages, smem, rows_per_block,
                  static_cast<cudaStream_t>(stream));
+}
+
+// K4-bf16 and K4-bf16x3 on the tensor cores: the PQ encode with the dot
+// taken at a lower precision. They replace vq_tpu/ops/pallas_kernels.py::
+// _pq_encode_bf16_kernel (:404, called at :475) and
+// _pq_encode_bf16x3_kernel (:420, called at :496), which run the same
+// products on the TPU's matrix unit.
+//
+// * bf16 (kX3 = false): dot = sum_e bf(x_e) bf(c_e), summed in f32.
+// * bf16x3 (kX3 = true): xh = bf(x), xl = bf(x - xh), (ch, cl) the
+//   wrapper's split of the codebook; three dots hh = xh.ch, hl = xh.cl,
+//   lh = xl.ch, each from zero, then dot = (hh + hl) + lh.
+// The score is cc - 2 dot with cc = ||c||^2 in f32 from the f32 codebook,
+// and the code its int2 argmin, as in K4.
+//
+// What bounds them on the card: at 1M x 128 against 8x256x16 the
+// products are 67 GFLOP (201 for bf16x3), 0.07 (0.2) ms at 989 TFLOP/s;
+// reading x is 512 MB, 0.153 ms at 3.35 TB/s. The epilogue is n m k =
+// 2.1e9 scores on the CUDA cores, ~6 instructions each (cc - 2 dot, a
+// share of a pair's fminf and index, the fold's compares and selects; 2
+// more adds for bf16x3), ~0.4 ms at 132 SMs x 4 warp instructions a
+// clock: it, not the products or x, bounds this design.
+//
+// Design (mma.sync m16n8k16, bf16 in, f32 accumulators; no shared memory):
+//  - a warp owns RT tiles of 16 rows of one subspace (RT = 4 for s <= 16,
+//    2 for s <= 32, 1 above; half that for bf16x3, whose three
+//    accumulators a tile need the registers) and walks row groups strided
+//    over the grid; its A fragments (x rounded to bf16 once a group with
+//    __float2bfloat16_rn, as the plain version rounds; bf16 x is used as
+//    it is) stay in registers for all of the subspace's centroids, and
+//    the next group's x is loaded into registers while this one is
+//    scanned (8-byte loads where s is even, zeros past s and n);
+//  - the wrapper lays the bf16 codebook out in fragment order, [m][k / 8]
+//    [s / 16][lane][4] (hi and lo side by side for bf16x3), zero-padded
+//    to whole 8-centroid and 16-e tiles: one 8-byte (16-byte) load a lane
+//    brings an n8 tile's B operand, from L1, for RT (3 RT) mmas, and the
+//    next tile's is loaded while this one is folded; a zero e adds +0;
+//  - s past 64 e runs in chunks of 4 k-steps, x reloaded a chunk;
+//  - the epilogue works on the accumulator fragments, never through
+//    shared memory: a thread holds rows g and g + 8 of each tile and
+//    centroids 2 tq, 2 tq + 1 of each n8 tile; it takes the smaller score
+//    of the pair, then folds it into a running (score, index) a row by
+//    K4's strict less-than from (NaN, 0) (fold), with no branch; a centroid
+//    at or past k has a NaN norm and is never folded; the 4 threads of a
+//    quad then merge by the lexicographic (orderable key, index) minimum
+//    through shuffles: the int2 rule.
+// A tensor core adds a tile's 16 products in its own order, so a code may
+// differ from the plain version's only at a float64 near tie, as on the
+// TPU; where every partial sum is exact (small integers) the codes are
+// bit-identical.
+namespace {
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+// d += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, column-major), f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T>
+struct XPair;  // two neighbouring e of a row, as loaded
+template <>
+struct XPair<float> {
+  using type = float2;
+};
+template <>
+struct XPair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+
+// Elements e and e + 1 of the subspace at p (zeros past s, or where !ok).
+// vec: s is even and p 2-element aligned, so e < s implies e + 1 < s.
+__device__ __forceinline__ float2 load_pair(const float* p, int e, int s, bool ok, bool vec) {
+  if (!ok || e >= s) return make_float2(0.f, 0.f);
+  if (vec) return __ldg(reinterpret_cast<const float2*>(p + e));
+  return make_float2(__ldg(p + e), e + 1 < s ? __ldg(p + e + 1) : 0.f);
+}
+
+__device__ __forceinline__ __nv_bfloat162 load_pair(const __nv_bfloat16* p, int e, int s,
+                                                    bool ok, bool vec) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+  if (!ok || e >= s) return v;
+  if (vec) return *reinterpret_cast<const __nv_bfloat162*>(p + e);
+  v.x = p[e];
+  if (e + 1 < s) v.y = p[e + 1];
+  return v;
+}
+
+// This thread's share of the A operands of RT 16-row tiles at row0 and KS
+// k-steps from e0: v[r][q][j] holds row 16 r + g + 8 (j & 1), e = e0 +
+// 16 q + 8 (j >> 1) + 2 tq and the e after it (the fragment's register j).
+template <typename T, int RT, int KS>
+__device__ __forceinline__ void load_x(typename XPair<T>::type (&v)[RT][KS][4], const T* xi,
+                                       long long ld, long long row0, long long n, int e0, int s,
+                                       bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 16 * r + 8 * h + g;
+      const bool ok = row < n;
+      const T* p = xi + (ok ? row : 0) * ld;
+#pragma unroll
+      for (int q = 0; q < KS; ++q)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          v[r][q][2 * c + h] = load_pair(p, e0 + 16 * q + 8 * c + 2 * tq, s, ok, vec);
+    }
+}
+
+// A fragments from the loaded pairs: ah = bf(x), and for bf16x3 al =
+// bf(x - ah), each rounded to nearest even as the plain version rounds.
+template <bool kX3, int RT, int KS>
+__device__ __forceinline__ void to_frags(const float2 (&v)[RT][KS][4], uint32_t (&ah)[RT][KS][4],
+                                         uint32_t (&al)[RT][KS][4]) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int q = 0; q < KS; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = v[r][q][j];
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);
+        ah[r][q][j] = bits(h);
+        if (kX3) {
+          const float2 hf = __bfloat1622float2(h);
+          al[r][q][j] = bits(__floats2bfloat162_rn(__fsub_rn(f.x, hf.x), __fsub_rn(f.y, hf.y)));
+        }
+      }
+}
+
+template <bool kX3, int RT, int KS>
+__device__ __forceinline__ void to_frags(const __nv_bfloat162 (&v)[RT][KS][4],
+                                         uint32_t (&ah)[RT][KS][4], uint32_t (&)[RT][KS][4]) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int q = 0; q < KS; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ah[r][q][j] = bits(v[r][q][j]);
+}
+
+// The B operand of one n8 tile and k-step, a lane's share: bf16 (uint2),
+// or the high and low halves side by side (uint4).
+template <bool kX3>
+struct BFrag {
+  using type = uint2;
+};
+template <>
+struct BFrag<true> {
+  using type = uint4;
+};
+
+// Loads n8 tile t's B operands (KS k-steps from q0; zeros past ksteps)
+// and its two norms. fb: this lane's first operand of the subspace. A tile
+// past the last (t >= kt) loads the last one's operands again, with NaN
+// norms, so that none of its scores is folded.
+template <bool kX3, int KS>
+__device__ __forceinline__ void load_b(typename BFrag<kX3>::type (&b)[KS], float2& cc2,
+                                       const typename BFrag<kX3>::type* fb, const float* cci,
+                                       int t, int kt, int ksteps, int q0) {
+  const int tc = t < kt ? t : kt - 1;
+  const typename BFrag<kX3>::type* p = fb + (tc * ksteps + q0) * 32;
+#pragma unroll
+  for (int q = 0; q < KS; ++q)
+    b[q] = KS == 1 || q0 + q < ksteps ? __ldg(p + 32 * q) : typename BFrag<kX3>::type{};
+  cc2 = __ldg(reinterpret_cast<const float2*>(cci + 8 * tc + 2 * (threadIdx.x & 3)));
+  if (t != tc) cc2 = make_float2(__int_as_float(INT_MAX), __int_as_float(INT_MAX));
+}
+
+// acc (+)= the dots of the RT row tiles with one n8 tile over KS k-steps:
+// acc[0] = xh.ch, and for bf16x3 acc[1] = xh.cl, acc[2] = xl.ch.
+template <bool kX3, int RT, int KS>
+__device__ __forceinline__ void mma_tile(const uint32_t (&ah)[RT][KS][4],
+                                         const uint32_t (&al)[RT][KS][4],
+                                         const typename BFrag<kX3>::type (&b)[KS],
+                                         float (&acc)[kX3 ? 3 : 1][RT][4]) {
+#pragma unroll
+  for (int q = 0; q < KS; ++q)
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if constexpr (kX3) {
+        mma_bf16(acc[0][r], ah[r][q], b[q].x, b[q].y);
+        mma_bf16(acc[1][r], ah[r][q], b[q].z, b[q].w);
+        mma_bf16(acc[2][r], al[r][q], b[q].x, b[q].y);
+      } else {
+        mma_bf16(acc[0][r], ah[r][q], b[q].x, b[q].y);
+      }
+    }
+}
+
+// Folds the scores cc - 2 dot of one n8 tile (this thread's centroids col
+// and col + 1) into the running (score, index) minima of its rows: the
+// pair's smaller score (fminf passes over a NaN; the lower index on a tie,
+// and where col + 1's score is NaN), then K4's strict less-than from
+// (NaN, 0), which lets no NaN in. A centroid at or past k has a NaN norm,
+// so its score is NaN and never folded. No branch: the tests are and-ed
+// as bits, then selects.
+template <bool kX3, int RT>
+__device__ __forceinline__ void fold_tile(const float (&acc)[kX3 ? 3 : 1][RT][4], float2 cc2,
+                                          int col, float (&best)[RT][2], int (&bi)[RT][2]) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sc[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 2 * h + u;
+        const float dot =
+            kX3 ? __fadd_rn(__fadd_rn(acc[0][r][j], acc[1][r][j]), acc[2][r][j]) : acc[0][r][j];
+        sc[u] = __fsub_rn(u ? cc2.y : cc2.x, __fmul_rn(2.0f, dot));
+      }
+      const float lo = fminf(sc[0], sc[1]);
+      const int at = lo == sc[0] ? col : col + 1;
+      const bool take = !(lo >= best[r][h]) & (lo == lo);
+      best[r][h] = take ? lo : best[r][h];
+      bi[r][h] = take ? at : bi[r][h];
+    }
+}
+
+template <bool kX3, int RT>
+__device__ __forceinline__ void zero(float (&acc)[kX3 ? 3 : 1][RT][4]) {
+#pragma unroll
+  for (int p = 0; p < (kX3 ? 3 : 1); ++p)
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[p][r][j] = 0.f;
+}
+
+// x [n, m*s] (T), frag: the bf16 codebook in fragment order (uint2 a lane
+// and k-step, uint4 with the lo half for bf16x3), ccp [m, 8 ceil(k / 8)]
+// the norms, NaN-padded; block (b, i) scans row groups b*4 + warp, then
+// every gridDim.x * 4 groups on, of subspace i. kOne: s fits KS k-steps,
+// so the A fragments stay in registers; else the KS-step chunks of x are
+// reloaded a tile.
+template <typename T, bool kX3, int RT, int KS, bool kOne>
+__global__ void __launch_bounds__(kMmaThreads, kX3 ? 3 : 4)
+    pq_encode_mma(const T* __restrict__ x, const void* __restrict__ frag,
+                  const float* __restrict__ ccp, int* __restrict__ codes, long long n, int m,
+                  int k, int s, bool vec) {
+  using B = typename BFrag<kX3>::type;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int i = blockIdx.y;
+  const int kt = (k + 7) / 8, ksteps = (s + 15) / 16, chunks = (ksteps + KS - 1) / KS;
+  const long long ld = (long long)m * s;
+  const T* const xi = x + (long long)i * s;
+  const float* const cci = ccp + (size_t)i * 8 * kt;
+  const B* const fb = static_cast<const B*>(frag) + (size_t)i * kt * ksteps * 32 + lane;
+  const long long groups = (n + 16 * RT - 1) / (16 * RT);
+  const long long stride = (long long)gridDim.x * kMmaWarps;
+  long long grp = (long long)blockIdx.x * kMmaWarps + (threadIdx.x >> 5);
+  typename XPair<T>::type raw[RT][KS][4];
+  if (kOne && grp < groups) load_x<T, RT, KS>(raw, xi, ld, grp * 16 * RT, n, 0, s, vec);
+  for (; grp < groups; grp += stride) {  // uniform across the warp
+    const long long row0 = grp * 16 * RT;
+    uint32_t ah[RT][KS][4], al[RT][KS][4];
+    float best[RT][2];
+    int bi[RT][2];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        best[r][h] = __int_as_float(INT_MAX);  // the canonical NaN: no score yet
+        bi[r][h] = 0;
+      }
+    if constexpr (kOne) {
+      to_frags<kX3, RT, KS>(raw, ah, al);
+      if (grp + stride < groups)  // the next group's x lands while this one is scanned
+        load_x<T, RT, KS>(raw, xi, ld, (grp + stride) * 16 * RT, n, 0, s, vec);
+      B b[KS];
+      float2 c;
+      load_b<kX3, KS>(b, c, fb, cci, 0, kt, ksteps, 0);
+      for (int t8 = 0; t8 < kt; ++t8) {
+        float acc[kX3 ? 3 : 1][RT][4];
+        zero<kX3, RT>(acc);
+        mma_tile<kX3, RT, KS>(ah, al, b, acc);
+        const float2 cc = c;
+        load_b<kX3, KS>(b, c, fb, cci, t8 + 1, kt, ksteps, 0);  // lands while this tile is folded
+        fold_tile<kX3, RT>(acc, cc, 8 * t8 + 2 * tq, best, bi);
+      }
+    } else {
+      for (int t8 = 0; t8 < kt; ++t8) {
+        float acc[kX3 ? 3 : 1][RT][4];
+        zero<kX3, RT>(acc);
+        float2 cc2;
+        for (int c = 0; c < chunks; ++c) {
+          load_x<T, RT, KS>(raw, xi, ld, row0, n, 16 * KS * c, s, vec);
+          to_frags<kX3, RT, KS>(raw, ah, al);
+          B b[KS];
+          load_b<kX3, KS>(b, cc2, fb, cci, t8, kt, ksteps, KS * c);
+          mma_tile<kX3, RT, KS>(ah, al, b, acc);
+        }
+        fold_tile<kX3, RT>(acc, cc2, 8 * t8 + 2 * tq, best, bi);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int key = orderable_key(best[r][h]), idx = bi[r][h];
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const int ok = __shfl_xor_sync(0xffffffffu, key, off);
+          const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
+          if (ok < key || (ok == key && oi < idx)) {
+            key = ok;
+            idx = oi;
+          }
+        }
+        const long long row = row0 + 16 * r + 8 * h + g;
+        if (tq == 0 && row < n) codes[row * m + i] = idx;
+      }
+  }
+}
+
+template <typename T, bool kX3, int RT, int KS, bool kOne>
+int launch_mma(const T* x, const void* frag, const float* ccp, int* codes, long long n, int m,
+               int k, int s, int max_blocks, cudaStream_t st) {
+  const long long groups = (n + 16 * RT - 1) / (16 * RT);
+  const long long want = (groups + kMmaWarps - 1) / kMmaWarps;
+  const long long blocks = want < max_blocks ? want : max_blocks;
+  const bool vec = s % 2 == 0 && (uintptr_t)x % (2 * sizeof(T)) == 0;
+  pq_encode_mma<T, kX3, RT, KS, kOne>
+      <<<dim3((unsigned)blocks, (unsigned)m), kMmaThreads, 0, st>>>(x, frag, ccp, codes, n, m, k,
+                                                                    s, vec);
+  return (int)cudaGetLastError();
+}
+
+// Row tiles a warp by s: bf16 holds RT = 4 tiles of one k-step, bf16x3
+// (three accumulators a tile) 2; wider subspaces hold fewer tiles of
+// more k-steps, and past 64 e the x chunks are reloaded a tile.
+template <typename T, bool kX3>
+int launch_lowp(const T* x, const void* frag, const float* ccp, int* codes, long long n, int m,
+                int k, int s, int max_blocks, cudaStream_t st) {
+  constexpr int kRT = kX3 ? 2 : 4;
+  if (s <= 16)
+    return launch_mma<T, kX3, kRT, 1, true>(x, frag, ccp, codes, n, m, k, s, max_blocks, st);
+  if (s <= 32)
+    return launch_mma<T, kX3, kRT / 2, 2, true>(x, frag, ccp, codes, n, m, k, s, max_blocks, st);
+  if (s <= 64)
+    return launch_mma<T, kX3, 1, 4, true>(x, frag, ccp, codes, n, m, k, s, max_blocks, st);
+  return launch_mma<T, kX3, 1, 4, false>(x, frag, ccp, codes, n, m, k, s, max_blocks, st);
+}
+
+}  // namespace
+
+// x [n, m*s] (f32, or bf16 for bf16 alone: the wrapper upcasts a bf16 x
+// for bf16x3, as the TPU caller does); frag and ccp as pq_encode_mma
+// takes them; max_blocks: blocks a subspace, at most.
+extern "C" int vq_pq_encode_lowp(const void* x, int x_is_bf16, const void* frag, const float* ccp,
+                                 int* codes, long long n, int m, int k, int s, int max_blocks,
+                                 int bf16x3, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16x3)
+    return launch_lowp<float, true>(static_cast<const float*>(x), frag, ccp, codes, n, m, k, s,
+                                    max_blocks, st);
+  if (x_is_bf16)
+    return launch_lowp<__nv_bfloat16, false>(static_cast<const __nv_bfloat16*>(x), frag, ccp,
+                                             codes, n, m, k, s, max_blocks, st);
+  return launch_lowp<float, false>(static_cast<const float*>(x), frag, ccp, codes, n, m, k, s,
+                                   max_blocks, st);
 }

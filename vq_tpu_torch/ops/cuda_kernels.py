@@ -59,6 +59,12 @@ __all__ = [
     "pq_scan_plan",
     "ScanPlan",
     "ENCODE_PRECISIONS",
+    "EncodeParity",
+    "MIN_MATCH",
+    "TIE_RTOL",
+    "encode_near_ties",
+    "encode_parity",
+    "mma_fragments",
     "adc_lookup_fused",
     "adc_lookup_plain",
     "pq_lloyd_accumulate_fused",
@@ -75,13 +81,14 @@ __all__ = [
 _INT_MAX = 0x7FFFFFFF
 _INF_KEY = 0x7F800000  # orderable_key(+inf)
 TOP_LANES = 128  # candidate lanes per tile, as on the TPU
-_THREADS = 256  # rows per tile of K3's sums walk and K4-bf16 (csrc/common.cuh kThreads)
+_THREADS = 256  # rows per tile of K3's sums walk (csrc/common.cuh kThreads)
 _SMEM_BYTES = 48 * 1024  # shared memory a block uses without opting in
 SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (227 KB)
 _SCAN_ROWS = 128  # rows of a PQ scan tile, and centroids a pass (csrc/pq_encode.cu kBM, kBN)
 _SCAN_SLICE = 64  # dimensions of a streamed PQ scan slice (kBK)
 _SCAN_BLOCKS = 2 * 132  # resident PQ scan blocks: two waves of one a SM
 _TARGET_BLOCKS = 132 * 8  # SMs x resident 256-thread blocks
+_LOWP_BLOCKS = 132 * 4  # K4-bf16 / K4-bf16x3 blocks of 4 warps in all, at most
 _PARTIAL_BYTES = 256 << 20  # K3's per-block partial sums, at most
 _ADC_MODES = {"sum": 0, "l2": 1, "dot": 2}
 _PLAIN_ROWS = 16_384  # row block of the plain K3/K4 ([B, m, k] scores)
@@ -95,6 +102,12 @@ _MATVEC_ROWS = 256  # row positions per K6 tile (csrc/ivf_matvec.cu kRows)
 _PLAIN_CELLS_K6 = 1 << 28  # gathered f32 values per block of the plain K6
 _PAYLOAD_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 ENCODE_PRECISIONS = ("highest", "bf16_fast", "bf16x3")  # K4, K4-bf16, K4-bf16x3
+# The near-tie rule of the tensor-core encodes (K4-bf16, K4-bf16x3, B1
+# "default"): a code may differ from the plain version's only where the
+# two candidates' float64 scores differ by at most TIE_RTOL of
+# max(|score|, 1), and at least MIN_MATCH of the codes are equal.
+TIE_RTOL = 1e-5
+MIN_MATCH = 0.9999
 _LOOKUP_THREADS = 256  # rows per K8 tile (csrc/adc_lookup.cu kLookupThreads)
 
 
@@ -104,9 +117,16 @@ _LOOKUP_THREADS = 256  # rows per K8 tile (csrc/adc_lookup.cu kLookupThreads)
 
 
 def orderable_key(scores: torch.Tensor) -> torch.Tensor:
-    """Monotone f32 -> i32 map: integer order equals float order, NaN
-    keys above +inf, and -0.0 shares +0.0's key."""
+    """Monotone f32 -> i32 map: integer order equals float order, every
+    NaN keys above +inf whatever its sign, and -0.0 shares +0.0's key.
+
+    A NaN with its sign bit set (the CPU's default NaN of ``inf - inf``,
+    and torch's CPU cast of any NaN to bf16) keys as the same NaN with
+    the sign bit clear, so :func:`key_to_f32` gives back a positive NaN.
+    The reference's ``_orderable_key`` keys it below -inf, so there such
+    a NaN wins (``ROADMAP.md``, R7)."""
     b = scores.contiguous().view(torch.int32)
+    b = torch.where(torch.isnan(scores.contiguous()), b & _INT_MAX, b)
     key = torch.where(b < 0, b ^ _INT_MAX, b)
     return torch.where(key == -1, torch.zeros_like(key), key)
 
@@ -157,18 +177,6 @@ def _launch(fn, *args) -> None:
     err = getattr(LIBRARY.get(), fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
-
-
-def _centroid_chunk(k: int, s: int, copies: int = 1) -> int:
-    """Centroids of one subspace the bf16 encodes stage in shared memory at
-    a time (``copies`` values a coordinate, plus the squared norm)."""
-    kc = _SMEM_BYTES // ((copies * s + 1) * 4)
-    if kc < 1:
-        raise InvalidParameter(
-            "codebooks", f"sub_dim {s} leaves no room for one centroid in "
-            "shared memory"
-        )
-    return min(k, kc)
 
 
 def _rows_per_block(n: int, m: int, cap_blocks: Optional[int] = None) -> int:
@@ -509,6 +517,91 @@ def pq_encode_plain(x: torch.Tensor, codebooks: torch.Tensor,
     return out
 
 
+class EncodeParity(NamedTuple):
+    """An encode's codes against the plain version's: ``ok`` under the
+    precision's rule, the share equal, the count that differ and their
+    largest float64 score gap."""
+
+    ok: bool
+    match: float
+    flips: int
+    max_gap: float
+
+
+def _scores64(xs: torch.Tensor, cs: torch.Tensor, precision: str) -> torch.Tensor:
+    """Float64 scores ``||c||^2 - 2 dot`` of rows ``xs [F, s]`` against
+    centroids ``cs [F, s]`` (both f32), ``dot`` on the operands that
+    ``precision`` rounds (``||c||^2`` from the f32 centroid)."""
+    cd = cs.double()
+    if precision == "highest":
+        parts = [(xs, cs)]
+    elif precision == "bf16_fast":
+        parts = [(_bf16(xs), _bf16(cs))]
+    else:
+        xh, ch = _bf16(xs), _bf16(cs)
+        parts = [(xh, ch), (xh, _bf16(cs - ch)), (_bf16(xs - xh), ch)]
+    dot = sum((a.double() * b.double()).sum(-1) for a, b in parts)
+    return (cd * cd).sum(-1) - 2.0 * dot
+
+
+def encode_near_ties(x: torch.Tensor, codebooks: torch.Tensor, got: torch.Tensor,
+                     want: torch.Tensor, precision: str) -> Tuple[int, float, bool]:
+    """``(flips, max_gap, all_ties)`` of two code arrays ``[n, m]`` of
+    ``x [n, m*s]`` against ``codebooks [m, k, s]``: the (row, subspace)
+    pairs where they differ, the largest float64 gap between their two
+    candidates' scores (:func:`_scores64` at ``precision``), and whether
+    every gap is a near tie, at most ``TIE_RTOL`` of ``max(|score|, 1)``
+    (the score of ``want``'s candidate)."""
+    _check_precision(precision)
+    m, k, s = _check_pq_operands(x, codebooks)
+    rows, subs = torch.nonzero(got != want, as_tuple=True)
+    if rows.numel() == 0:
+        return 0, 0.0, True
+    cb = codebooks.to(torch.float32)
+    xs = x[rows].to(torch.float32).reshape(-1, m, s)[torch.arange(rows.numel()), subs]
+    sg = _scores64(xs, cb[subs, got[rows, subs].long()], precision)
+    sw = _scores64(xs, cb[subs, want[rows, subs].long()], precision)
+    gap = (sg - sw).abs()
+    ties = gap <= TIE_RTOL * sw.abs().clamp_min(1.0)
+    return rows.numel(), float(gap.max()), bool(ties.all())
+
+
+def encode_parity(x: torch.Tensor, codebooks: torch.Tensor, got: torch.Tensor,
+                  precision: str, want: Optional[torch.Tensor] = None) -> EncodeParity:
+    """The codes ``got`` of ``x`` at ``precision`` against ``want`` (by
+    default :func:`pq_encode_plain`'s) under the precision's rule: equal
+    for ``"highest"`` (K4 repeats the plain arithmetic); for
+    ``"bf16_fast"`` and ``"bf16x3"`` (the tensor cores sum a tile's
+    products in their own order) at least ``MIN_MATCH`` equal and every
+    difference a float64 near tie (:func:`encode_near_ties`)."""
+    if want is None:
+        want = pq_encode_plain(x, codebooks, precision)
+    match = float((got == want).float().mean()) if got.numel() else 1.0
+    flips, gap, ties = encode_near_ties(x, codebooks, got, want, precision)
+    ok = flips == 0 if precision == "highest" else match >= MIN_MATCH and ties
+    return EncodeParity(ok, match, flips, gap)
+
+
+def mma_fragments(codebooks: torch.Tensor, precision: str) -> torch.Tensor:
+    """The bf16 codebook as K4-bf16 / K4-bf16x3 read it: ``[m, ceil(k / 8),
+    ceil(s / 16), 32, 4 P]`` bf16, zero-padded to whole tiles of 8
+    centroids and 16 e, each lane's B operand of an ``mma.sync`` m16n8k16
+    in turn: lane ``4 g + t`` of n8 tile ``j`` and k-step ``q`` holds
+    centroid ``8 j + g`` at e = ``16 q + 8 h + 2 t + u`` in slot ``2 h +
+    u``. ``"bf16_fast"``: P = 1, ``bf(c)``; ``"bf16x3"``: P = 2, the
+    high half ``bf(c)`` in slots 0-3 and ``bf(c - bf(c))`` in 4-7."""
+    m, k, s = codebooks.shape
+    kt, ks = -(-k // 8), -(-s // 16)
+    cb = codebooks.to(torch.float32)
+    halves = _split_codebooks(cb) if precision == "bf16x3" else (_bf16(cb),)
+    out = []
+    for half in halves:
+        pad = torch.nn.functional.pad(half, (0, 16 * ks - s, 0, 8 * kt - k)).to(torch.bfloat16)
+        frag = pad.view(m, kt, 8, ks, 2, 4, 2).permute(0, 1, 3, 2, 5, 4, 6)
+        out.append(frag.reshape(m, kt, ks, 32, 4))
+    return torch.cat(out, -1).contiguous()
+
+
 def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor,
                     precision: str = "highest") -> torch.Tensor:
     """PQ encode: ``x [n, m*s]`` (f32 or bf16; f16 is upcast) against
@@ -516,7 +609,13 @@ def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor,
     ``precision``: ``"highest"`` (K4, exact f32), ``"bf16_fast"``
     (K4-bf16: one bf16 pass, a bf16 ``x`` stays bf16) or ``"bf16x3"``
     (K4-bf16x3: three bf16 passes, ``x`` upcast to f32), as
-    ``pallas_kernels.pq_encode_fused`` takes them."""
+    ``pallas_kernels.pq_encode_fused`` takes them.
+
+    On the card K4 is bit-identical to :func:`pq_encode_plain`; K4-bf16
+    and K4-bf16x3 take their products on the tensor cores, which sum a
+    tile's 16 products in their own order, so their codes are held to it
+    by :func:`encode_parity` (float64 near ties, as on the TPU's matrix
+    unit)."""
     _check_precision(precision)
     if x.dtype not in (torch.float32, torch.bfloat16) or precision == "bf16x3":
         x = x.to(torch.float32)
@@ -539,13 +638,13 @@ def pq_encode_fused(x: torch.Tensor, codebooks: torch.Tensor,
             plan.rows_per_block,
         )
     else:
-        x3 = precision == "bf16x3"
-        cbh, cbl = _split_codebooks(cb) if x3 else (_bf16(cb), cb)
-        cbh, cbl = cbh.contiguous(), cbl.contiguous()
+        frag = mma_fragments(cb, precision)
+        # a padded centroid's norm is NaN: its score never wins
+        ccp = torch.nn.functional.pad(cc, (0, 8 * frag.shape[1] - k), value=float("nan"))
         _launch(
-            "vq_pq_encode_lowp", x.data_ptr(), bf16, cbh.data_ptr(), cbl.data_ptr(),
-            cc.data_ptr(), codes.data_ptr(), n, m, k, s,
-            _centroid_chunk(k, s, copies=2 if x3 else 1), _rows_per_block(n, m), int(x3),
+            "vq_pq_encode_lowp", x.data_ptr(), bf16, frag.data_ptr(), ccp.data_ptr(),
+            codes.data_ptr(), n, m, k, s, max(1, -(-_LOWP_BLOCKS // m)),
+            int(precision == "bf16x3"),
         )
     pq_encode_fused.launches += 1
     pq_encode_fused.launches_by[precision] += 1
