@@ -37,7 +37,8 @@ Phases, one line each (any failure exits non-zero with no result line):
    and K6 read from that run, every search held to the plain route on
    the same card, recall@10 against the exact ground truth; then K6 held
    to its plain version on the operands each search gave it (f32, bf16
-   and u8 payloads at nprobe 8 and 64);
+   and u8 payloads at nprobe 8 and 64), and its work list (which
+   (pair, chain slot) entries read each chunk) to the plain version's;
 8. lowp kernels — K4-bf16 and K4-bf16x3 (tensor cores) held to their
    plain versions at 1M x 128 against 8x256x16 with f32 and bf16 input by
    the near-tie rule (``cuda_kernels.encode_parity``: >= 0.9999 of the
@@ -66,7 +67,11 @@ Phases, one line each (any failure exits non-zero with no result line):
    limit, with K1's floor under its exact contract and a cuBLAS fp32
    product of its shape beside it; K3 at 100k and 200k rows and K4 at 1M
    with their floors under the same contract; K5 at fetch 1 to 128 and on
-   tie-heavy codes, with its shared-memory lookup floor; K2 at both
+   tie-heavy codes, with its shared-memory lookup floor; K6 on each
+   search's operands, with a ``[bound]`` line (the rows of the chunks its
+   probe table names, read once, plus the output) and a
+   ``torch.profiler`` line of its launches (memset, entry pass, scan,
+   cursor, scatter, matvec); K2 at both
    shapes, with a
    ``torch.profiler`` line a shape of the device time of each of its
    stages, and its sums stage beside ``index_add_`` (one PyTorch call
@@ -74,8 +79,9 @@ Phases, one line each (any failure exits non-zero with no result line):
    bound; K3 at 100k and 200k rows with a ``torch.profiler`` line of the
    device time of each of its launches (scan, sums walk, reduce); then a
    ``torch.profiler`` line a call of the PQ and IVF-PQ trainers,
-   ``PQIndex.add``, the IVF adds, ``PQIndex.search``, and the precision
-   and RQ paths (wall, device time, busy share, top kernels);
+   ``PQIndex.add``, the IVF adds, ``PQIndex.search``, the IVF-Flat and
+   IVF-SQ searches, and the precision and RQ paths (wall, device time,
+   busy share, top kernels);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
@@ -159,6 +165,10 @@ K2_STAGES = (("assign", "assign_kernel"), ("memset", "Memset"), ("histogram", "c
 # K3's launches (csrc/pq_lloyd.cu), as the profiler names them.
 K3_STAGES = (("scan", "pq_scan_"), ("sums walk", "pq_lloyd_partial_kernel"),
              ("reduce", "pq_lloyd_reduce_kernel"))
+# K6's launches (csrc/ivf_matvec.cu): the work-list pass and the matvec.
+K6_STAGES = (("memset", "Memset"), ("entry pass", "entry_pass_kernel"), ("scan", "bin_scan_kernel"),
+             ("cursor", "bin_cursor_kernel"), ("scatter", "entry_scatter_kernel"),
+             ("matvec", "chunk_matvec_kernel"))
 # Every kernel wrapper the paths call, and the modules that call it.
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
@@ -901,14 +911,39 @@ def phase_flat_path(corpus, queries, gt):
                 t_train=t_train, t_train_sq=t_train_sq, t_add=t_add, searches=searches)
 
 
+def k6_bound(args, kw):
+    """``(ms, by, note, instructions)``: K6's bound on one call's
+    operands. Bytes: the rows of each chunk the probe table names (once,
+    however many pairs probe it), the output, the left vectors and the
+    table; operations: a multiply and an add a live (pair, row,
+    dimension), over the fp32 peak. The last is that count of FP32
+    instructions, K6's floor under its no-FMA contract."""
+    import torch
+
+    lhs, chains, payload = args
+    (n_chunks, ch, d), cap = payload.shape, kw["cap"]
+    width = chains.shape[1] * ch
+    valid = chains[(chains >= 0) & (chains < n_chunks)]
+    chunks = torch.unique(valid).numel()
+    pos = torch.arange(width, device=chains.device)
+    live = int((((chains >= 0) & (chains < n_chunks)).repeat_interleave(ch, dim=1) & (pos < cap)).sum())
+    rows = chunks * ch * d * payload.element_size()
+    out = lhs.shape[0] * width * 4
+    ms, by = bound(rows + out + lhs.numel() * 4 + chains.numel() * 4, 2.0 * live * d, PEAK_F32)
+    return ms, by, (f"{chunks} chunks x {ch} rows x {d} x {payload.element_size()} B "
+                    f"= {rows / 1e6:.1f} MB read once, {out / 1e6:.1f} MB written, {live} live "
+                    f"positions"), 2.0 * live * d
+
+
 def phase_k6(flat):
-    """K6 held to its plain version on the operands the searches gave it."""
+    """K6 held to its plain version on the operands each of the seven
+    searches gave it, with its work list held to the plain version's."""
     import torch
 
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     cases, err = {}, 0.0
-    for key in [k for k in flat["searches"] if k[0] in FLAT_KINDS]:
+    for key in flat["searches"]:
         args, kw = flat["operands"][key]
         got = ck.ivf_probe_matvec_fused(*args, **kw)
         torch.cuda.synchronize()
@@ -916,27 +951,49 @@ def phase_k6(flat):
         err = max(err, float((got - want).abs().max()))
         assert torch.equal(got, want), f"K6 {key}: values differ from the plain version"
         lhs, chains, payload = args
-        ch = payload.shape[1]
-        pos = torch.arange(chains.shape[1] * ch, device=chains.device)
-        read = int(((chains >= 0).repeat_interleave(ch, dim=1) & (pos < kw["cap"])).sum())
-        gb = read * lhs.shape[1] * payload.element_size() / 1e9  # bytes of the rows K6 reads
-        cases[key] = (args, kw, gb)
-        log("kernels", f"K6 ivf_probe_matvec {str(payload.dtype)[6:]} nprobe={key[1]}: "
-            f"{lhs.shape[0]} (query, list) pairs x {chains.shape[1]} chunks of {ch} rows x "
-            f"d {lhs.shape[1]} (cap {kw['cap']}), {read} rows read ({gb:.4g} GB): bit-identical")
+        plan = ck.ivf_matvec_work_list(chains, payload.shape[0], payload.shape[1], kw["cap"])
+        plain = ck.ivf_matvec_work_list_plain(chains, payload.shape[0], payload.shape[1], kw["cap"])
+        assert all(torch.equal(a, b) for a, b in zip(plan, plain)), f"K6 {key}: work list differs"
+        cases[key] = (args, kw, k6_bound(args, kw))
+        per = (plan[0][1:] - plan[0][:-1]).long()
+        per = per[per > 0]
+        log("kernels", f"K6 ivf_probe_matvec {str(payload.dtype)[6:]} ({key[0]}) nprobe={key[1]}: "
+            f"{lhs.shape[0]} (query, list) pairs x {chains.shape[1]} chunks of {payload.shape[1]} "
+            f"rows x d {lhs.shape[1]} (cap {kw['cap']}), {plan[1].numel()} live (pair, chunk) "
+            f"entries over {per.numel()} chunks (median {int(per.median())}, most "
+            f"{int(per.max())} a chunk; {int(((per + 31) // 32).sum())} tasks of <= 32); "
+            f"{cases[key][2][2]}: bit-identical, work list as the plain version's")
     return cases, err
 
 
 def phase_flat_timings(smi, queries, flat, k6_cases):
     from vq_tpu_torch.ops import cuda_kernels as ck
 
-    t = {}
-    for (name, p), (args, kw, gb) in k6_cases.items():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t, reps = {}, 5
+    cuda = torch.autograd.DeviceType.CUDA
+    sms, mhz = sm_rate()
+    for (name, p), (args, kw, (b_ms, b_by, note, instr)) in k6_cases.items():
+        tag = f"K6 {str(args[2].dtype)[6:]} ({name}) nprobe={p}"
         ms = cuda_ms(lambda: ck.ivf_probe_matvec_fused(*args, **kw), 20)
         pms = cuda_ms(lambda: ck.ivf_probe_matvec_plain(*args, **kw), 2)
-        t[f"K6_{str(args[2].dtype)[6:]}_nprobe{p}"] = (ms, pms)
-        log("time", f"K6 {str(args[2].dtype)[6:]} ({name}) nprobe={p}: kernel {ms:.4f} ms "
-            f"({gb / ms * 1e3:.4g} GB/s of rows read), plain {pms:.4f} ms | {smi}")
+        t[f"K6_{name}_nprobe{p}"] = (ms, pms)
+        log("time", f"{tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms | {smi}")
+        floor = instr / (sms * 128 * mhz * 1e6) * 1e3
+        log("bound", f"{tag}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({b_by}: {note}), "
+            f"{b_ms / ms:.3f} of it; floor under its no-FMA contract {instr:.4g} FP32 instructions "
+            f"over {sms} SMs x 128 lanes x {mhz:.0f} MHz = {floor:.4f} ms, {floor / ms:.3f} of it "
+            f"| {smi}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                ck.ivf_probe_matvec_fused(*args, **kw)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        stages = stage_times(evts, K6_STAGES, reps)
+        log("profile", f"{tag}, device ms a call by launch: " + ", ".join(
+            f"{s} {v:.4f}" for s, (v, c) in stages.items()) + f" | {smi}")
     log("time", f"IVF-Flat train 200k x 128, IVF{NLIST}, 10 iterations: {flat['t_train'] / 1e3:.4f} s; "
         f"IVF-SQ train {flat['t_train_sq'] / 1e3:.4f} s (first calls) | {smi}")
     for name, ms in flat["t_add"].items():
@@ -1261,8 +1318,9 @@ def phase_new_timings(smi, corpus, queries, res, prec, rqres):
 
 
 def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
-    """Each call of the precision, PQ search and RQ paths, and the IVF
-    trainers and adds that K1 dominates, once warm,
+    """Each call of the precision, PQ search and RQ paths, the IVF
+    trainers and adds that K1 dominates, and the IVF-Flat / IVF-SQ
+    searches, once warm,
     then once under ``torch.profiler``: wall time (host clock to a
     synchronize), device time (the device activities' own time summed),
     busy share (device over wall, the profiler's host cost included) and
@@ -1299,6 +1357,9 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     }
     for name, (idx, kw) in rqres["searches"].items():
         calls[f"{name} search"] = lambda idx=idx, kw=kw: idx.search(queries, **kw)
+    for name, p in flat["searches"]:
+        idx = flat["indexes"][name]
+        calls[f"{name} search nprobe={p}"] = lambda idx=idx, p=p: idx.search(queries, k=10, nprobe=p)
     cuda = torch.autograd.DeviceType.CUDA
     for name, fn in calls.items():
         fn()
@@ -1525,12 +1586,7 @@ def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec):
     chunks = torch.unique(chains[chains >= 0]).numel()
     out["K7"] = bound(chunks * ch * m + pairs * m * kk * 4 + pairs * pos.numel() * 4
                       + chains.numel() * 4, 1.0 * live * m, PEAK_F32)
-    (lhs, chains6, payload), kw, gb = k6_cases[("flat_f32", NPROBES[0])]
-    d6, ch6 = payload.shape[2], payload.shape[1]
-    rows6 = gb * 1e9 / (d6 * 4)
-    chunks6 = torch.unique(chains6[chains6 >= 0]).numel()
-    out["K6"] = bound(chunks6 * ch6 * d6 * 4 + lhs.numel() * 4 + lhs.shape[0] * chains6.shape[1] * ch6 * 4
-                      + chains6.numel() * 4, 2.0 * rows6 * d6, PEAK_F32)
+    out["K6"] = k6_cases[("flat_f32", NPROBES[0])][2][:2]
     tables8, codes8 = prec["k8_args"]
     q8, m8, k8 = tables8.shape
     n8 = codes8.shape[0]
@@ -1611,7 +1667,9 @@ def main() -> None:
         row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", launches["ivf_probe_adc_fused"], 0.0,
             "K7", t["K7_nprobe8"], {"also_replaces": tpu + "1147"}),
         row("ivf_probe_matvec_fused", "ivf_matvec.cu", "1356", launches["ivf_probe_matvec_fused"],
-            k6_err, "K6", t["K6_float32_nprobe8"]),
+            k6_err, "K6", t["K6_flat_f32_nprobe8"], {
+                "ms_by_case": {f"{n} nprobe={p}": t[f"K6_{n}_nprobe{p}"][0] for n, p in k6_cases},
+                "bound_ms_by_case": {f"{n} nprobe={p}": c[2][0] for (n, p), c in k6_cases.items()}}),
         row("pq_encode_fused[bf16_fast]", "pq_encode.cu", "404", pl["pq_encode_fused[bf16_fast]"],
             lowp_gap["bf16_fast"], "K4_bf16", t_new["K4_bf16"],
             {"bf16_x_ms": t_new["K4_bf16_bf16in"][0]}),

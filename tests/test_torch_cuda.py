@@ -564,6 +564,104 @@ def test_ivf_matvec_edges(card):
     assert not bool(got[:, :64].any())
 
 
+# The chunk-major K6 on the shapes its work list makes new: (pairs, chain
+# length, rows a chunk, chunks in the pool, cap or None, how the chains
+# are drawn).
+_MATVEC_PLANS = {
+    "one_chunk_many_pairs": (300, 1, 256, 6, None, "hot"),
+    "one_chunk_one_pair": (5, 3, 40, 20, None, "single"),
+    "long_chain_among_short": (40, 12, 64, 60, None, "skew"),
+    "repeats_and_stray_ids": (30, 6, 37, 10, None, "stray"),
+    "cap_mid_chunk": (25, 4, 256, 12, 2 * 256 + 37, "random"),
+    "cap_zero": (25, 4, 64, 12, 0, "random"),
+    "one_pair": (1, 5, 256, 8, None, "random"),
+    "probe_1d": (50, 0, 256, 8, None, "random"),
+}
+
+
+def _plan_chains(card, how, pairs, nc, n_chunks, g):
+    """Chunk chains ``[pairs, nc]`` (a ``[pairs]`` probe when nc is 0)."""
+    if nc == 0:
+        return torch.randint(0, n_chunks, (pairs,), generator=g, device=card, dtype=torch.int32)
+    chains = torch.randint(0, n_chunks, (pairs, nc), generator=g, device=card, dtype=torch.int32)
+    if how == "hot":  # every pair probes chunk 2; one pair also probes chunk 4
+        chains[:] = 2
+        chains[7, 0] = 4
+    elif how == "single":  # chunk 11 is probed by one pair, once
+        chains[chains == 11] = 12
+        chains[3, 1] = 11
+    elif how == "skew":  # one pair walks 12 chunks, the rest one or two
+        chains[1:, 2:] = -1
+        chains[1:20, 1] = -1
+    elif how == "stray":  # a chunk twice in one chain, -1, and ids past the pool
+        chains[0, :3] = torch.tensor([4, 4, 4], dtype=torch.int32)
+        chains[1::3, 2] = -1
+        chains[2::4, 4] = n_chunks + 3
+        chains[5, 5] = 2 ** 30
+    return chains
+
+
+def _plan_case(card, case, dtype, d):
+    pairs, nc, ch, n_chunks, cap, how = _MATVEC_PLANS[case]
+    g = torch.Generator(device=card).manual_seed(17)
+    q = torch.randn(pairs, d, generator=g, device=card)
+    if dtype == torch.uint8:
+        pool = torch.randint(0, 256, (n_chunks, ch, d), generator=g, device=card).to(dtype)
+    else:
+        pool = torch.randn(n_chunks, ch, d, generator=g, device=card).to(dtype)
+    return q, _plan_chains(card, how, pairs, nc, n_chunks, g), pool, cap
+
+
+@pytest.mark.parametrize("d", [1, 7, 128, 200, 960])
+@pytest.mark.parametrize("dtype", _PAYLOADS, ids=lambda t: str(t)[6:])
+def test_ivf_matvec_chunk_major_matches_plain(card, dtype, d):
+    """Every case of the work list, at every payload type and a d of one,
+    one past the 16-byte reads, the serving width, a width that u8 cannot
+    read 16 bytes at a time and GIST's."""
+    for case in _MATVEC_PLANS:
+        q, chains, pool, cap = _plan_case(card, case, dtype, d)
+        before = ck.ivf_probe_matvec_fused.launches
+        got = ck.ivf_probe_matvec_fused(q, chains, pool, cap=cap)
+        torch.cuda.synchronize()
+        assert ck.ivf_probe_matvec_fused.launches == before + 1
+        assert torch.equal(got, ck.ivf_probe_matvec_plain(q, chains, pool, cap=cap)), case
+
+
+@pytest.mark.parametrize("case", sorted(_MATVEC_PLANS))
+def test_ivf_matvec_work_list_matches_plain(card, case):
+    """The kernel's work list: each chunk's live entries, ascending, as
+    the plain version lists them; the same on a second run."""
+    q, chains, pool, cap = _plan_case(card, case, torch.float32, 4)
+    n_chunks, ch = pool.shape[:2]
+    got = ck.ivf_matvec_work_list(chains, n_chunks, ch, cap)
+    want = ck.ivf_matvec_work_list_plain(chains, n_chunks, ch, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = ck.ivf_matvec_work_list(chains, n_chunks, ch, cap)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_ivf_matvec_search_operands_twice(card):
+    """A many-segment work list (the serving shape's pair count, 23-chunk
+    chains over a 1500-chunk pool) equals the plain version, and the
+    kernel gives the same bits on a second run."""
+    g = torch.Generator(device=card).manual_seed(19)
+    pairs, nc, ch, n_chunks, d = 4096, 23, 256, 1500, 16
+    lists = torch.randint(0, 300, (pairs,), generator=g, device=card)
+    base = torch.randint(0, n_chunks, (300, nc), generator=g, device=card, dtype=torch.int32)
+    base[torch.arange(nc, device=card) >= torch.randint(1, nc + 1, (300, 1), generator=g,
+                                                          device=card)] = -1
+    chains = base[lists]
+    q = torch.randn(pairs, d, generator=g, device=card)
+    pool = torch.randn(n_chunks, ch, d, generator=g, device=card)
+    got = ck.ivf_matvec_work_list(chains, n_chunks, ch, nc * ch - 100)
+    want = ck.ivf_matvec_work_list_plain(chains, n_chunks, ch, nc * ch - 100)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    a = ck.ivf_probe_matvec_fused(q, chains, pool, cap=nc * ch - 100)
+    b = ck.ivf_probe_matvec_fused(q, chains, pool, cap=nc * ch - 100)
+    assert torch.equal(a, b)
+    assert torch.equal(a, ck.ivf_probe_matvec_plain(q, chains, pool, cap=nc * ch - 100))
+
+
 def _ivf_flat_indexes(card):
     import vq_tpu_torch
 

@@ -147,6 +147,57 @@ def test_ivf_matvec_no_pairs_blocks_and_stray_ids():
         ck._PLAIN_CELLS_K6 = old
 
 
+# K6's work list (which (pair, chain slot) entries read each chunk, in
+# ascending order) on the cases the chunk-major kernel makes new: (chains,
+# chunks in the pool, rows a chunk, cap).
+_WORK_LIST_CASES = {
+    "one_chunk_many_pairs": (np.r_[np.full(299, 2), 4].reshape(300, 1), 6, 256, None),
+    "one_chunk_one_pair": (np.array([[0, 1, 2], [3, 11, 3], [4, 5, 6]]), 20, 40, None),
+    "long_chain_among_short": (np.r_[np.arange(12)[None], np.full((9, 12), -1)], 16, 64, None),
+    "repeats_and_stray_ids": (np.array([[4, 4, -1, 4], [-1, 10, 2, 2 ** 30], [7, 3, 4, 1]]),
+                              10, 37, None),
+    "cap_mid_chunk": (np.array([[0, 1, 2, 3], [3, 2, 1, 0]]), 4, 256, 2 * 256 + 37),
+    "cap_zero": (np.array([[0, 1], [1, 0]]), 2, 64, 0),
+    "one_pair": (np.array([[5, 0, 7, 2, 5]]), 8, 256, None),
+    "probe_1d": (np.array([3, 1, 3, 0, 7, 3]), 8, 256, None),
+    "no_pairs": (np.zeros((0, 3), np.int64), 8, 256, None),
+}
+
+
+def _work_list_numpy(chains, n_chunks, ch, cap):
+    chains = chains[:, None] if chains.ndim == 1 else chains
+    nc = chains.shape[1]
+    cap = nc * ch if cap is None else cap
+    lists = [[] for _ in range(n_chunks)]
+    for i, c in enumerate(chains.reshape(-1)):
+        if 0 <= c < n_chunks and (i % nc) * ch < cap:
+            lists[c].append(i)
+    return np.cumsum([0] + [len(w) for w in lists]), [i for w in lists for i in w]
+
+
+@pytest.mark.parametrize("case", sorted(_WORK_LIST_CASES))
+def test_ivf_matvec_work_list_matches_numpy(case):
+    chains, n_chunks, ch, cap = _WORK_LIST_CASES[case]
+    offsets, work = ck.ivf_matvec_work_list(torch.from_numpy(chains.astype(np.int32)), n_chunks,
+                                            ch, cap)
+    want_off, want_work = _work_list_numpy(chains, n_chunks, ch, cap)
+    assert offsets.dtype == work.dtype == torch.int32
+    np.testing.assert_array_equal(offsets.numpy(), want_off)
+    np.testing.assert_array_equal(work.numpy(), want_work)
+
+
+@pytest.mark.parametrize("entries,n_chunks", [(1, 1), (23 * 1024, 8192), (23 * 8192, 8192),
+                                              (10 ** 6, 400_000), (500, 10 ** 8)])
+def test_ivf_matvec_segments_cover_every_entry(entries, n_chunks):
+    """The work-list pass's segments: whole warps of at least 128 entries
+    that cover every entry, with a (chunk, segment) count table within its
+    budget wherever one segment a chunk fits in it."""
+    seg_len, segs = ck._k6_segments(entries, n_chunks)
+    assert seg_len % 32 == 0 and seg_len >= ck._K6_SEGMENT
+    assert (segs - 1) * seg_len < entries <= segs * seg_len
+    assert n_chunks * segs <= max(ck._K6_TABLE_CELLS, n_chunks)
+
+
 _MATVEC_BAD = {
     "qvecs_1d": (torch.rand(5), torch.zeros(1, dtype=torch.int32), torch.rand(2, 4, 5)),
     "d_mismatch": (torch.rand(3, 5), torch.zeros(3, dtype=torch.int32), torch.rand(2, 4, 6)),

@@ -1,4 +1,4 @@
-"""K3, K4, K4-bf16 and K4-bf16x3 of this checkout beside another
+"""K3, K4, K4-bf16, K4-bf16x3 and K6 of this checkout beside another
 checkout's, on one card.
 
     python3 -m vq_tpu_torch.benchmarks.pq_scan_ab --against DIR
@@ -12,10 +12,13 @@ in one process on the same operands. On a seeded Gaussian mixture (1M x
 128, codebooks 8x256x16 drawn from it) the script encodes the 1M rows
 with f32 and bf16 input exactly (K4), at ``"bf16_fast"`` with f32 and
 bf16 input (K4-bf16) and at ``"bf16x3"`` (K4-bf16x3), and runs one PQ
-Lloyd pass on the first 100k and 200k rows (K3), and prints one JSON line
+Lloyd pass on the first 100k and 200k rows (K3), and runs K6 on the
+operands of this checkout's IVF-Flat f32 / bf16 and IVF-SQ searches
+(IVF1024 trained on the first 200k rows, the 1M rows added, 128 queries
+at nprobe 8 and 64). It prints one JSON line
 a case: whether the outputs agree, and the milliseconds a call (CUDA
 events, 5 calls a round) of each version in rounds other, this, this,
-other. K3 and K4 agree bit for bit; the lower-precision encodes by
+other. K3, K4 and K6 agree bit for bit; the lower-precision encodes by
 ``cuda_kernels.encode_parity`` (their tensor-core sums may flip a code at
 a float64 near tie), with the share of codes equal. The last line is the
 card's ``nvidia-smi`` name and power limit. Exits 1 if any case
@@ -40,6 +43,7 @@ from vq_tpu_torch.ops import cuda_kernels as ck
 
 N, DIM, M, K, SEED = 1_000_000, 128, 8, 256, 0
 K3_ROWS = (100_000, 200_000)
+NLIST, IVF_TRAIN, QUERIES, NPROBES = 1024, 200_000, 128, (8, 64)  # K6's searches
 
 
 def _load(name: str, path: Path) -> ModuleType:
@@ -79,6 +83,32 @@ def make_operands(device):
     return x.contiguous(), cb
 
 
+def k6_operands(x) -> dict:
+    """``{case: (args, kwargs)}`` of K6's call in each IVF-Flat f32 /
+    bf16 and IVF-SQ search of this checkout, over ``x``."""
+    import vq_tpu_torch
+    import vq_tpu_torch.ivf_flat as ivf_flat
+
+    g = torch.Generator(device=x.device).manual_seed(SEED + 1)
+    pick = torch.randperm(N, generator=g, device=x.device)[:QUERIES]
+    queries = x[pick] + 0.05 * torch.randn(QUERIES, DIM, generator=g, device=x.device)
+    flat = vq_tpu_torch.IVFFlatIndex.train(x[:IVF_TRAIN], NLIST, max_iters=10)
+    indexes = {"f32": flat, "bf16": vq_tpu_torch.IVFFlatIndex(flat.coarse, store_dtype="bfloat16"),
+               "u8": vq_tpu_torch.IVFSQIndex.train(x[:IVF_TRAIN], NLIST, max_iters=10)}
+    kernel, out = ivf_flat.ivf_probe_matvec_fused, {}
+    for name, idx in indexes.items():
+        idx.add(x)
+        for p in NPROBES:
+            calls = []
+            ivf_flat.ivf_probe_matvec_fused = lambda *a, **kw: calls.append((a, kw)) or kernel(*a, **kw)
+            try:
+                idx.search(queries, k=10, nprobe=p)
+            finally:
+                ivf_flat.ivf_probe_matvec_fused = kernel
+            out[f"K6 {name} nprobe={p}"] = calls[0]
+    return out
+
+
 def compare(this: Callable, other: Callable, agree: Callable = None, reps: int = 5):
     """``(agree, this ms [2], other ms [2])``: the outputs bit for bit (or
     by ``agree(this's, other's)``), then rounds other, this, this, other."""
@@ -93,14 +123,36 @@ def compare(this: Callable, other: Callable, agree: Callable = None, reps: int =
     return ok, [t1, t2], [o1, o2]
 
 
+def kernel_ms(fn: Callable, reps: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by name, over
+    ``reps`` profiled calls (after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key[:60]: round(e.self_device_time_total / 1e3 / reps, 5)
+            for e in prof.key_averages() if e.device_type == cuda}
+
+
 def main(argv: Sequence[str] = ()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True, type=Path, help="another checkout's root")
     ap.add_argument("--only", nargs="*", default=(), help="run the cases whose names hold one of these")
+    ap.add_argument("--profile", action="store_true",
+                    help="also give this checkout's device ms a call by kernel (torch.profiler)")
     args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         raise SystemExit("pq_scan_ab: needs an NVIDIA GPU")
     other = other_kernels(args.against.resolve())
+
+    def selected(name):
+        return not args.only or any(w in name for w in args.only)
+
     x, cb = make_operands("cuda")
     xb = x.to(torch.bfloat16)
     cases = {
@@ -110,6 +162,10 @@ def main(argv: Sequence[str] = ()) -> int:
     for n in K3_ROWS:
         cases[f"K3 {n}"] = (lambda n=n: ck.pq_lloyd_accumulate_fused(x[:n], cb),
                             lambda n=n: other.pq_lloyd_accumulate_fused(x[:n], cb))
+    if any(selected(f"K6 {t} nprobe={p}") for t in ("f32", "bf16", "u8") for p in NPROBES):
+        for name, (a, kw) in k6_operands(x).items():
+            cases[name] = (lambda a=a, kw=kw: ck.ivf_probe_matvec_fused(*a, **kw),
+                           lambda a=a, kw=kw: other.ivf_probe_matvec_fused(*a, **kw))
     rules = {}
     for name, xx, p in (("K4-bf16 f32 1M", x, "bf16_fast"), ("K4-bf16 bf16 1M", xb, "bf16_fast"),
                         ("K4-bf16x3 1M", x, "bf16x3")):
@@ -118,7 +174,7 @@ def main(argv: Sequence[str] = ()) -> int:
         rules[name] = (xx, p)
     ok = True
     for name, (this, oth) in cases.items():
-        if args.only and not any(s in name for s in args.only):
+        if not selected(name):
             continue
         extra, agree = {}, None
         if name in rules:
@@ -130,6 +186,8 @@ def main(argv: Sequence[str] = ()) -> int:
                 return par.ok
         equal, t_ms, o_ms = compare(this, oth, agree)
         ok &= equal
+        if args.profile:
+            extra["this_kernels_ms"] = kernel_ms(this)
         print(json.dumps({"case": name, "equal": equal, **extra, "this_ms": t_ms, "other_ms": o_ms,
                           "other": str(args.against)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

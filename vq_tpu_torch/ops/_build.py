@@ -74,9 +74,11 @@ _SIGNATURES = {
     # n_chunks, cap, gsub, slices, stream
     "vq_ivf_probe": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _LL, _I,
                      _I, _P),
-    # lhs, chunks, payload, payload_type, out, pairs, d, nc, ch, n_chunks,
-    # cap, vec, slices, stream
-    "vq_ivf_matvec": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _LL, _I, _I, _P),
+    # chunks, scratch, pairs, nc, ch, n_chunks, cap, seg_len, segs, stream
+    "vq_ivf_matvec_plan": (_P, _P, _I, _I, _I, _I, _LL, _I, _I, _P),
+    # lhs, chunks, payload, payload_type, out, scratch, pairs, d, nc, ch,
+    # n_chunks, cap, seg_len, segs, vec, qvec, stream
+    "vq_ivf_matvec": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _I, _I, _I, _P),
     # x, x_is_bf16, w, w_is_bf16, cc, codes, n, d, m, tensor_cores,
     # rows_per_block, stream
     "vq_mpacked_encode": (_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P),

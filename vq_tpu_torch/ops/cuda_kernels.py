@@ -76,6 +76,8 @@ __all__ = [
     "ivf_probe_adc_plain",
     "ivf_probe_matvec_fused",
     "ivf_probe_matvec_plain",
+    "ivf_matvec_work_list",
+    "ivf_matvec_work_list_plain",
 ]
 
 _INT_MAX = 0x7FFFFFFF
@@ -98,7 +100,9 @@ _CHUNK_CELLS = 1 << 24  # K2's (chunk, cluster) cursors, at most
 _INERTIA_THREADS = 1024  # K2's inertia partial sums (csrc/lloyd.cu kScanThreads)
 _SEGMENT_ROWS = 32  # K2's rows a segment of a cluster's sum (csrc/lloyd.cu kSegRows)
 _PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
-_MATVEC_ROWS = 256  # row positions per K6 tile (csrc/ivf_matvec.cu kRows)
+_K6_SEGMENT = 128  # entries a warp of K6's work-list pass, at least
+_K6_TASK = 32  # work entries a task of K6's matvec, at most (csrc/ivf_matvec.cu kTaskEntries)
+_K6_TABLE_CELLS = 1 << 21  # K6's (chunk, segment) counts, at most (8 MB)
 _PLAIN_CELLS_K6 = 1 << 28  # gathered f32 values per block of the plain K6
 _PAYLOAD_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 ENCODE_PRECISIONS = ("highest", "bf16_fast", "bf16x3")  # K4, K4-bf16, K4-bf16x3
@@ -990,6 +994,69 @@ def ivf_probe_matvec_plain(qvecs, probe, payload, *, cap: Optional[int] = None):
     return out
 
 
+def _k6_segments(entries: int, n_chunks: int) -> Tuple[int, int]:
+    """``(seg_len, segs)`` of K6's work-list pass (one warp a segment of
+    ``seg_len`` entries): at least ``_K6_SEGMENT`` entries, a multiple of
+    32, and few enough segments that the (chunk, segment) counts stay
+    within ``_K6_TABLE_CELLS``."""
+    most = max(1, _K6_TABLE_CELLS // max(1, n_chunks))
+    warp_steps = -(-entries // (32 * most))
+    seg_len = 32 * max(_K6_SEGMENT // 32, warp_steps)
+    return seg_len, max(1, -(-entries // seg_len))
+
+
+class _K6Scratch(NamedTuple):
+    buf: torch.Tensor  # the i32 scratch of csrc/ivf_matvec.cu
+    seg_len: int
+    segs: int
+    offsets: torch.Tensor  # view: [n_chunks + 1], each chunk's first work slot
+    work: torch.Tensor  # view: [E], the work list's slots
+
+
+def _k6_scratch(chunks, n_chunks: int) -> _K6Scratch:
+    """K6's scratch over ``chunks [P, nc]``: tasks (int4), the (chunk,
+    segment) counts, totals, offsets, task offsets, ranks and the work
+    list, as csrc/ivf_matvec.cu's ``Scratch`` lays them out."""
+    entries = chunks.numel()
+    if entries >= 2 ** 31:
+        raise InvalidParameter("probe", f"{entries} (pair, chunk) entries; K6 takes fewer than 2^31")
+    seg_len, segs = _k6_segments(entries, n_chunks)
+    base = 4 * (n_chunks + -(-entries // _K6_TASK)) + n_chunks * (segs + 1)  # offsets' start
+    buf = torch.empty(base + 2 * (n_chunks + 1) + 2 * entries, dtype=torch.int32,
+                      device=chunks.device)
+    return _K6Scratch(buf, seg_len, segs, buf[base:base + n_chunks + 1],
+                      buf[base + 2 * (n_chunks + 1) + entries:])
+
+
+def ivf_matvec_work_list_plain(chains, n_chunks: int, ch: int, cap: Optional[int] = None):
+    """Plain version of K6's work list. Entry ``i = p * nc + s`` of
+    ``chains [P, nc]`` (pair p, chain slot s; a ``[P]`` probe is one slot)
+    is live when its chunk id lies in ``[0, n_chunks)`` and ``s * ch <
+    cap``. Returns ``(offsets [n_chunks + 1], work [live])`` i32: chunk
+    c's live entries, ascending, are ``work[offsets[c]:offsets[c + 1]]``."""
+    chunks, width, cap = _chains(chains, chains.shape[0], ch, cap)
+    flat = chunks.reshape(-1).to(torch.int64)
+    i = torch.arange(flat.numel(), device=flat.device)
+    live = (flat >= 0) & (flat < n_chunks) & ((i % chunks.shape[1]) * ch < cap)
+    ids, codes = i[live], flat[live]
+    offsets = torch.zeros(n_chunks + 1, dtype=torch.int64, device=flat.device)
+    offsets[1:] = torch.bincount(codes, minlength=n_chunks).cumsum(0)
+    return offsets.to(torch.int32), ids[torch.sort(codes, stable=True).indices].to(torch.int32)
+
+
+def ivf_matvec_work_list(chains, n_chunks: int, ch: int, cap: Optional[int] = None):
+    """K6's work list (:func:`ivf_matvec_work_list_plain`), built on the
+    card by the kernel's own pass for a CUDA ``chains``."""
+    if not _on_card(chains):
+        return ivf_matvec_work_list_plain(chains, n_chunks, ch, cap)
+    chunks, width, cap = _chains(chains, chains.shape[0], ch, cap)
+    chunks = chunks.contiguous()
+    sc = _k6_scratch(chunks, n_chunks)
+    _launch("vq_ivf_matvec_plan", chunks.data_ptr(), sc.buf.data_ptr(), *chunks.shape, ch,
+            n_chunks, cap, sc.seg_len, sc.segs)
+    return sc.offsets, sc.work[:int(sc.offsets[-1])]
+
+
 def ivf_probe_matvec_fused(qvecs, probe, payload, *, cap: Optional[int] = None):
     """Dots of per-(query, probe) vectors with the rows of probed IVF
     chunks, read at stored width.
@@ -1000,22 +1067,27 @@ def ivf_probe_matvec_fused(qvecs, probe, payload, *, cap: Optional[int] = None):
     contract, -> ``[P, rows]``; ``probe [P, nc]`` is a chain of chunk ids
     a pair (-1 = none) -> ``[P, nc*rows]``. Positions at or past ``cap``
     (default: all kept) and positions of a chunk id outside ``[0,
-    chunks)`` are 0; the caller masks them with the row ids."""
+    chunks)`` are 0; the caller masks them with the row ids. On the card
+    the kernel works chunk by chunk (``csrc/ivf_matvec.cu``): a pass
+    builds the work list (:func:`ivf_matvec_work_list`), then each probed
+    chunk is read once for up to 32 of the pairs that probe it, by blocks
+    that also write every dead position's zero."""
     qvecs = qvecs.to(torch.float32)
     if not _on_card(qvecs, probe, payload):
         return ivf_probe_matvec_plain(qvecs, probe, payload, cap=cap)
     chunks, width, cap = _matvec_operands(qvecs, probe, payload, cap)
-    (p, d), ch = qvecs.shape, payload.shape[1]
+    (p, d), (n_chunks, ch) = qvecs.shape, payload.shape[:2]
     lhs, chunks, payload = qvecs.contiguous(), chunks.contiguous(), payload.contiguous()
     out = torch.empty((p, width), dtype=torch.float32, device=lhs.device)
     if p == 0 or width == 0:
         return out
     vec = (d * payload.element_size()) % 16 == 0 and payload.data_ptr() % 16 == 0
-    slices = max(1, min(-(-width // _MATVEC_ROWS), -(-_TARGET_BLOCKS // p)))
+    qvec = d % 4 == 0 and lhs.data_ptr() % 16 == 0
+    sc = _k6_scratch(chunks, n_chunks)
     _launch(
         "vq_ivf_matvec", lhs.data_ptr(), chunks.data_ptr(), payload.data_ptr(),
-        _PAYLOAD_TYPES[payload.dtype], out.data_ptr(), p, d, chunks.shape[1], ch,
-        payload.shape[0], cap, int(vec), slices,
+        _PAYLOAD_TYPES[payload.dtype], out.data_ptr(), sc.buf.data_ptr(), p, d, chunks.shape[1],
+        ch, n_chunks, cap, sc.seg_len, sc.segs, int(vec), int(qvec),
     )
     ivf_probe_matvec_fused.launches += 1
     return out
