@@ -992,8 +992,25 @@ def phase_flat_timings(smi, queries, flat, k6_cases):
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages() if e.device_type == cuda]
         stages = stage_times(evts, K6_STAGES, reps)
+        kernels = [e.time_range for e in prof.events() if e.device_type == cuda]
+        busy = sum(e.self_device_time_total for e in evts) / 1e3 / reps
+        span = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3 / reps
+        # The host's side: the wrapper's calls queued back to back, then the
+        # wait for the card; a queueing time above the device's busy time
+        # means the host, not the kernels, sets the pace.
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(20):
+            ck.ivf_probe_matvec_fused(*args, **kw)
+        h1 = time.perf_counter()
+        torch.cuda.synchronize()
+        h2 = time.perf_counter()
         log("profile", f"{tag}, device ms a call by launch: " + ", ".join(
-            f"{s} {v:.4f}" for s, (v, c) in stages.items()) + f" | {smi}")
+            f"{s} {v:.4f}" for s, (v, c) in stages.items())
+            + f"; all device activity {busy:.4f}, first start to last end {span:.4f} ms a call; "
+            f"host: {(h1 - h0) * 50:.4f} ms a call to queue, {(h2 - h0) * 50:.4f} to finish, "
+            f"CUDA events again {cuda_ms(lambda: ck.ivf_probe_matvec_fused(*args, **kw), 20):.4f} "
+            f"| {smi}")
     log("time", f"IVF-Flat train 200k x 128, IVF{NLIST}, 10 iterations: {flat['t_train'] / 1e3:.4f} s; "
         f"IVF-SQ train {flat['t_train_sq'] / 1e3:.4f} s (first calls) | {smi}")
     for name, ms in flat["t_add"].items():

@@ -576,6 +576,10 @@ _MATVEC_PLANS = {
     "cap_zero": (25, 4, 64, 12, 0, "random"),
     "one_pair": (1, 5, 256, 8, None, "random"),
     "probe_1d": (50, 0, 256, 8, None, "random"),
+    # chunks of more than one 256-row tile: cap in slot 1's second tile
+    # (ch not a multiple of 4), and 70 pairs on one 512-row chunk
+    "rows_past_one_tile": (30, 4, 300, 12, 300 + 270, "random"),
+    "two_row_tiles_hot": (70, 3, 512, 6, None, "hot"),
 }
 
 

@@ -158,6 +158,8 @@ _WORK_LIST_CASES = {
                               10, 37, None),
     "cap_mid_chunk": (np.array([[0, 1, 2, 3], [3, 2, 1, 0]]), 4, 256, 2 * 256 + 37),
     "cap_zero": (np.array([[0, 1], [1, 0]]), 2, 64, 0),
+    "cap_past_first_row_tile": (np.array([[0, 1, 2], [2, 1, 0], [1, -1, 1]]), 3, 300,
+                                300 + 270),
     "one_pair": (np.array([[5, 0, 7, 2, 5]]), 8, 256, None),
     "probe_1d": (np.array([3, 1, 3, 0, 7, 3]), 8, 256, None),
     "no_pairs": (np.zeros((0, 3), np.int64), 8, 256, None),

@@ -123,28 +123,10 @@ def compare(this: Callable, other: Callable, agree: Callable = None, reps: int =
     return ok, [t1, t2], [o1, o2]
 
 
-def kernel_ms(fn: Callable, reps: int = 5) -> dict:
-    """Device ms a call of each kernel ``fn`` launches, by name, over
-    ``reps`` profiled calls (after a warm one)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return {e.key[:60]: round(e.self_device_time_total / 1e3 / reps, 5)
-            for e in prof.key_averages() if e.device_type == cuda}
-
-
 def main(argv: Sequence[str] = ()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True, type=Path, help="another checkout's root")
     ap.add_argument("--only", nargs="*", default=(), help="run the cases whose names hold one of these")
-    ap.add_argument("--profile", action="store_true",
-                    help="also give this checkout's device ms a call by kernel (torch.profiler)")
     args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         raise SystemExit("pq_scan_ab: needs an NVIDIA GPU")
@@ -186,8 +168,6 @@ def main(argv: Sequence[str] = ()) -> int:
                 return par.ok
         equal, t_ms, o_ms = compare(this, oth, agree)
         ok &= equal
-        if args.profile:
-            extra["this_kernels_ms"] = kernel_ms(this)
         print(json.dumps({"case": name, "equal": equal, **extra, "this_ms": t_ms, "other_ms": o_ms,
                           "other": str(args.against)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
