@@ -9,7 +9,9 @@ Phases, one line each (any failure exits non-zero with no result line):
 2. build — nvcc builds ``vq_tpu_torch/csrc`` for sm_90a under ``build/``;
 3. kernels — K3, K4 and K5 each held to its plain PyTorch version on the
    card at the main path's shapes (1M x 128 corpus, 8x256x16 codebooks,
-   128-query batches; K4 bit for bit with f32 and bf16 input; K5 at
+   128-query batches; K3 at 100k and 200k rows, sums, counts and inertia
+   bit for bit and on a second run, its scan's minimum scores equal to
+   the plain smin; K4 bit for bit with f32 and bf16 input; K5 at
    fetch 1, 10, 100 and 128 and on tie-heavy codes, bit for bit and on a
    second run);
 4. main path — ``ProductQuantizer`` trained on 100k rows, ``PQIndex.add``
@@ -77,7 +79,10 @@ Phases, one line each (any failure exits non-zero with no result line):
    stages, and its sums stage beside ``index_add_`` (one PyTorch call
    with float atomics, a yardstick the port never calls) and its bytes
    bound; K3 at 100k and 200k rows with a ``torch.profiler`` line of the
-   device time of each of its launches (scan, sums walk, reduce); then a
+   device time of each of its launches (K4's scan, the labels and
+   inertia partials, K2's sums stage, the inertia sum), and its sums
+   stage beside its bytes bound and ``index_add_``; K7 at nprobe 8 and 64,
+   each with its bound; then a
    ``torch.profiler`` line a call of the PQ and IVF-PQ trainers,
    ``PQIndex.add``, the IVF adds, ``PQIndex.search``, the IVF-Flat and
    IVF-SQ searches, and the precision and RQ paths (wall, device time,
@@ -124,9 +129,10 @@ from vq_tpu_torch.benchmarks import cuda_ms  # CUDA-event ms a call, after one w
 N_CORPUS, DIM, N_QUERY = 1_000_000, 128, 128
 N_TRAIN, M, K = 100_000, 8, 256
 N_CLUSTERS, LATENT, SEED = 1024, 24, 0
-# K3: counts exact; sums within 1e-5 of the largest sum plus 1e-5
-# relative, inertia within 1e-5 relative (fp32 summation order only).
-K3_RTOL = 1e-5
+# K3 (K4's scan, then K2's sums stage over the [n*m, s] view: one
+# segmented order shared with the plain version): bit-identical.
+# K1's distances where its codes agree: within 1e-5 of the largest.
+K1_DIST_RTOL = 1e-5
 # K1, B1 "default", K4-bf16 and K4-bf16x3: a code may differ from the
 # plain version's only where the two candidates' scores, recomputed in
 # float64, are near ties (``mpacked_encode.near_ties``,
@@ -162,9 +168,9 @@ K2_STAGES = (("assign", "assign_kernel"), ("memset", "Memset"), ("histogram", "c
              ("cursor", "chunk_cursor_kernel"), ("scatter", "chunk_scatter_kernel"),
              ("table", "segment_table_kernel"), ("sums", "segment_sum_kernel"),
              ("combine", "segment_combine_kernel"), ("inertia", "inertia_kernel"))
-# K3's launches (csrc/pq_lloyd.cu), as the profiler names them.
-K3_STAGES = (("scan", "pq_scan_"), ("sums walk", "pq_lloyd_partial_kernel"),
-             ("reduce", "pq_lloyd_reduce_kernel"))
+# K3's launches (csrc/pq_lloyd.cu), as the profiler names them: K4's scan,
+# the labels and inertia partials, then K2's sums stage (lloyd.cu).
+K3_STAGES = (("pq scan", "pq_scan_"), ("terms", "pq_terms_kernel")) + K2_STAGES[1:]
 # K6's launches (csrc/ivf_matvec.cu): the work-list pass and the matvec.
 K6_STAGES = (("memset", "Memset"), ("entry pass", "entry_pass_kernel"), ("scan", "bin_scan_kernel"),
              ("cursor", "bin_cursor_kernel"), ("scatter", "entry_scatter_kernel"),
@@ -449,23 +455,27 @@ def phase_kernels(corpus, queries, g):
     _k4_check(corpus.to(torch.bfloat16), cb, "bf16")
     res["k4_err"] = 0.0
 
-    x3 = corpus[:N_TRAIN]
-    sums, counts, inertia = ck.pq_lloyd_accumulate_fused(x3, cb)
-    again = ck.pq_lloyd_accumulate_fused(x3, cb)
-    torch.cuda.synchronize()
-    ps, pc, pi = ck.pq_lloyd_accumulate_plain(x3, cb)
-    assert torch.equal(counts, pc), "K3 counts differ from the plain version"
-    assert int(counts.sum()) == N_TRAIN * M
-    bound = K3_RTOL * ps.abs() + K3_RTOL * float(ps.abs().max())
-    err3 = float((sums - ps).abs().max())
-    assert bool(((sums - ps).abs() <= bound).all()), f"K3 sums off by {err3}"
-    assert abs(float(inertia) - float(pi)) <= K3_RTOL * abs(float(pi)), (float(inertia), float(pi))
-    det = all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
-    assert det, "K3 is not deterministic from run to run"
-    res["k3_err"] = err3
-    log("kernels", f"K3 pq_lloyd_accumulate {tuple(x3.shape)}: counts exact, sums max "
-        f"abs err {err3:.3g}, inertia {float(inertia):.6g} vs {float(pi):.6g}, "
-        "bit-identical on a second run")
+    for n3 in (N_TRAIN, N_IVF_TRAIN):
+        x3 = corpus[:n3]
+        got = ck.pq_lloyd_accumulate_fused(x3, cb)
+        again = ck.pq_lloyd_accumulate_fused(x3, cb)
+        minval = ck._pq_lloyd_card(x3, cb)[3]
+        torch.cuda.synchronize()
+        want = ck.pq_lloyd_accumulate_plain(x3, cb)
+        diffs = [int((a != b).sum()) for a, b in zip(got, want)]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+            f"K3 {n3}: {diffs} sums / counts / inertia differ from the plain version")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+            f"K3 {n3} is not deterministic from run to run")
+        assert int(got[1].sum()) == n3 * M
+        smin = ck._pq_scan_plain(x3, cb)[1]
+        assert torch.equal(minval.view(torch.int32), smin.view(torch.int32)), (
+            f"K3 {n3}: the scan's minimum scores differ from the plain smin")
+        log("kernels", f"K3 pq_lloyd_accumulate {tuple(x3.shape)} vs {M}x{K}x{s}: sums, counts and "
+            f"inertia ({float(got[2]):.9g}) bit-identical to the plain version and on a second run, "
+            f"minimum scores equal to the plain smin (codewords: largest {int(got[1].max())} rows, "
+            f"empty {int((got[1] == 0).sum())})")
+    res["k3_err"] = 0.0
 
     codes_t = codes.to(torch.uint8).T.contiguous()
     tables = _adc_tables(queries, cb, Metric.SQUARED_EUCLIDEAN)
@@ -591,9 +601,12 @@ def phase_main_path(corpus, queries):
     gt = _ground_truth(corpus, queries)
     r_adc, r_rr = _recall(ids, gt), _recall(ids_r, gt)
     assert r_rr >= r_adc, (r_rr, r_adc)
+    mse = float(((pq.decode(index._codes) - corpus) ** 2).mean())
+    assert mse == mse and mse < float((corpus - corpus.mean(0)).square().mean()), mse
     log("main", f"trained {pq!r} in {t_train:.3f} s; add 1M in {t_add:.3f} s "
         f"(codes equal the plain encode); search and rerank=100 equal "
-        f"the plain route; recall@10 ADC {r_adc:.4f}, rerank=100 {r_rr:.4f}")
+        f"the plain route; recall@10 ADC {r_adc:.4f}, rerank=100 {r_rr:.4f}; "
+        f"reconstruction MSE of the 1M rows {mse:.9g} an element")
     return dict(pq=pq, index=index, t_train=t_train, t_add=t_add, launches=launches,
                 recall=(r_adc, r_rr), gt=gt)
 
@@ -613,7 +626,7 @@ def phase_ivf_kernels(corpus, g):
         flips, gap = _near_ties(x.float(), cents, codes, pc)
         same = codes == pc
         err = float((dists - pd).abs()[same].max())
-        assert err <= K3_RTOL * float(pd.abs().max()), f"K1 {tag}: distances off by {err}"
+        assert err <= K1_DIST_RTOL * float(pd.abs().max()), f"K1 {tag}: distances off by {err}"
         res["k1_err"] = max(res["k1_err"], err)
         n_dist = int((dists.view(torch.int32) != pd.view(torch.int32)).sum())
         log("kernels", f"K1 assign {tag} {tuple(x.shape)} vs {NLIST} centroids: "
@@ -661,8 +674,12 @@ def phase_ivf_path(corpus, queries, gt):
     index, t_train = cuda_once(lambda: vq_tpu_torch.IVFPQIndex.train(
         corpus[:N_IVF_TRAIN], NLIST, M, K, max_iters=10, keep_corpus=True))
     _, t_add = cuda_once(lambda: index.add(corpus))
-    out = {(p, r): index.search(queries, k=10, nprobe=p, rerank=r)
-           for p in NPROBES for r in RERANKS}
+    out, k7_by_nprobe = {}, {}
+    for p in NPROBES:
+        before = ck.ivf_probe_adc_fused.launches
+        for r in RERANKS:
+            out[(p, r)] = index.search(queries, k=10, nprobe=p, rerank=r)
+        k7_by_nprobe[p] = ck.ivf_probe_adc_fused.launches - before
     torch.cuda.synchronize()
     launches = read_counts()
     log("ivf", f"launches in the ivf path: {launches}")
@@ -690,12 +707,15 @@ def phase_ivf_path(corpus, queries, gt):
         _check_search(name, ids, dist)
         _parity((ids, dist), want[(p, r)], name)
         recall[(p, r)] = _recall(ids, gt)
+    mse = float(((index.reconstruct(torch.arange(N_CORPUS, device=corpus.device)) - corpus) ** 2).mean())
     log("ivf", f"add: {flips} of {N_CORPUS} lists differ from the plain assign, all "
         f"float64 near ties (max gap {gap:.3g}); residual codes equal the plain encode; all "
         "searches equal the plain route; recall@10 " + ", ".join(
-            f"nprobe={p} rerank={r}: {v:.4f}" for (p, r), v in recall.items()))
+            f"nprobe={p} rerank={r}: {v:.4f}" for (p, r), v in recall.items())
+        + f"; reconstruction MSE of the 1M rows {mse:.9g} an element")
     assert recall[(64, 500)] >= recall[(8, 0)], recall
-    return dict(index=index, t_train=t_train, t_add=t_add, launches=launches, recall=recall)
+    return dict(index=index, t_train=t_train, t_add=t_add, launches=launches, recall=recall,
+                k7_by_nprobe=k7_by_nprobe)
 
 
 def phase_k7(queries, ivf):
@@ -831,15 +851,20 @@ def phase_k2_stages(smi, corpus, kres):
 def phase_k3_stages(smi, corpus, res):
     """K3 at 100k (PQ training) and 200k rows (IVF-PQ training) against
     the 8x256x16 codebooks: a ``torch.profiler`` line a shape of the device
-    time a call of each of its launches (the scan, the sums walk, the
-    reduce)."""
+    time a call of each of its launches (K4's scan, the labels and inertia
+    partials, K2's sums stage, the inertia sum), and its sums stage (all
+    but the scan) beside its bytes bound and ``index_add_`` of the same
+    entries by the same labels (float atomics, a yardstick the port never
+    calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from vq_tpu_torch.ops import cuda_kernels as ck
 
     cb, reps = res["cb"], 5
+    s = DIM // M
     cuda = torch.autograd.DeviceType.CUDA
+    out = {}
     for n in (N_TRAIN, N_IVF_TRAIN):
         x = corpus[:n]
         ck.pq_lloyd_accumulate_fused(x, cb)
@@ -851,9 +876,25 @@ def phase_k3_stages(smi, corpus, res):
         evts = [e for e in prof.key_averages() if e.device_type == cuda]
         stages = stage_times(evts, K3_STAGES, reps)
         total = sum(e.self_device_time_total for e in evts) / 1e3 / reps
-        log("profile", f"K3 {n} x {DIM} vs {M}x{K}x{DIM // M}, device ms a call by launch: " + ", ".join(
-            f"{s} {ms:.4f}" + (f" x{c:g}" if c != 1 else "") for s, (ms, c) in stages.items())
+        log("profile", f"K3 {n} x {DIM} vs {M}x{K}x{s}, device ms a call by launch: " + ", ".join(
+            f"{st} {ms:.4f}" + (f" x{c:g}" if c != 1 else "") for st, (ms, c) in stages.items())
             + f"; all device activity {total:.4f} ms | {smi}")
+        labels = (ck.pq_encode_fused(x, cb).long() + torch.arange(M, device=x.device) * K).reshape(-1)
+        xe = x.reshape(-1, s)
+        lib = cuda_ms(lambda: torch.zeros(M * K, s, device=x.device).index_add_(0, labels, xe), 20)
+        b_ms, b_by = bound(xe.numel() * 4 + 2 * labels.numel() * 4 + M * K * (s + 1) * 4 + 4,
+                           2.0 * xe.numel(), PEAK_F32)
+        if "pq scan" in stages and len(stages) > 2:
+            stage_ms = sum(ms for st, (ms, _) in stages.items() if st != "pq scan")
+            stage = f"sums stage (all but the scan) {stage_ms:.4f} ms, {b_ms / stage_ms:.3f} of it"
+        else:  # the profiler dropped the call's kernels
+            stage_ms, stage = None, "sums stage not measured"
+        log("bound", f"K3 sums stage {n} x {M}x{K}x{s}: x, the codes and the minimum scores read "
+            f"once, the sums, counts and inertia written once, {b_ms:.4f} ms ({b_by}); {stage}; "
+            f"index_add_ of the {xe.shape[0]} entries by label (float atomics, the yardstick) "
+            f"{lib:.4f} ms | {smi}")
+        out[n] = dict(stage_ms=stage_ms, bound_ms=b_ms, index_add_ms=lib)
+    return out
 
 
 def phase_flat_path(corpus, queries, gt):
@@ -1595,14 +1636,16 @@ def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec):
                       1.0 * N_QUERY * N_CORPUS * M, PEAK_F32)
     # K7 and K6 read the rows of the chunks probed (each chunk once, however
     # many pairs probe it) and do their arithmetic on every live position.
-    tables, chains, codes = k7_cases[NPROBES[0]]
-    pairs, m, kk = tables.shape
-    ch, cap = codes.shape[1], ivf["index"]._pool.cap
-    pos = torch.arange(chains.shape[1] * ch, device=chains.device)
-    live = int(((chains >= 0).repeat_interleave(ch, dim=1) & (pos < cap)).sum())
-    chunks = torch.unique(chains[chains >= 0]).numel()
-    out["K7"] = bound(chunks * ch * m + pairs * m * kk * 4 + pairs * pos.numel() * 4
-                      + chains.numel() * 4, 1.0 * live * m, PEAK_F32)
+    for p in NPROBES:
+        tables, chains, codes = k7_cases[p]
+        pairs, m, kk = tables.shape
+        ch, cap = codes.shape[1], ivf["index"]._pool.cap
+        pos = torch.arange(chains.shape[1] * ch, device=chains.device)
+        live = int(((chains >= 0).repeat_interleave(ch, dim=1) & (pos < cap)).sum())
+        chunks = torch.unique(chains[chains >= 0]).numel()
+        out["K7" if p == NPROBES[0] else f"K7_nprobe{p}"] = bound(
+            chunks * ch * m + pairs * m * kk * 4 + pairs * pos.numel() * 4 + chains.numel() * 4,
+            1.0 * live * m, PEAK_F32)
     out["K6"] = k6_cases[("flat_f32", NPROBES[0])][2][:2]
     tables8, codes8 = prec["k8_args"]
     q8, m8, k8 = tables8.shape
@@ -1630,7 +1673,7 @@ def main() -> None:
     t = phase_timings(smi, corpus, queries, res, main_res)
     t.update(phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases))
     phase_k2_stages(smi, corpus, kres)
-    phase_k3_stages(smi, corpus, res)
+    k3_stages = phase_k3_stages(smi, corpus, res)
     flat = phase_flat_path(corpus, queries, main_res["gt"])
     k6_cases, k6_err = phase_k6(flat)
     t.update(phase_flat_timings(smi, queries, flat, k6_cases))
@@ -1671,8 +1714,10 @@ def main() -> None:
 
     kernels = [
         row("pq_lloyd_accumulate_fused", "pq_lloyd.cu", "569", sum(k3_paths.values()),
-            res["k3_err"], "K3", t["K3"], {"launches_by_path": k3_paths, "ms_200k": t["K3_200k"][0],
-                                          "plain_ms_200k": t["K3_200k"][1]}),
+            res["k3_err"], "K3", t["K3"], {
+                "launches_by_path": k3_paths, "ms_200k": t["K3_200k"][0],
+                "plain_ms_200k": t["K3_200k"][1],
+                "sums_stage_by_rows": {str(n): v for n, v in k3_stages.items()}}),
         row("pq_encode_fused", "pq_encode.cu", "379", sum(k4_paths.values()), res["k4_err"],
             "K4", t["K4"], {"launches_by_path": k4_paths}),
         row("adc_scan_topk_fused", "adc_topk.cu", "802", launches["adc_scan_topk_fused"],
@@ -1682,7 +1727,11 @@ def main() -> None:
         row("lloyd_accumulate_fused", "lloyd.cu", "1473", launches["lloyd_accumulate_fused"],
             kres["k2_err"], "K2", t["K2"], {"rq_shape_ms": t["K2_rq_shape"][0]}),
         row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", launches["ivf_probe_adc_fused"], 0.0,
-            "K7", t["K7_nprobe8"], {"also_replaces": tpu + "1147"}),
+            "K7", t["K7_nprobe8"], {
+                "also_replaces": tpu + "1147", "ms_nprobe64": t["K7_nprobe64"][0],
+                "plain_ms_nprobe64": t["K7_nprobe64"][1], "bound_ms_nprobe64": bounds["K7_nprobe64"][0],
+                "bound_by_nprobe64": bounds["K7_nprobe64"][1],
+                "launches_by_nprobe": ivf["k7_by_nprobe"]}),
         row("ivf_probe_matvec_fused", "ivf_matvec.cu", "1356", launches["ivf_probe_matvec_fused"],
             k6_err, "K6", t["K6_flat_f32_nprobe8"], {
                 "ms_by_case": {f"{n} nprobe={p}": t[f"K6_{n}_nprobe{p}"][0] for n, p in k6_cases},

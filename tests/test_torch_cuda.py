@@ -15,10 +15,10 @@ other one a float64 near tie on the precision's own operands, and bit
 for bit where every partial sum is exact (small integers), at exact
 ties (duplicated centroids), on NaN centroids and rows and on zero
 scores;
-K2 exact, weighted or not (kernel and plain version sum in one
-segmented order), and bit-identical from one run to the next; K3 counts
-exact, sums at rtol 1e-5 / atol 1e-4 and inertia at rtol 1e-5 (fp32
-summation order), and bit-identical from one run to the next. The
+K2 and K3 exact, K2 weighted or not (kernels and plain versions sum in
+one segmented order), and bit-identical from one run to the next (where
+a row holds NaN or +-inf, K3's sums and inertia equal with NaN equal to
+NaN, whatever its payload). The
 benchmark twins' kernels: B1 "highest", B2,
 B3 and B4 exact; B1 "default" (bf16 tensor cores, their own summation
 order) at >= 0.9999 of the codes, every other one a float64 near tie.
@@ -235,10 +235,12 @@ def test_pq_encode_nan_and_inf_rows(card, shape):
     got = ck.pq_encode_fused(x, cb)
     assert torch.equal(got, ck.pq_encode_plain(x, cb))
     assert int(got[3, 0]) == 0
-    sums, counts, inertia = ck.pq_lloyd_accumulate_fused(x, cb)
-    ps, pc, pi = ck.pq_lloyd_accumulate_plain(x, cb)
-    assert torch.equal(counts, pc)
-    assert bool(torch.isnan(inertia)) and bool(torch.isnan(pi))
+    got = ck.pq_lloyd_accumulate_fused(x, cb)
+    want = ck.pq_lloyd_accumulate_plain(x, cb)
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got[2])) and bool(torch.isnan(want[2]))
 
 
 def test_pq_encode_nan_and_ties(card):
@@ -254,6 +256,8 @@ def test_pq_encode_nan_and_ties(card):
 @pytest.mark.parametrize("shape", _PQ_SHAPES)
 @pytest.mark.parametrize("n", [20_000, 77])
 def test_pq_lloyd_matches_plain(card, shape, n):
+    """K3 bit for bit: sums, counts and inertia, and the scan's minimum
+    scores (what the inertia terms start from) against the plain smin."""
     m, k, s = shape
     g = torch.Generator(device=card).manual_seed(2)
     x = torch.randn(n, m * s, generator=g, device=card)
@@ -261,11 +265,39 @@ def test_pq_lloyd_matches_plain(card, shape, n):
     sums, counts, inertia = ck.pq_lloyd_accumulate_fused(x, cb)
     torch.cuda.synchronize()
     ps, pc, pi = ck.pq_lloyd_accumulate_plain(x, cb)
-    assert torch.equal(counts, pc)
-    torch.testing.assert_close(sums, ps, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(inertia, pi, rtol=1e-5, atol=0.0)
+    assert torch.equal(counts, pc) and int(counts.sum()) == n * m
+    assert torch.equal(sums, ps) and torch.equal(inertia, pi)
     again = ck.pq_lloyd_accumulate_fused(x, cb)
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again))
+    minval = ck._pq_lloyd_card(x, cb)[3]
+    assert torch.equal(minval.view(torch.int32), ck._pq_scan_plain(x, cb)[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["dominant", "unaligned"])
+@pytest.mark.parametrize("shape", [(8, 256, 16), (3, 257, 5), (4, 100, 8), (2, 64, 4)])
+def test_pq_lloyd_edges(card, shape, case):
+    """K3 bit for bit where one codeword holds more than half of every
+    subspace's rows (a cluster of hundreds of segments), and on an x 4
+    bytes off 16-byte alignment (the 4-byte loads at s % 4 == 0); s = 8
+    and 4 put 2 lanes and 1 lane on a segment."""
+    m, k, s = shape
+    n = 20_000
+    g = torch.Generator(device=card).manual_seed(17)
+    x = torch.randn(n, m * s, generator=g, device=card)
+    cb = torch.randn(m, k, s, generator=g, device=card)
+    if case == "dominant":
+        cb = cb * 10
+        cb[:, 7] = 0.0  # nearest to most rows of N(0, I)
+    else:
+        x = torch.empty(n * m * s + 1, device=card)[1:].view(n, m * s).copy_(x)
+        assert x.data_ptr() % 16 != 0
+    got = ck.pq_lloyd_accumulate_fused(x, cb)
+    torch.cuda.synchronize()
+    want = ck.pq_lloyd_accumulate_plain(x, cb)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.pq_lloyd_accumulate_fused(x, cb)))
+    if case == "dominant":
+        assert bool((got[1][:, 7] > n // 2).all())
 
 
 def _adc_inputs(mode, pack_bits, device, n=5000, *, q=3, m=5, k=None, codes="random",
@@ -424,7 +456,8 @@ def test_lloyd_accumulate_matches_plain(card, shape):
 
 
 # K2 where its segments begin and end (S = ck._SEGMENT_ROWS rows): every
-# row in one cluster; fewer rows than S; d = 5 (4-byte loads); GIST's
+# row in one cluster; fewer rows than S; d = 5 (4-byte loads); d = 1, 4
+# and 8 (1, 1 and 2 lanes a segment, 32 and 16 segments a warp); GIST's
 # d = 960 (eight 128-column groups, the last half full); k = 65536 with
 # most clusters empty; one cluster of ~199k rows beside a few small ones;
 # x 4 bytes off 16-byte alignment (4-byte loads at d = 128).
@@ -432,6 +465,9 @@ _K2_EDGES = {
     "k1": (5000, 1, 128),
     "n_below_S": (20, 3, 128),
     "d5": (3001, 7, 5),
+    "d1": (3001, 7, 1),
+    "d4": (3001, 7, 4),
+    "d8": (3001, 9, 8),
     "d960": (4000, 50, 960),
     "k65536_mostly_empty": (3000, 65536, 16),
     "dominant_200k": (200_000, 256, 128),

@@ -6,8 +6,9 @@ plain PyTorch version, which is the arithmetic the CUDA kernel is held to
 on the card; here it is held to the Pallas kernel run in interpret mode,
 on the same numpy inputs. Tolerances: codes, counts, ADC values and ids
 exact (K8's sums too, bit for bit, on finite tables); K3 sums at rtol 1e-5 / atol 1e-4 and inertia at rtol 1e-5 (fp32
-summation order). ``test_torch_cuda.py`` holds each CUDA kernel to its
-plain version on the card.
+summation order). The plain K3 is also held bit for bit to a row-by-row
+float32 loop of its own segmented order. ``test_torch_cuda.py`` holds
+each CUDA kernel to its plain version on the card.
 """
 
 import jax.numpy as jnp
@@ -108,6 +109,88 @@ def test_pq_lloyd_accumulate_matches_pallas(n):
     )
     np.testing.assert_allclose(float(inertia), float(inertia_w), rtol=1e-5)
     assert float(counts.sum()) == n * m
+
+
+_S = ck._SEGMENT_ROWS
+
+
+def _k3_reference(x, codes, smin, k):
+    """K3's order as a row-by-row float32 loop over the [n*m, s] view of
+    ``x``, entry r*m + i labelled i*k + code: each label's entries in
+    ascending order cut into segments of S, a segment's partial from +0.0,
+    the label's sum its partials added to +0.0 in order; the inertia terms
+    smin + xx (xx from +0.0 in ascending e; NaN kept, the rest clamped at
+    0) by blocks of B terms, thread t of T adding terms t, t + T, ... of
+    its block, the T folded in halves, the block partials as 1024 strided
+    sums folded in halves (B, T: the kernel's block of terms and threads)."""
+    n, m = codes.shape
+    s = x.shape[1] // m
+    xe = x.reshape(n * m, s)
+    lab = (codes + np.arange(m) * k).reshape(-1)
+    sums = np.zeros((m * k, s), np.float32)
+    for j in range(m * k):
+        members = np.nonzero(lab == j)[0]
+        for s0 in range(0, members.size, _S):
+            part = np.zeros(s, np.float32)
+            for r in members[s0:s0 + _S]:
+                part = part + xe[r]
+            sums[j] = sums[j] + part
+    terms = np.zeros(n * m, np.float32)
+    for q in range(n * m):
+        xx = np.float32(0.0)
+        for e in range(s):
+            xx = np.float32(xx + np.float32(xe[q, e] * xe[q, e]))
+        t = np.float32(smin.reshape(-1)[q] + xx)
+        terms[q] = t if np.isnan(t) else max(t, np.float32(0.0))
+
+    def fold(part):
+        while part.shape[0] > 1:
+            part = part[:part.shape[0] // 2] + part[part.shape[0] // 2:]
+        return part[0]
+
+    block, threads = ck._K3_BLOCK_TERMS, ck._K3_TERM_THREADS
+    partials = []
+    for b0 in range(0, n * m, block):
+        acc = np.zeros(threads, np.float32)
+        for q in range(b0, min(b0 + block, n * m)):
+            acc[(q - b0) % threads] = acc[(q - b0) % threads] + terms[q]
+        partials.append(fold(acc))
+    acc = np.zeros(1024, np.float32)
+    for b, p in enumerate(partials):
+        acc[b % 1024] = acc[b % 1024] + p
+    return sums.reshape(m, k, s), np.bincount(lab, minlength=m * k).reshape(m, k), fold(acc)
+
+
+@pytest.mark.parametrize("s", [8, 5])
+def test_plain_pq_lloyd_in_segmented_order(s):
+    """The plain K3 is the kernel's arithmetic: bit for bit against a
+    row-by-row float32 loop of its order, with codewords planted in each
+    subspace at exactly S entries, S + 1, more than 3S, none, and a large
+    one (n*m past four blocks of the inertia's terms); s = 5 is the shape
+    the kernel reads 4 bytes at a time."""
+    m, sizes = 3, (_S, _S + 1, 3 * _S + 7, 0, 1400)
+    k = len(sizes)
+    rng = np.random.default_rng(52)
+    cb = (rng.standard_normal((m, k, s)) * 20).astype(np.float32)
+    planted = np.stack([rng.permutation(np.repeat(np.arange(k), sizes)) for _ in range(m)], 1)
+    n = planted.shape[0]
+    x = (cb[np.arange(m), planted] + rng.standard_normal((n, m, s))).astype(np.float32)
+    x = x.reshape(n, m * s)
+    codes, smin = ck._pq_scan_plain(_t(x), _t(cb))
+    np.testing.assert_array_equal(codes.numpy(), planted)
+    sums, counts, inertia = _k3_reference(x, codes.numpy(), smin.numpy(), k)
+    assert n * m > 4 * ck._K3_BLOCK_TERMS
+    got = ck.pq_lloyd_accumulate_fused(_t(x), _t(cb))
+    np.testing.assert_array_equal(got[0].numpy(), sums)
+    np.testing.assert_array_equal(got[1].numpy(), counts.astype(np.float32))
+    assert float(got[2]) == float(inertia)
+
+
+def test_segment_rows_fit_int32():
+    """The sums stage keeps row ids in int32: K3's n*m entries past that
+    are refused before anything is allocated."""
+    with pytest.raises(ValueError):
+        ck._segment_scratch(2**31, 8 * 256, 16, "cpu", False)
 
 
 def _adc_inputs(mode, pack_bits, seed=10):

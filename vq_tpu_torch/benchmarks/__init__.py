@@ -7,9 +7,9 @@ vq_tpu_torch.benchmarks.<name>`` on the card (``--device cpu`` runs the
 plain versions and reports no times).
 
 The scripts under ``benchmarks/`` stay as they are; nothing here imports
-them or JAX. :mod:`.pq_scan_ab` is not a twin: it runs K3, K4 (at each
-precision) and K6 beside another checkout's on one card (``--against
-DIR``), whether they agree, and timed in alternating rounds.
+them or JAX. :mod:`.pq_scan_ab` is not a twin: it runs K2, K3, K4 (at
+each precision) and K6 beside another checkout's on one card
+(``--against DIR``), whether they agree, and timed in alternating rounds.
 """
 
 from __future__ import annotations

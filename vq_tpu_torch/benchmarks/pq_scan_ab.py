@@ -1,4 +1,4 @@
-"""K3, K4, K4-bf16, K4-bf16x3 and K6 of this checkout beside another
+"""K2, K3, K4, K4-bf16, K4-bf16x3 and K6 of this checkout beside another
 checkout's, on one card.
 
     python3 -m vq_tpu_torch.benchmarks.pq_scan_ab --against DIR
@@ -11,18 +11,23 @@ another module name and launch into that library; so the two versions run
 in one process on the same operands. On a seeded Gaussian mixture (1M x
 128, codebooks 8x256x16 drawn from it) the script encodes the 1M rows
 with f32 and bf16 input exactly (K4), at ``"bf16_fast"`` with f32 and
-bf16 input (K4-bf16) and at ``"bf16x3"`` (K4-bf16x3), and runs one PQ
-Lloyd pass on the first 100k and 200k rows (K3), and runs K6 on the
-operands of this checkout's IVF-Flat f32 / bf16 and IVF-SQ searches
-(IVF1024 trained on the first 200k rows, the 1M rows added, 128 queries
-at nprobe 8 and 64). It prints one JSON line
-a case: whether the outputs agree, and the milliseconds a call (CUDA
-events, 5 calls a round) of each version in rounds other, this, this,
-other. K3, K4 and K6 agree bit for bit; the lower-precision encodes by
+bf16 input (K4-bf16) and at ``"bf16x3"`` (K4-bf16x3), runs one PQ
+Lloyd pass on the first 100k and 200k rows (K3) and one k-means Lloyd
+pass on the first 200k rows against 1024 and 256 of the rows (K2), and
+runs K6 on the operands of this checkout's IVF-Flat f32 / bf16 and IVF-SQ
+searches (IVF1024 trained on the first 200k rows, the 1M rows added, 128
+queries at nprobe 8 and 64). It prints one JSON line a case: whether the
+outputs agree, and the milliseconds a call (CUDA events, 5 calls a
+round) of each version in rounds other, this, this, other. K2, K4 and K6
+agree bit for bit; the lower-precision encodes by
 ``cuda_kernels.encode_parity`` (their tensor-core sums may flip a code at
-a float64 near tie), with the share of codes equal. The last line is the
-card's ``nvidia-smi`` name and power limit. Exits 1 if any case
-disagrees.
+a float64 near tie), with the share of codes equal. K3 sums in another
+order than a checkout before its segmented sums stage: there the counts
+agree exactly and the sums and inertia within ``K3_RTOL`` (of each sum
+plus of the largest), and each side is also held to its own plain
+version (this checkout's bit for bit, the other's by the same rule where
+it is not bit-identical). The last line is the card's ``nvidia-smi`` name
+and power limit. Exits 1 if any case disagrees.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from vq_tpu_torch.ops import cuda_kernels as ck
 
 N, DIM, M, K, SEED = 1_000_000, 128, 8, 256, 0
 K3_ROWS = (100_000, 200_000)
+K3_RTOL = 1e-5  # K3 against a checkout that sums in another order
+K2_ROWS, K2_CLUSTERS = 200_000, (1024, 256)
 NLIST, IVF_TRAIN, QUERIES, NPROBES = 1024, 200_000, 128, (8, 64)  # K6's searches
 
 
@@ -109,6 +116,15 @@ def k6_operands(x) -> dict:
     return out
 
 
+def k3_close(a, b) -> bool:
+    """Counts equal; sums within ``K3_RTOL`` of each sum plus ``K3_RTOL``
+    of the largest; inertia within ``K3_RTOL``."""
+    (sa, ca, ia), (sb, cb_, ib) = a, b
+    tol = K3_RTOL * sb.abs() + K3_RTOL * float(sb.abs().max())
+    return (torch.equal(ca, cb_) and bool(((sa - sb).abs() <= tol).all())
+            and abs(float(ia) - float(ib)) <= K3_RTOL * abs(float(ib)))
+
+
 def compare(this: Callable, other: Callable, agree: Callable = None, reps: int = 5):
     """``(agree, this ms [2], other ms [2])``: the outputs bit for bit (or
     by ``agree(this's, other's)``), then rounds other, this, this, other."""
@@ -144,6 +160,12 @@ def main(argv: Sequence[str] = ()) -> int:
     for n in K3_ROWS:
         cases[f"K3 {n}"] = (lambda n=n: ck.pq_lloyd_accumulate_fused(x[:n], cb),
                             lambda n=n: other.pq_lloyd_accumulate_fused(x[:n], cb))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cents = x[torch.randperm(N, generator=g, device="cuda")[:max(K2_CLUSTERS)]]
+    for kc in K2_CLUSTERS:
+        cases[f"K2 {K2_ROWS} x {kc}"] = (
+            lambda kc=kc: ck.lloyd_accumulate_fused(x[:K2_ROWS], cents[:kc]),
+            lambda kc=kc: other.lloyd_accumulate_fused(x[:K2_ROWS], cents[:kc]))
     if any(selected(f"K6 {t} nprobe={p}") for t in ("f32", "bf16", "u8") for p in NPROBES):
         for name, (a, kw) in k6_operands(x).items():
             cases[name] = (lambda a=a, kw=kw: ck.ivf_probe_matvec_fused(*a, **kw),
@@ -159,7 +181,21 @@ def main(argv: Sequence[str] = ()) -> int:
         if not selected(name):
             continue
         extra, agree = {}, None
-        if name in rules:
+        if name.startswith("K3"):
+            n = int(name.split()[1])
+
+            def agree(a, b, n=n):
+                same = [torch.equal(u, v) for u, v in zip(a, b)]
+                this_plain = ck.pq_lloyd_accumulate_plain(x[:n], cb)
+                other_plain = other.pq_lloyd_accumulate_plain(x[:n], cb)
+                extra.update(
+                    bits_equal=same, max_sums_diff=float((a[0] - b[0]).abs().max()),
+                    this_plain_equal=all(torch.equal(u, v) for u, v in zip(a, this_plain)),
+                    other_plain_equal=all(torch.equal(u, v) for u, v in zip(b, other_plain)),
+                    other_plain_close=k3_close(b, other_plain))
+                return (k3_close(a, b) and extra["this_plain_equal"]
+                        and (extra["other_plain_equal"] or extra["other_plain_close"]))
+        elif name in rules:
             xx, p = rules[name]
 
             def agree(a, b, xx=xx, p=p):

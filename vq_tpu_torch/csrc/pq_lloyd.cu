@@ -6,138 +6,141 @@
 // through pq_lloyd_accumulate_fused / _pq_lloyd_accumulate_jit).
 //
 // What bounds it on the card: the assignment, as in K4 (2*n*m*k*s FP32
-// instructions, no FMA); the accumulation adds n*m*s more adds and
-// read-modify-writes that hit L2.
+// instructions, no FMA). The sums stage after it is bound by bytes: x,
+// the codes and the minimum scores read once, the sums written once
+// (n*m*(s + 2)*4 + m*k*s*4 bytes: 0.017 ms at 100k x 8x256x16 and
+// 3.35 TB/s).
 //
 // Design: the TPU grid ran in order and carried the sums in VMEM from
-// one step to the next. Hopper blocks run in parallel, so the pass is
-// three launches, with no atomics anywhere:
+// one step to the next. Hopper blocks run in parallel. K3's sums are K2's
+// sums problem: read x [n, m*s] as [n*m, s], entry q = r*m + i being row
+// r's subspace i, and give it the label i*k + code[r, i]; the sums and
+// counts are then K2's over m*k clusters of s-wide rows, and within a
+// cluster ascending entry order is ascending row order. So the pass is
+// four steps, with no float atomics anywhere:
 //  1. K4's register-tiled scan (pq_scan, pq_encode.cu) writes each row's
 //     code [n, m] i32 and its minimum score [n, m] f32, the exact float
-//     of the winning key.
-//  2. Block (c, i) walks subspace i of its row range in 256-row tiles
-//     and accumulates into its own partial slice: thread j owns centroid
-//     j (and j + 256, ...) and walks the tile's rows in ascending order,
-//     so every partial sum has one fixed order. Counts are integers.
-//     Inertia is summed per thread over its rows, then tree-reduced in a
-//     fixed order into one partial per block.
-//  3. A reduce kernel sums the partials over c in ascending order.
-// The result is deterministic from run to run for a given n (the row
-// partition depends only on n, m, k and s), and equal bit for bit to the
-// one-launch design it replaced, whose scan computed the same keys.
-// Against the plain version, which sums in another order, sums and
-// inertia differ by fp32 rounding only; counts are exact, because both
-// assign with the same arithmetic. Rows past n are never read, so they
-// add nothing to sums, counts or inertia.
+//     of the winning key;
+//  2. pq_terms_kernel turns each code into its label, in place, and sums
+//     the inertia terms t = minval + xx (xx = ||x_s||^2 from +0.0 in
+//     ascending e, one __fmul_rn and __fadd_rn an entry; a NaN t is kept,
+//     any other clamped at 0): block b owns terms [1024 b, 1024 (b + 1)),
+//     thread t of 256 adds terms 1024 b + t + 256 u in ascending u from
+//     +0.0, and the 256 partials fold pairwise in halves;
+//  3. K2's sums stage (vq_segment_sums, lloyd.cu) over the [n*m, s] view
+//     with those labels: counting sort, segment table, one group of 4
+//     lanes a 32-entry segment (a float4 each at s = 16), partials
+//     combined in ascending segment order;
+//  4. K2's inertia sum (vq_inertia_sum, lloyd.cu) over the block partials.
+// Every sum has one fixed order, which pq_lloyd_accumulate_plain repeats
+// (cuda_kernels._segment_sums_plain and _k3_inertia), so sums, counts and
+// inertia are bit-identical to the plain version and from run to run.
+// The scratch is O(n*m) ints, the (chunk, cluster) cursors (at most 2^24)
+// and at most 2*n*m/32 partial rows of s floats: no per-block copies of
+// the [m, k, s] sums.
 #include "common.cuh"
 
 using namespace vqk;
 
-__global__ void __launch_bounds__(kThreads)
-    pq_lloyd_partial_kernel(const float* __restrict__ x,
-                            const int* __restrict__ codes,
-                            const float* __restrict__ minval,
-                            float* __restrict__ psums,
-                            int* __restrict__ pcounts,
-                            float* __restrict__ pinertia, long long n, int m,
-                            int k, int s, long long rows_per_block) {
-  __shared__ int tile_codes[kThreads];
-  __shared__ float red[kThreads];
+extern "C" int vq_segment_sums(const float* x, const float* w,
+                               const int* labels, int* chunk_counts,
+                               int* totals, int* offsets, int* perm,
+                               int* seg_off, int* pseg_off, int* seg_cluster,
+                               float* psums, float* pcounts, float* sums,
+                               float* counts, long long rows, int k, int d,
+                               long long rows_per_chunk, int chunks,
+                               long long max_segs, int vec, void* stream);
+extern "C" int vq_inertia_sum(const float* terms, const float* w, float* out,
+                              long long n, void* stream);
 
-  const int i = blockIdx.y;
-  const size_t slot = (size_t)blockIdx.x * m + i;
-  float* ps = psums + slot * k * s;
-  int* pc = pcounts + slot * k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {  // owner-zeroed
-    for (int e = 0; e < s; ++e) ps[(size_t)j * s + e] = 0.f;
-    pc[j] = 0;
-  }
+namespace {
 
-  const long long d = (long long)m * s;
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = min(n, r0 + rows_per_block);
-  float inertia = 0.f;
-  for (long long base = r0; base < r1; base += blockDim.x) {
-    const long long row = base + threadIdx.x;
-    const bool valid = row < r1;
-    const float* xs = x + (valid ? row : 0) * d + (long long)i * s;
-    const int best_idx = valid ? codes[row * m + i] : -1;
-    if (valid) {
-      float xx = 0.f;
-      for (int e = 0; e < s; ++e) xx = __fadd_rn(xx, __fmul_rn(xs[e], xs[e]));
-      const float t = __fadd_rn(minval[row * m + i], xx);
-      inertia = __fadd_rn(inertia, isnan(t) ? t : fmaxf(t, 0.f));
+constexpr int kTermThreads = 256;  // cuda_kernels._K3_TERM_THREADS
+constexpr int kTermsPerThread = 4;
+constexpr int kBlockTerms = kTermThreads * kTermsPerThread;  // _K3_BLOCK_TERMS
+
+// ||x_s||^2 of one entry: from +0.0 in ascending e, each square rounded.
+template <bool kVec>
+__device__ __forceinline__ float sq_norm(const float* __restrict__ xs, int s) {
+  float xx = 0.f;
+  if constexpr (kVec) {
+    for (int e = 0; e < s; e += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(xs + e));
+      xx = __fadd_rn(xx, __fmul_rn(v.x, v.x));
+      xx = __fadd_rn(xx, __fmul_rn(v.y, v.y));
+      xx = __fadd_rn(xx, __fmul_rn(v.z, v.z));
+      xx = __fadd_rn(xx, __fmul_rn(v.w, v.w));
     }
-    tile_codes[threadIdx.x] = best_idx;
-    __syncthreads();
-    const int rows = (int)min((long long)blockDim.x, r1 - base);
-    for (int j = threadIdx.x; j < k; j += blockDim.x) {
-      float* psj = ps + (size_t)j * s;
-      for (int r = 0; r < rows; ++r) {
-        if (tile_codes[r] != j) continue;
-        pc[j] += 1;
-        const float* xr = x + (base + r) * d + (long long)i * s;
-        for (int e = 0; e < s; ++e) psj[e] = __fadd_rn(psj[e], xr[e]);
-      }
-    }
-    __syncthreads();
+  } else {
+    for (int e = 0; e < s; ++e) xx = __fadd_rn(xx, __fmul_rn(xs[e], xs[e]));
   }
-  red[threadIdx.x] = inertia;
+  return xx;
+}
+
+// Labels in place (code + i*k for entry q = r*m + i) and one inertia
+// partial a block of kBlockTerms entries.
+template <bool kVec>
+__global__ void __launch_bounds__(kTermThreads, 1)
+    pq_terms_kernel(const float* __restrict__ x,
+                    const float* __restrict__ minval, int* __restrict__ labels,
+                    float* __restrict__ partials, long long terms, int m,
+                    int k, int s) {
+  __shared__ float red[kTermThreads];
+  const long long q0 = (long long)blockIdx.x * kBlockTerms + threadIdx.x;
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < kTermsPerThread; ++u) {
+    const long long q = q0 + (long long)u * kTermThreads;
+    if (q < terms) {
+      labels[q] += (int)(q % m) * k;
+      const float t = __fadd_rn(minval[q], sq_norm<kVec>(x + q * s, s));
+      acc = __fadd_rn(acc, isnan(t) ? t : fmaxf(t, 0.f));
+    }
+  }
+  red[threadIdx.x] = acc;
   __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w)
-      red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + w]);
+  for (int half = kTermThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half)
+      red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + half]);
     __syncthreads();
   }
-  if (threadIdx.x == 0) pinertia[slot] = red[0];
+  if (threadIdx.x == 0) partials[blockIdx.x] = red[0];
 }
 
-__global__ void pq_lloyd_reduce_kernel(const float* __restrict__ psums,
-                                       const int* __restrict__ pcounts,
-                                       const float* __restrict__ pinertia,
-                                       float* __restrict__ sums,
-                                       float* __restrict__ counts,
-                                       float* __restrict__ inertia, int chunks,
-                                       long long mks, long long mk, int m) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < mks) {
-    float a = 0.f;
-    for (int c = 0; c < chunks; ++c) a = __fadd_rn(a, psums[c * mks + t]);
-    sums[t] = a;
-  }
-  if (t < mk) {
-    long long a = 0;
-    for (int c = 0; c < chunks; ++c) a += pcounts[c * mk + t];
-    counts[t] = (float)a;
-  }
-  if (t == 0) {
-    float a = 0.f;
-    for (long long q = 0; q < (long long)chunks * m; ++q)
-      a = __fadd_rn(a, pinertia[q]);
-    *inertia = a;
-  }
-}
+}  // namespace
 
+// codes / minval [n*m] and partials [ceil(n*m / 1024)] are scratch (codes
+// end as labels); the segment-sum scratch and sizes are vq_segment_sums'
+// at n*m rows of s and m*k clusters; vec: s % 4 == 0 and x 16-byte
+// aligned.
 extern "C" int vq_pq_lloyd(const float* x, const float* cb, const float* cc,
-                           int* codes, float* minval, float* psums,
-                           int* pcounts, float* pinertia, float* sums,
+                           int* codes, float* minval, float* partials,
+                           int* chunk_counts, int* totals, int* offsets,
+                           int* perm, int* seg_off, int* pseg_off,
+                           int* seg_cluster, float* psums, float* sums,
                            float* counts, float* inertia, long long n, int m,
                            int k, int s, int resident, int stages, int smem,
-                           long long scan_rows, long long rows_per_block,
-                           int chunks, void* stream) {
+                           long long scan_rows, long long rows_per_chunk,
+                           int chunks, long long max_segs, int vec,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = pq_scan(x, false, cb, cc, codes, minval, n, m, k, s, resident != 0,
                     stages, smem, scan_rows, st);
   if (err != 0) return err;
-  const dim3 grid((unsigned)chunks, (unsigned)m);
-  pq_lloyd_partial_kernel<<<grid, kThreads, 0, st>>>(
-      x, codes, minval, psums, pcounts, pinertia, n, m, k, s, rows_per_block);
+  const long long terms = n * m;
+  const unsigned blocks = (unsigned)((terms + kBlockTerms - 1) / kBlockTerms);
+  if (vec)
+    pq_terms_kernel<true><<<blocks, kTermThreads, 0, st>>>(
+        x, minval, codes, partials, terms, m, k, s);
+  else
+    pq_terms_kernel<false><<<blocks, kTermThreads, 0, st>>>(
+        x, minval, codes, partials, terms, m, k, s);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const long long mks = (long long)m * k * s;
-  const unsigned nblk = (unsigned)((mks + kThreads - 1) / kThreads);
-  pq_lloyd_reduce_kernel<<<nblk, kThreads, 0, st>>>(
-      psums, pcounts, pinertia, sums, counts, inertia, chunks, mks,
-      (long long)m * k, m);
-  return (int)cudaGetLastError();
+  err = vq_segment_sums(x, nullptr, codes, chunk_counts, totals, offsets, perm,
+                        seg_off, pseg_off, seg_cluster, psums, nullptr, sums,
+                        counts, terms, m * k, s, rows_per_chunk, chunks,
+                        max_segs, vec, stream);
+  if (err != 0) return err;
+  return vq_inertia_sum(partials, nullptr, inertia, blocks, stream);
 }

@@ -53,11 +53,12 @@ _SIGNATURES = {
     # tables, codes, codes_are_u8, out, nq, m, k, n, group, tab_in_smem,
     # rows_per_block, stream
     "vq_adc_lookup": (_P, _P, _I, _P, _I, _I, _I, _LL, _I, _I, _LL, _P),
-    # x, cb, cc, codes, minval, psums, pcounts, pinertia, sums, counts,
-    # inertia, n, m, k, s, resident, stages, smem, scan_rows,
-    # rows_per_block, chunks, stream
-    "vq_pq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _LL, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _P),
+    # x, cb, cc, codes, minval, partials, chunk_counts, totals, offsets,
+    # perm, seg_off, pseg_off, seg_cluster, psums, sums, counts, inertia,
+    # n, m, k, s, resident, stages, smem, scan_rows, rows_per_chunk,
+    # chunks, max_segs, vec, stream
+    "vq_pq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _LL, _I, _P),
     # tables, codes_t, qn2, offsets, vals, ids, nq, m, k, kpad, n, tile,
     # fetch, mode, pack_bits, tab_in_smem, ntiles, stream
     "vq_adc_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,

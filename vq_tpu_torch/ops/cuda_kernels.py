@@ -83,7 +83,6 @@ __all__ = [
 _INT_MAX = 0x7FFFFFFF
 _INF_KEY = 0x7F800000  # orderable_key(+inf)
 TOP_LANES = 128  # candidate lanes per tile, as on the TPU
-_THREADS = 256  # rows per tile of K3's sums walk (csrc/common.cuh kThreads)
 _SMEM_BYTES = 48 * 1024  # shared memory a block uses without opting in
 SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (227 KB)
 _SCAN_ROWS = 128  # rows of a PQ scan tile, and centroids a pass (csrc/pq_encode.cu kBM, kBN)
@@ -91,7 +90,6 @@ _SCAN_SLICE = 64  # dimensions of a streamed PQ scan slice (kBK)
 _SCAN_BLOCKS = 2 * 132  # resident PQ scan blocks: two waves of one a SM
 _TARGET_BLOCKS = 132 * 8  # SMs x resident 256-thread blocks
 _LOWP_BLOCKS = 132 * 4  # K4-bf16 / K4-bf16x3 blocks of 4 warps in all, at most
-_PARTIAL_BYTES = 256 << 20  # K3's per-block partial sums, at most
 _ADC_MODES = {"sum": 0, "l2": 1, "dot": 2}
 _PLAIN_ROWS = 16_384  # row block of the plain K3/K4 ([B, m, k] scores)
 _PLAIN_CELLS = 1 << 22  # [B, k] scores per block of the plain K1
@@ -99,6 +97,8 @@ _CHUNK_ROWS = 1024  # K2's rows per counting-sort chunk, at least
 _CHUNK_CELLS = 1 << 24  # K2's (chunk, cluster) cursors, at most
 _INERTIA_THREADS = 1024  # K2's inertia partial sums (csrc/lloyd.cu kScanThreads)
 _SEGMENT_ROWS = 32  # K2's rows a segment of a cluster's sum (csrc/lloyd.cu kSegRows)
+_K3_TERM_THREADS = 256  # K3's inertia partials a block (csrc/pq_lloyd.cu kTermThreads)
+_K3_BLOCK_TERMS = 1024  # K3's inertia terms a block (csrc/pq_lloyd.cu kBlockTerms)
 _PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
 _K6_SEGMENT = 128  # entries a warp of K6's work-list pass, at least
 _K6_TASK = 32  # work entries a task of K6's matvec, at most (csrc/ivf_matvec.cu kTaskEntries)
@@ -181,16 +181,6 @@ def _launch(fn, *args) -> None:
     err = getattr(LIBRARY.get(), fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
-
-
-def _rows_per_block(n: int, m: int, cap_blocks: Optional[int] = None) -> int:
-    """Rows each (row range, subspace) block owns: enough blocks to fill
-    the card, in whole 256-row tiles."""
-    chunks = max(1, _TARGET_BLOCKS // max(m, 1))
-    if cap_blocks is not None:
-        chunks = max(1, min(chunks, cap_blocks))
-    rows = -(-n // chunks)
-    return -(-rows // _THREADS) * _THREADS
 
 
 def _check_pq_operands(x: torch.Tensor, codebooks: torch.Tensor):
@@ -326,24 +316,23 @@ def _k2_inertia(v: torch.Tensor) -> torch.Tensor:
     return acc[0]
 
 
-def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
-                           weights: Optional[torch.Tensor] = None):
-    """Plain version of K2 -> ``(sums [k, d], counts [k], inertia [])``, in
-    the kernel's segmented order: :func:`assign_plain`; each cluster's rows,
-    in ascending row order, cut into segments of ``_SEGMENT_ROWS`` (S)
-    rows; each segment's partial added from +0.0 in ascending row order,
-    one rounded add a row; each cluster's partials added to +0.0 in
-    ascending segment order. With ``weights [n]`` the terms are w·x, each
-    product rounded before it is added, and the counts Σ w in the same
-    order; without, the counts are the exact row counts. The inertia is
-    Σ d (Σ w·d) in K2's order. S steps over the position in a segment, each
-    adding one row to every segment that has one, then one step a segment
-    of the largest cluster, each adding one partial to every cluster that
-    still has one (O(n·d + k·S·d) work in all)."""
-    codes, dists = assign_plain(x, centroids)
-    (n, d), k, dev = x.shape, centroids.shape[0], x.device
-    w = _check_weights(weights, n)
-    idx = codes.to(torch.int64)
+def _segment_sums_plain(x: torch.Tensor, labels: torch.Tensor, k: int,
+                        w: Optional[torch.Tensor] = None):
+    """``(sums [k, d], counts [k])`` of the rows ``x [N, d]`` f32 by
+    ``labels [N]`` in ``[0, k)``, in the segmented order of K2's and K3's
+    sums stage (``csrc/lloyd.cu`` ``vq_segment_sums``): each cluster's
+    rows, in ascending row order, cut into segments of ``_SEGMENT_ROWS``
+    (S) rows; each segment's partial added from +0.0 in ascending row
+    order, one rounded add a row; each cluster's partials added to +0.0 in
+    ascending segment order. With ``w [N]`` the terms are w·x, each product
+    rounded before it is added, and the counts Σ w in the same order;
+    without, the counts are the exact row counts. S steps over the
+    position in a segment, each adding one row to every segment that has
+    one, then one step a segment of the largest cluster, each adding one
+    partial to every cluster that still has one (O(N·d + k·S·d) work in
+    all)."""
+    (n, d), dev = x.shape, x.device
+    idx = labels.to(torch.int64)
     rows = torch.sort(idx, stable=True)[1]  # by cluster, ascending rows within each
     totals = torch.bincount(idx, minlength=k)
     ends = torch.cumsum(totals, 0)
@@ -353,14 +342,13 @@ def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
     seg = torch.arange(seg_cluster.shape[0], device=dev) - seg_off[seg_cluster]
     end = ends[seg_cluster]  # one past each segment's cluster's last position
     first = end - totals[seg_cluster] + seg * _SEGMENT_ROWS
-    xf = x.to(torch.float32)
     part = torch.zeros((seg_cluster.shape[0], d), dtype=torch.float32, device=dev)
     wpart = torch.zeros((seg_cluster.shape[0],), dtype=torch.float32, device=dev)
     for t in range(_SEGMENT_ROWS if n else 0):
         pos = first + t
         has_row = pos < end
         r = rows[pos.clamp(max=n - 1)]
-        term = xf[r] if w is None else w[r, None] * xf[r]
+        term = x[r] if w is None else w[r, None] * x[r]
         part = torch.where(has_row[:, None], part + term, part)
         if w is not None:
             wpart = torch.where(has_row, wpart + w[r], wpart)
@@ -377,7 +365,67 @@ def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
         sums[cl] = sums[cl] + part[p]
         if w is not None:
             counts[cl] = counts[cl] + wpart[p]
+    return sums, counts
+
+
+def lloyd_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None):
+    """Plain version of K2 -> ``(sums [k, d], counts [k], inertia [])``, in
+    the kernel's order: :func:`assign_plain`, then the sums and counts of
+    the rows by code in the segmented order (:func:`_segment_sums_plain`;
+    with ``weights [n]``, Σ w·x and Σ w; without, exact row counts), and
+    the inertia Σ d (Σ w·d) in K2's order (:func:`_k2_inertia`)."""
+    codes, dists = assign_plain(x, centroids)
+    w = _check_weights(weights, x.shape[0])
+    sums, counts = _segment_sums_plain(x.to(torch.float32), codes, centroids.shape[0], w)
     return sums, counts, _k2_inertia(dists if w is None else w * dists)
+
+
+class _SegmentScratch(NamedTuple):
+    """Scratch and launch sizes of the sums stage (``vq_segment_sums``) over
+    ``rows`` rows of ``d`` and ``k`` clusters."""
+
+    rows_per_chunk: int
+    chunks: int
+    max_segs: int
+    chunk_counts: torch.Tensor
+    totals: torch.Tensor
+    offsets: torch.Tensor
+    perm: torch.Tensor
+    seg_off: torch.Tensor
+    pseg_off: torch.Tensor
+    seg_cluster: torch.Tensor
+    psums: torch.Tensor
+    pcounts: Optional[torch.Tensor]
+
+    def pointers(self):
+        """Device pointers of chunk_counts .. seg_cluster, in the C order."""
+        return tuple(t.data_ptr() for t in (
+            self.chunk_counts, self.totals, self.offsets, self.perm, self.seg_off,
+            self.pseg_off, self.seg_cluster))
+
+
+def _segment_scratch(rows: int, k: int, d: int, dev, weighted: bool) -> _SegmentScratch:
+    """Sizes: chunks of at least ``_CHUNK_ROWS`` rows with chunks·k at most
+    ``_CHUNK_CELLS``; at most rows / S + min(k, rows) segments; at most
+    2·rows / S partial rows (segments of clusters of more than S rows)."""
+    if rows > _INT_MAX:
+        raise InvalidParameter(
+            "x", f"{rows} rows to sum do not fit in an int32 row id (at most {_INT_MAX})"
+        )
+    chunks = max(1, min(-(-rows // _CHUNK_ROWS), _CHUNK_CELLS // k))
+    per = -(-rows // chunks)
+    chunks = -(-rows // per)
+    max_segs = rows // _SEGMENT_ROWS + min(k, rows)  # sum of ceil(total / S)
+    max_parts = max(1, 2 * rows // _SEGMENT_ROWS)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return _SegmentScratch(
+        per, chunks, max_segs, torch.empty((chunks, k), **i32), torch.empty((k,), **i32),
+        torch.empty((k,), **i32), torch.empty((rows,), **i32), torch.empty((k + 1,), **i32),
+        torch.empty((k,), **i32), torch.empty((max_segs,), **i32),
+        torch.empty((max_parts, d), **f32),
+        torch.empty((max_parts,), **f32) if weighted else None)
 
 
 def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor,
@@ -404,28 +452,15 @@ def lloyd_accumulate_fused(x: torch.Tensor, centroids: torch.Tensor,
     if n == 0:
         return sums.zero_(), counts.zero_(), inertia.zero_()
     cc = (c * c).sum(-1).contiguous()
-    chunks = max(1, min(-(-n // _CHUNK_ROWS), _CHUNK_CELLS // k))
-    rows = -(-n // chunks)
-    chunks = -(-n // rows)
-    max_segs = n // _SEGMENT_ROWS + min(k, n)  # sum of ceil(total / S)
-    max_parts = max(1, 2 * n // _SEGMENT_ROWS)  # segments of clusters of > S rows
-    i32 = dict(dtype=torch.int32, device=dev)
-    codes, perm = torch.empty((n,), **i32), torch.empty((n,), **i32)
+    sc = _segment_scratch(n, k, d, dev, w is not None)
+    codes = torch.empty((n,), dtype=torch.int32, device=dev)
     dists = torch.empty((n,), dtype=torch.float32, device=dev)
-    chunk_counts = torch.empty((chunks, k), **i32)
-    totals, offsets = torch.empty((k,), **i32), torch.empty((k,), **i32)
-    seg_off, pseg_off = torch.empty((k + 1,), **i32), torch.empty((k,), **i32)
-    seg_cluster = torch.empty((max_segs,), **i32)
-    psums = torch.empty((max_parts, d), dtype=torch.float32, device=dev)
-    pcounts = None if w is None else torch.empty((max_parts,), dtype=torch.float32, device=dev)
     vec = d % 4 == 0 and x.data_ptr() % 16 == 0
     _launch(
         "vq_lloyd", x.data_ptr(), None if w is None else w.data_ptr(), c.data_ptr(),
-        cc.data_ptr(), codes.data_ptr(), dists.data_ptr(), chunk_counts.data_ptr(),
-        totals.data_ptr(), offsets.data_ptr(), perm.data_ptr(), seg_off.data_ptr(),
-        pseg_off.data_ptr(), seg_cluster.data_ptr(), psums.data_ptr(),
-        None if pcounts is None else pcounts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        inertia.data_ptr(), n, k, d, rows, chunks, max_segs, int(vec),
+        cc.data_ptr(), codes.data_ptr(), dists.data_ptr(), *sc.pointers(), sc.psums.data_ptr(),
+        None if sc.pcounts is None else sc.pcounts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        inertia.data_ptr(), n, k, d, sc.rows_per_chunk, sc.chunks, sc.max_segs, int(vec),
     )
     lloyd_accumulate_fused.launches += 1
     return sums, counts, inertia
@@ -664,64 +699,101 @@ pq_encode_fused.launches_by = dict.fromkeys(ENCODE_PRECISIONS, 0)
 # ---------------------------------------------------------------------------
 
 
+def _pq_scan_plain(x: torch.Tensor, cb: torch.Tensor):
+    """``(codes [n, m] i32, smin [n, m] f32)``: K4's arithmetic (the int2
+    argmin of ``cc - 2 * dot`` and the minimum score itself) in
+    ``_PLAIN_ROWS`` blocks."""
+    n, (m, k, s) = x.shape[0], cb.shape
+    cc = (cb * cb).sum(-1)
+    codes = torch.empty((n, m), dtype=torch.int32, device=x.device)
+    smin = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    for b0 in range(0, n, _PLAIN_ROWS):
+        xs = x[b0:b0 + _PLAIN_ROWS].to(torch.float32).reshape(-1, m, s)
+        smin[b0:b0 + _PLAIN_ROWS], codes[b0:b0 + _PLAIN_ROWS] = int_argmin(_scores_plain(xs, cb, cc))
+    return codes, smin
+
+
+def _k3_inertia(terms: torch.Tensor) -> torch.Tensor:
+    """``terms``' sum in K3's inertia order: block b of ``_K3_BLOCK_TERMS``
+    terms, thread t of ``_K3_TERM_THREADS`` adding terms b·1024 + t + 256·u
+    in ascending u from +0.0, the 256 partials folded pairwise in halves,
+    then the block partials in K2's order (:func:`_k2_inertia`)."""
+    blocks = max(1, -(-terms.shape[0] // _K3_BLOCK_TERMS))
+    v = torch.nn.functional.pad(terms, (0, blocks * _K3_BLOCK_TERMS - terms.shape[0]))
+    v = v.view(blocks, -1, _K3_TERM_THREADS)
+    acc = torch.zeros((blocks, _K3_TERM_THREADS), dtype=torch.float32, device=terms.device)
+    for u in range(v.shape[1]):
+        acc = acc + v[:, u]
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    return _k2_inertia(acc[:, 0])
+
+
 def pq_lloyd_accumulate_plain(x: torch.Tensor, codebooks: torch.Tensor):
-    """Plain version of K3 -> ``(sums [m, k, s], counts [m, k], inertia [])``."""
+    """Plain version of K3 -> ``(sums [m, k, s], counts [m, k], inertia [])``,
+    in the kernel's order: :func:`_pq_scan_plain`; the sums and counts of
+    the ``[n·m, s]`` view of ``x`` labelled ``i·k + code`` (entry r·m + i:
+    row r's subspace i) over m·k clusters, in the segmented order
+    (:func:`_segment_sums_plain`, one call over all rows, since a cluster's
+    segments cross row blocks); the inertia terms ``smin + xx`` (``xx``
+    from +0.0 in ascending e, NaN kept, the rest clamped at 0) summed in
+    row-major order in K3's order (:func:`_k3_inertia`)."""
     m, k, s = _check_pq_operands(x, codebooks)
     cb = codebooks.to(torch.float32)
-    cc = (cb * cb).sum(-1)
-    dev = x.device
-    sums = torch.zeros((m * k, s), dtype=torch.float32, device=dev)
-    counts = torch.zeros((m * k,), dtype=torch.int64, device=dev)
-    inertia = torch.zeros((), dtype=torch.float32, device=dev)
-    offs = torch.arange(m, device=dev) * k
-    for b0 in range(0, x.shape[0], _PLAIN_ROWS):
-        xs = x[b0:b0 + _PLAIN_ROWS].to(torch.float32).reshape(-1, m, s)
-        smin, idx = int_argmin(_scores_plain(xs, cb, cc))
-        flat = (idx.to(torch.int64) + offs).reshape(-1)
-        sums.index_add_(0, flat, xs.reshape(-1, s))
-        counts += torch.bincount(flat, minlength=m * k)
-        t = smin + (xs * xs).sum(-1)
-        inertia = inertia + torch.where(torch.isnan(t), t, t.clamp_min(0.0)).sum()
-    return sums.reshape(m, k, s), counts.reshape(m, k).to(torch.float32), inertia
+    xf = x.to(torch.float32).reshape(-1, s)  # entry r·m + i
+    codes, smin = _pq_scan_plain(x, cb)
+    labels = (codes.to(torch.int64) + torch.arange(m, device=x.device) * k).reshape(-1)
+    sums, counts = _segment_sums_plain(xf, labels, m * k)
+    xx = torch.zeros((xf.shape[0],), dtype=torch.float32, device=x.device)
+    for e in range(s):
+        xx = xx + xf[:, e] * xf[:, e]
+    t = smin.reshape(-1) + xx
+    inertia = _k3_inertia(torch.where(torch.isnan(t), t, t.clamp_min(0.0)))
+    return sums.reshape(m, k, s), counts.reshape(m, k), inertia
+
+
+def _pq_lloyd_card(x: torch.Tensor, cb: torch.Tensor):
+    """Launch K3 on contiguous f32 card tensors -> ``(sums, counts,
+    inertia, minval [n, m])``: ``minval`` is the scan's minimum score of
+    each (row, subspace), what the inertia terms add ``xx`` to."""
+    m, k, s = _check_pq_operands(x, cb)
+    n, dev = x.shape[0], x.device
+    sums = torch.empty((m, k, s), dtype=torch.float32, device=dev)
+    counts = torch.empty((m, k), dtype=torch.float32, device=dev)
+    inertia = torch.empty((), dtype=torch.float32, device=dev)
+    minval = torch.empty((n, m), dtype=torch.float32, device=dev)
+    if n == 0:
+        return sums.zero_(), counts.zero_(), inertia.zero_(), minval
+    sc = _segment_scratch(n * m, m * k, s, dev, False)
+    cc = (cb * cb).sum(-1).contiguous()
+    plan = pq_scan_plan(n, m, k, s)
+    codes = torch.empty((n, m), dtype=torch.int32, device=dev)  # the labels, in the end
+    partials = torch.empty((-(-n * m // _K3_BLOCK_TERMS),), dtype=torch.float32, device=dev)
+    vec = s % 4 == 0 and x.data_ptr() % 16 == 0
+    _launch(
+        "vq_pq_lloyd", x.data_ptr(), cb.data_ptr(), cc.data_ptr(), codes.data_ptr(),
+        minval.data_ptr(), partials.data_ptr(), *sc.pointers(), sc.psums.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(), n, m, k, s, int(plan.resident),
+        plan.stages, plan.smem, plan.rows_per_block, sc.rows_per_chunk, sc.chunks, sc.max_segs,
+        int(vec),
+    )
+    pq_lloyd_accumulate_fused.launches += 1
+    return sums, counts, inertia, minval
 
 
 def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor):
     """One Lloyd pass over ``x [n, m*s]`` for all m subspaces ->
     ``(sums [m, k, s], counts [m, k], inertia [])``, all f32.
 
-    On the card the result is deterministic from run to run; against the
-    plain version counts are exact and sums and inertia differ by fp32
-    summation order only (``csrc/pq_lloyd.cu``: K4's scan, then the sums
-    walk and the reduce)."""
+    On the card the result is bit-identical from run to run and to the
+    plain version: both sum in one segmented order (``csrc/pq_lloyd.cu``:
+    K4's scan, then K2's sums stage over the ``[n·m, s]`` view)."""
     x = x.to(torch.float32)
     cb = codebooks.to(torch.float32)
     if not _on_card(x, cb):
         return pq_lloyd_accumulate_plain(x, cb)
-    m, k, s = _check_pq_operands(x, cb)
-    x, cb = x.contiguous(), cb.contiguous()
-    n, dev = x.shape[0], x.device
-    sums = torch.zeros((m, k, s), dtype=torch.float32, device=dev)
-    counts = torch.zeros((m, k), dtype=torch.float32, device=dev)
-    inertia = torch.zeros((), dtype=torch.float32, device=dev)
-    if n == 0:
-        return sums, counts, inertia
-    cc = (cb * cb).sum(-1).contiguous()
-    plan = pq_scan_plan(n, m, k, s)
-    rpb = _rows_per_block(n, m, _PARTIAL_BYTES // (m * k * s * 4))
-    chunks = -(-n // rpb)
-    codes = torch.empty((n, m), dtype=torch.int32, device=dev)
-    minval = torch.empty((n, m), dtype=torch.float32, device=dev)
-    psums = torch.empty((chunks, m, k, s), dtype=torch.float32, device=dev)
-    pcounts = torch.empty((chunks, m, k), dtype=torch.int32, device=dev)
-    pinertia = torch.empty((chunks, m), dtype=torch.float32, device=dev)
-    _launch(
-        "vq_pq_lloyd", x.data_ptr(), cb.data_ptr(), cc.data_ptr(), codes.data_ptr(),
-        minval.data_ptr(), psums.data_ptr(), pcounts.data_ptr(), pinertia.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
-        n, m, k, s, int(plan.resident), plan.stages, plan.smem, plan.rows_per_block, rpb, chunks,
-    )
-    pq_lloyd_accumulate_fused.launches += 1
-    return sums, counts, inertia
+    return _pq_lloyd_card(x.contiguous(), cb.contiguous())[:3]
 
 
 pq_lloyd_accumulate_fused.launches = 0
