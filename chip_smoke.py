@@ -82,11 +82,15 @@ Phases, one line each (any failure exits non-zero with no result line):
    device time of each of its launches (K4's scan, the labels and
    inertia partials, K2's sums stage, the inertia sum), and its sums
    stage beside its bytes bound and ``index_add_``; K7 at nprobe 8 and 64,
-   each with its bound; then a
+   each with its bound; K8 at [128, 1M] and on one RQ chunk beside
+   ``embedding_bag``, and on codes that cost one shared-memory wavefront
+   a phase, with its bytes bound at both shapes, its 4-byte lookup floor
+   and its 16-byte design's floor counted on this run's codes
+   (:func:`k8_wavefronts`); then a
    ``torch.profiler`` line a call of the PQ and IVF-PQ trainers,
    ``PQIndex.add``, the IVF adds, ``PQIndex.search``, the IVF-Flat and
    IVF-SQ searches, and the precision and RQ paths (wall, device time,
-   busy share, top kernels);
+   busy share, top kernels, K8's share);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
@@ -1352,6 +1356,8 @@ def phase_new_timings(smi, corpus, queries, res, prec, rqres):
         plain = "not measured" if pms is None else f"{pms:.4f} ms"
         lib = "" if lms is None else f", library call {lms:.4f} ms"
         log("time", f"{name}: kernel {ms:.4f} ms, plain {plain}{lib} | {smi}")
+    k8 = {name: k8_floors(smi, name, *args, t[name][0])
+          for name, args in (("K8", prec["k8_args"]), ("K8_rq_chunk", rqres["k8_args"]))}
     pq, codes = prec["pq"], prec["codes"]
     ms = cuda_ms(lambda: pq.adc_distances(queries, codes), 10)
     with plain_route():
@@ -1372,17 +1378,73 @@ def phase_new_timings(smi, corpus, queries, res, prec, rqres):
             pms = cuda_ms(lambda: idx.search(queries, **kw), 2)
         log("time", f"{name} search 128 queries: {ms:.4f} ms per batch, {N_QUERY / ms * 1e3:.6g} QPS; "
             f"plain route {pms:.4f} ms; recall@10 {rqres['recall'][name]:.4f} | {smi}")
-    return t
+    return t, k8
+
+
+def k8_wavefronts(codes, k: int) -> float:
+    """Shared-memory wavefronts a quad's lookups take in K8 on ``codes
+    [n, m]`` (16-byte entries, 4 rows a thread): a 16-byte load of a
+    warp runs as 4 phases of 8 lanes, and a phase takes as many
+    wavefronts as the most distinct entries that share one of the 8
+    16-byte slots of a 128-byte row of banks (one entry read by several
+    lanes is broadcast). Counted over this run's codes, whole warps of 128
+    rows."""
+    import torch
+
+    n, m = codes.shape
+    c = codes[:n // 128 * 128].long().view(-1, 4, 8, 4, m)  # warp, phase, lane, row, subspace
+    c = c.permute(0, 1, 3, 4, 2).reshape(-1, 8)  # the 8 codes of one phase
+    kp = k if codes.dtype == torch.uint8 and k >= 256 else k + 1  # csrc/adc_lookup.cu's kp
+    sub = torch.arange(m, device=c.device).repeat(c.shape[0] // m)[:, None]
+    entry = (c + sub * kp).sort(1).values
+    distinct = torch.ones_like(entry)
+    distinct[:, 1:] = (entry[:, 1:] != entry[:, :-1]).long()
+    per_slot = torch.zeros_like(entry).scatter_add_(1, entry % 8, distinct)
+    return float(per_slot.amax(1).sum()) * n / (n // 128 * 128)
+
+
+def k8_floors(smi, name, tables, codes, ms):
+    """K8 on codes that cost one shared-memory wavefront a phase, beside
+    its 4-byte lookup floor (Q n m lookups at 32 a clock an SM) and the
+    floor of its 16-byte design on this run's codes, on the same tables."""
+    import torch
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    q, m, k = tables.shape
+    n = codes.shape[0]
+    # The same tables over codes that cost one wavefront a phase: 8 lanes'
+    # codes in 8 distinct slots, or all one code (broadcast).
+    g = torch.Generator(device=codes.device).manual_seed(SEED)
+    lanes = (torch.arange(n, device=codes.device) // 4 % 8)[:, None]
+    spread = (lanes + 8 * torch.randint(0, k // 8, (n, m), generator=g, device=codes.device))
+    calm = {"no bank conflicts": spread.to(codes.dtype), "one code": torch.zeros_like(codes)}
+    calm_ms = {c: cuda_ms(lambda: ck.adc_lookup_fused(tables, v), 20) for c, v in calm.items()}
+    log("time", f"{name} on codes that take one wavefront a phase: " + ", ".join(
+        f"{c} {v:.4f} ms" for c, v in calm_ms.items()) + f"; on this run's codes {ms:.4f} ms | {smi}")
+    sms, mhz = sm_rate()
+    lookups = float(q) * n * m
+    floor4 = lookups / (sms * 32 * mhz * 1e6) * 1e3
+    waves = k8_wavefronts(codes, k) * -(-q // 4)
+    floor16 = waves / (sms * mhz * 1e6) * 1e3
+    log("bound", f"{name}'s shared-memory lookup floor: Q n m = {lookups:.4g} 4-byte table lookups "
+        f"at 32 a clock an SM, {sms} SMs x {mhz:.0f} MHz = {floor4:.4f} ms; K8 at "
+        f"{floor4 / ms:.3f} of it. Its 16-byte design on this run's codes: {waves:.4g} "
+        f"wavefronts ({waves / (lookups / 32):.3f} a 32-lookup warp load) at one a clock an SM = "
+        f"{floor16:.4f} ms; K8 at {floor16 / ms:.3f} of it | {smi}")
+    return calm_ms
 
 
 def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     """Each call of the precision, PQ search and RQ paths, the IVF
     trainers and adds that K1 dominates, and the IVF-Flat / IVF-SQ
     searches, once warm,
-    then once under ``torch.profiler``: wall time (host clock to a
+    then once under ``torch.profiler`` (up to three times, where it
+    recorded no device activity): wall time (host clock to a
     synchronize), device time (the device activities' own time summed),
-    busy share (device over wall, the profiler's host cost included) and
-    the three kernels that took most of it."""
+    busy share (device over wall, the profiler's host cost included), the
+    three kernels that took most of it, and K8's time and share where it
+    ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1422,21 +1484,28 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        for _ in range(3):  # the profiler now and then records no device activity: again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            evts = [e for e in prof.key_averages() if e.device_type == cuda]
+            if evts:
+                break
         dev = sum(e.self_device_time_total for e in evts) / 1e3
         top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
         stages = stage_times(evts)
         k2 = ("; K2's sums stage: " + ", ".join(
             f"{s} {stages[s][0]:.3f} ms x{stages[s][1]:g}" for s in ("sums", "combine") if s in stages)
             if "sums" in stages else "")
+        k8 = [e for e in evts if "adc_lookup_kernel" in e.key]
+        k8_ms = sum(e.self_device_time_total for e in k8) / 1e3
+        k8 = (f"; K8 {k8_ms:.3f} ms x{sum(e.count for e in k8)}, {k8_ms / dev:.2f} of the device time"
+              if k8 else "")
         log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
             + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
-            + k2 + f" | {smi}")
+            + k2 + k8 + f" | {smi}")
 
 
 def make_bench_data(device):
@@ -1613,7 +1682,7 @@ def bench_bounds():
     }
 
 
-def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec):
+def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres):
     """``{kernel: (bound ms, "bytes" or "operations")}`` at the shapes this
     run gave each kernel: each input read once, each output written once,
     the operations over the fp32 (CUDA cores) or bf16 (tensor cores) peak."""
@@ -1647,11 +1716,11 @@ def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec):
             chunks * ch * m + pairs * m * kk * 4 + pairs * pos.numel() * 4 + chains.numel() * 4,
             1.0 * live * m, PEAK_F32)
     out["K6"] = k6_cases[("flat_f32", NPROBES[0])][2][:2]
-    tables8, codes8 = prec["k8_args"]
-    q8, m8, k8 = tables8.shape
-    n8 = codes8.shape[0]
-    out["K8"] = bound(q8 * n8 * 4 + n8 * m8 * codes8.element_size() + q8 * m8 * k8 * 4,
-                      1.0 * q8 * n8 * m8, PEAK_F32)
+    for name, (tables8, codes8) in (("K8", prec["k8_args"]), ("K8_rq_chunk", rqres["k8_args"])):
+        q8, m8, k8 = tables8.shape
+        n8 = codes8.shape[0]
+        out[name] = bound(q8 * n8 * 4 + n8 * m8 * codes8.element_size() + q8 * m8 * k8 * 4,
+                          1.0 * q8 * n8 * m8, PEAK_F32)
     return out
 
 
@@ -1679,7 +1748,7 @@ def main() -> None:
     t.update(phase_flat_timings(smi, queries, flat, k6_cases))
     prec = phase_precision(corpus, queries, main_res)
     rqres = phase_rq_path(corpus, queries, main_res["gt"])
-    t_new = phase_new_timings(smi, corpus, queries, res, prec, rqres)
+    t_new, k8 = phase_new_timings(smi, corpus, queries, res, prec, rqres)
     profile_paths(smi, corpus, queries, main_res, prec, rqres, ivf, flat)
     bd = make_bench_data("cuda")
     b_err = phase_bench_kernels(bd, corpus, kres)
@@ -1696,7 +1765,7 @@ def main() -> None:
     k3_paths = {"pq": launches["pq_lloyd_accumulate_fused"],
                 "ivf_pq": ivf["launches"]["pq_lloyd_accumulate_fused"]}
     k4_paths = {"pq": launches["pq_encode_fused"], "ivf_pq": ivf["launches"]["pq_encode_fused[highest]"]}
-    bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec)
+    bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     bbounds = bench_bounds()
     bounds.update({k: v for k, v in bbounds.items() if k != "B2_design_floor"})
     src = "vq_tpu_torch/csrc/"
@@ -1742,8 +1811,12 @@ def main() -> None:
         row("pq_encode_fused[bf16x3]", "pq_encode.cu", "420", pl["pq_encode_fused[bf16x3]"],
             lowp_gap["bf16x3"], "K4_bf16x3", t_new["K4_bf16x3"]),
         row("adc_lookup_fused", "adc_lookup.cu", "727", pl["adc_lookup_fused"] + rl["adc_lookup_fused"],
-            0.0, "K8", t_new["K8"], {"launches_by_path": {"precision": pl["adc_lookup_fused"],
-                                                          "rq": rl["adc_lookup_fused"]}}),
+            0.0, "K8", t_new["K8"], {
+                "launches_by_path": {"precision": pl["adc_lookup_fused"], "rq": rl["adc_lookup_fused"]},
+                "ms_rq_chunk": t_new["K8_rq_chunk"][0], "plain_ms_rq_chunk": t_new["K8_rq_chunk"][1],
+                "library_ms_rq_chunk": t_new["K8_rq_chunk"][2],
+                "bound_ms_rq_chunk": bounds["K8_rq_chunk"][0], "bound_by_rq_chunk": bounds["K8_rq_chunk"][1],
+                "calm_ms": k8["K8"], "calm_ms_rq_chunk": k8["K8_rq_chunk"]}),
         row("mpacked_encode[highest]", "mpacked_encode.cu", "benchmarks/mpacked_encode.py:46",
             bl["mpacked_encode[highest]"], b_err["highest"], "B1_highest", t_bench["B1_highest"]),
         row("mpacked_encode[default]", "mpacked_encode.cu", "benchmarks/mpacked_encode.py:46",
@@ -1759,6 +1832,9 @@ def main() -> None:
     for k in kernels:
         log("bound", f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}), {k['bound_ms'] / k['ms']:.3f} of it | {smi}")
+    b8, ms8 = bounds["K8_rq_chunk"], t_new["K8_rq_chunk"][0]
+    log("bound", f"adc_lookup_fused on one RQ chunk {tuple(rqres['k8_args'][1].shape)}: {ms8:.4f} ms "
+        f"against a bound of {b8[0]:.4f} ms ({b8[1]}), {b8[0] / ms8:.3f} of it | {smi}")
     floor, kt_ms = bbounds["B2_design_floor"], t_bench["B2_adc_kt"][0]
     log("bound", f"adc_kt's own design floor, its three one-hot bf16 products at the tensor-core "
         f"peak: {floor:.4f} ms, {floor / kt_ms:.3f} of its time | {smi}")

@@ -156,28 +156,76 @@ def test_pq_encode_nan_centroid_same_codes_on_the_card(card, precision, bad):
     assert not bool(torch.signbit(nans).any()), nans.view(torch.int32)
 
 
-# (code type, Q, m, k, n): tables of six queries in shared memory with a
-# ragged n and Q; 32 KB a query (one a block); tables past shared memory
-# (read through L2); m past the 32 codes kept in registers; i32 codes
-# outside [0, k).
+# (code type, Q, m, k, n): u8 at k = 256 (no range check) with a ragged
+# last quad (Q = 20) and n past a block's rows and not a multiple of 4;
+# 128 KB a quad (one a block, k + 1 entries); tables past the opt-in
+# window (read through L2), i32 and u8; m past 32 and m = 12 (16-byte and
+# 4-byte code words in chunks of 8 then 4); i32 codes outside [0, k),
+# INT_MIN and INT_MAX among them, and u8 codes >= k = 37 (the zero entry);
+# Q = 1 (cosine's reconstruction norms), Q = 5 and Q = 127 (ragged quads);
+# n = 1 and n = 3; m = 1; the [128, RQ chunk + 3] shape.
 _LOOKUP_SHAPES = [("u8", 20, 8, 256, 70_001), ("i32", 7, 8, 1000, 5000),
-                  ("i32", 3, 4, 4096, 3001), ("u8", 5, 40, 16, 2000), ("i32-oob", 9, 6, 100, 4099)]
+                  ("i32", 3, 4, 4096, 3001), ("u8", 5, 40, 16, 2000), ("i32-oob", 9, 6, 100, 4099),
+                  ("u8", 1, 8, 256, 100_003), ("u8", 5, 8, 256, 3), ("u8", 127, 8, 256, 1),
+                  ("u8", 128, 8, 256, 262_147), ("u8-oob", 6, 8, 37, 5001), ("u8", 9, 1, 256, 999),
+                  ("i32", 4, 12, 64, 10_241), ("u8", 3, 12, 300, 4097), ("i32-oob", 2, 3, 5000, 777),
+                  ("u8", 6, 2, 9000, 1030), ("i32-oob", 127, 8, 256, 2050)]
+
+
+def _lookup_operands(card, ctype, q, m, k, n, seed=12):
+    g = torch.Generator(device=card).manual_seed(seed)
+    tables = torch.randn(q, m, k, generator=g, device=card)
+    if ctype.startswith("u8"):
+        hi = 256 if ctype == "u8-oob" else min(k, 256)
+        codes = torch.randint(0, hi, (n, m), generator=g, device=card).to(torch.uint8)
+        if ctype == "u8-oob":
+            assert bool((codes >= k).any())
+    else:
+        lo, hi = (-5, k + 5) if ctype == "i32-oob" else (0, k)
+        codes = torch.randint(lo, hi, (n, m), generator=g, device=card, dtype=torch.int32)
+        if ctype == "i32-oob":
+            codes.view(-1)[::97] = -2 ** 31
+            codes.view(-1)[1::89] = 2 ** 31 - 1
+    return tables, codes
 
 
 @pytest.mark.parametrize("shape", _LOOKUP_SHAPES, ids=lambda c: "%s-Q%d-m%d-k%d-n%d" % c)
 def test_adc_lookup_matches_plain(card, shape):
+    """K8 bit for bit against its plain version, and the same sums from
+    the codes as u8, i32 and i64 (the range check compiled out, the zero
+    entry, the clamp of the wrapper's cast)."""
     ctype, q, m, k, n = shape
-    g = torch.Generator(device=card).manual_seed(12)
-    tables = torch.randn(q, m, k, generator=g, device=card)
-    if ctype == "u8":
-        codes = torch.randint(0, k, (n, m), generator=g, device=card).to(torch.uint8)
-    else:
-        lo, hi = (-5, k + 5) if ctype == "i32-oob" else (0, k)
-        codes = torch.randint(lo, hi, (n, m), generator=g, device=card, dtype=torch.int32)
+    tables, codes = _lookup_operands(card, *shape)
     got = ck.adc_lookup_fused(tables, codes)
     torch.cuda.synchronize()
+    assert got.shape == (q, n)
     assert torch.equal(got, ck.adc_lookup_plain(tables, codes))
     assert torch.equal(ck.adc_lookup_fused(tables, codes.to(torch.int64)), got)
+    if codes.dtype == torch.uint8:
+        assert torch.equal(ck.adc_lookup_fused(tables, codes.to(torch.int32)), got)
+
+
+@pytest.mark.parametrize("shape", [("u8", 7, 8, 256, 5003), ("u8-oob", 5, 4, 37, 998),
+                                   ("i32-oob", 3, 3, 5000, 1001)],
+                         ids=lambda c: "%s-Q%d-m%d-k%d-n%d" % c)
+def test_adc_lookup_inf_nan_negative_zero(card, shape):
+    """Tables holding +-inf, NaN and -0.0: bit for bit against the plain
+    version (the card's NaN is the one positive canonical NaN), and no
+    sum is -0.0 (each starts from +0.0)."""
+    tables, codes = _lookup_operands(card, *shape, seed=18)
+    flat = tables.view(-1)
+    flat[::7] = -0.0
+    flat[1::11] = float("inf")
+    flat[2::13] = float("-inf")
+    flat[3::101] = float("nan")
+    tables[:, :, 0] = -0.0
+    codes[: codes.shape[0] // 2] = 0  # rows that pick -0.0 in every subspace
+    got = ck.adc_lookup_fused(tables, codes)
+    torch.cuda.synchronize()
+    want = ck.adc_lookup_plain(tables, codes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isnan(got).any()) and bool(torch.isinf(got).any())
+    assert not bool(torch.signbit(got[got == 0]).any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

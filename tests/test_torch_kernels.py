@@ -324,6 +324,30 @@ def test_adc_lookup_matches_pallas(case):
         assert ((codes < 0) | (codes >= k)).any()
 
 
+# (code type, Q, m, k, n) at the edges of K8's tiling on the card: Q = 1
+# (cosine's reconstruction norms) and a ragged last quad of queries, n
+# below one thread's 4 rows, m = 1 and m past 32, u8 codes >= k.
+_LOOKUP_SHAPES = [("u8", 1, 8, 256, 1001), ("u8-oob", 127, 3, 37, 3), ("i32", 6, 1, 256, 700),
+                  ("u8", 5, 40, 16, 515)]
+
+
+@pytest.mark.parametrize("shape", _LOOKUP_SHAPES, ids=lambda c: "%s-Q%d-m%d-k%d-n%d" % c)
+def test_adc_lookup_shapes_match_pallas(shape):
+    """K8's plain version against the Pallas kernel at the shapes the
+    card's tiling has to survive, bit for bit."""
+    ctype, q, m, k, n = shape
+    rng = np.random.default_rng(q + m + n)
+    tables = rng.normal(0, 2, (q, m, k)).astype(np.float32)
+    hi = 256 if ctype == "u8-oob" else k
+    codes = rng.integers(0, hi, (n, m)).astype(np.int32 if ctype == "i32" else np.uint8)
+    want = np.asarray(pk.adc_lookup_fused(tables, codes, block_cols=512, interpret=True))
+    got = ck.adc_lookup_fused(_t(tables), _t(codes))
+    assert got.shape == (q, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if ctype == "u8-oob":
+        assert (codes >= k).any()
+
+
 def test_adc_lookup_equals_the_pq_adc_sum():
     """``models.pq._adc_lookup`` is K8, and K8 equals the sum of gathers
     in subspace order (the order every ADC path shares)."""

@@ -1,5 +1,5 @@
-"""K2, K3, K4, K4-bf16, K4-bf16x3 and K6 of this checkout beside another
-checkout's, on one card.
+"""K2, K3, K4, K4-bf16, K4-bf16x3, K6 and K8 of this checkout beside
+another checkout's, on one card.
 
     python3 -m vq_tpu_torch.benchmarks.pq_scan_ab --against DIR
 
@@ -16,10 +16,14 @@ Lloyd pass on the first 100k and 200k rows (K3) and one k-means Lloyd
 pass on the first 200k rows against 1024 and 256 of the rows (K2), and
 runs K6 on the operands of this checkout's IVF-Flat f32 / bf16 and IVF-SQ
 searches (IVF1024 trained on the first 200k rows, the 1M rows added, 128
-queries at nprobe 8 and 64). It prints one JSON line a case: whether the
+queries at nprobe 8 and 64), and runs K8 on squared-L2 ADC tables of 128
+queries against those codebooks over the 1M rows' u8 codes
+(``adc_distances``' shape) and over the first 262,144 of them (one chunk
+of the RQ scan). It prints one JSON line a case: whether the
 outputs agree, and the milliseconds a call (CUDA events, 5 calls a
-round) of each version in rounds other, this, this, other. K2, K4 and K6
-agree bit for bit; the lower-precision encodes by
+round) of each version in rounds other, this, this, other. K2, K4, K6
+and K8 agree bit for bit (K8 is also held to this checkout's plain
+version); the lower-precision encodes by
 ``cuda_kernels.encode_parity`` (their tensor-core sums may flip a code at
 a float64 near tie), with the share of codes equal. K3 sums in another
 order than a checkout before its segmented sums stage: there the counts
@@ -51,6 +55,7 @@ K3_ROWS = (100_000, 200_000)
 K3_RTOL = 1e-5  # K3 against a checkout that sums in another order
 K2_ROWS, K2_CLUSTERS = 200_000, (1024, 256)
 NLIST, IVF_TRAIN, QUERIES, NPROBES = 1024, 200_000, 128, (8, 64)  # K6's searches
+K8_ROWS = {"K8 [128, 1M]": N, "K8 RQ chunk [128, 262144]": 262_144}
 
 
 def _load(name: str, path: Path) -> ModuleType:
@@ -116,6 +121,18 @@ def k6_operands(x) -> dict:
     return out
 
 
+def k8_operands(x, cb):
+    """K8's operands: squared-L2 ADC tables ``[QUERIES, M, K]`` of seeded
+    queries near rows of ``x`` against ``cb``, and the u8 codes of all
+    ``x`` (this checkout's exact encode)."""
+    g = torch.Generator(device=x.device).manual_seed(SEED + 3)
+    pick = torch.randperm(N, generator=g, device=x.device)[:QUERIES]
+    qs = (x[pick] + 0.05 * torch.randn(QUERIES, DIM, generator=g, device=x.device))
+    qs = qs.reshape(QUERIES, M, 1, DIM // M)
+    tables = ((qs - cb[None]) ** 2).sum(-1).contiguous()
+    return tables, ck.pq_encode_fused(x, cb).to(torch.uint8)
+
+
 def k3_close(a, b) -> bool:
     """Counts equal; sums within ``K3_RTOL`` of each sum plus ``K3_RTOL``
     of the largest; inertia within ``K3_RTOL``."""
@@ -157,6 +174,11 @@ def main(argv: Sequence[str] = ()) -> int:
         "K4 f32 1M": (lambda: ck.pq_encode_fused(x, cb), lambda: other.pq_encode_fused(x, cb)),
         "K4 bf16 1M": (lambda: ck.pq_encode_fused(xb, cb), lambda: other.pq_encode_fused(xb, cb)),
     }
+    if any(selected(name) for name in K8_ROWS):
+        tables, codes = k8_operands(x, cb)
+        for name, n in K8_ROWS.items():
+            cases[name] = (lambda n=n: ck.adc_lookup_fused(tables, codes[:n]),
+                           lambda n=n: other.adc_lookup_fused(tables, codes[:n]))
     for n in K3_ROWS:
         cases[f"K3 {n}"] = (lambda n=n: ck.pq_lloyd_accumulate_fused(x[:n], cb),
                             lambda n=n: other.pq_lloyd_accumulate_fused(x[:n], cb))
@@ -195,6 +217,12 @@ def main(argv: Sequence[str] = ()) -> int:
                     other_plain_close=k3_close(b, other_plain))
                 return (k3_close(a, b) and extra["this_plain_equal"]
                         and (extra["other_plain_equal"] or extra["other_plain_close"]))
+        elif name in K8_ROWS:
+            n = K8_ROWS[name]
+
+            def agree(a, b, n=n):
+                extra.update(this_plain_equal=torch.equal(a, ck.adc_lookup_plain(tables, codes[:n])))
+                return torch.equal(a, b) and extra["this_plain_equal"]
         elif name in rules:
             xx, p = rules[name]
 

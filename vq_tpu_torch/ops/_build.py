@@ -50,9 +50,8 @@ _SIGNATURES = {
     "vq_pq_encode": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
     # x, x_is_bf16, frag, ccp, codes, n, m, k, s, max_blocks, bf16x3, stream
     "vq_pq_encode_lowp": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
-    # tables, codes, codes_are_u8, out, nq, m, k, n, group, tab_in_smem,
-    # rows_per_block, stream
-    "vq_adc_lookup": (_P, _P, _I, _P, _I, _I, _I, _LL, _I, _I, _LL, _P),
+    # tables, codes, codes_are_u8, out, nq, m, k, n, stream
+    "vq_adc_lookup": (_P, _P, _I, _P, _I, _I, _I, _LL, _P),
     # x, cb, cc, codes, minval, partials, chunk_counts, totals, offsets,
     # perm, seg_off, pseg_off, seg_cluster, psums, sums, counts, inertia,
     # n, m, k, s, resident, stages, smem, scan_rows, rows_per_chunk,

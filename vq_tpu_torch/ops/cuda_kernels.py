@@ -112,7 +112,6 @@ ENCODE_PRECISIONS = ("highest", "bf16_fast", "bf16x3")  # K4, K4-bf16, K4-bf16x3
 # max(|score|, 1), and at least MIN_MATCH of the codes are equal.
 TIE_RTOL = 1e-5
 MIN_MATCH = 0.9999
-_LOOKUP_THREADS = 256  # rows per K8 tile (csrc/adc_lookup.cu kLookupThreads)
 
 
 # ---------------------------------------------------------------------------
@@ -1217,17 +1216,8 @@ def adc_lookup_fused(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty((q, n), dtype=torch.float32, device=tables.device)
     if q == 0 or n == 0 or m * k == 0:
         return out.zero_()
-    group = min(q, _SMEM_BYTES // (m * k * 4))  # 0: tables read from device memory
-    in_smem = group > 0
-    group = max(group, 1)
-    groups = -(-q // group)
-    row_blocks = max(1, min(-(-n // _LOOKUP_THREADS), -(-4 * _TARGET_BLOCKS // groups)))
-    rows = -(-n // row_blocks)
-    rows = -(-rows // _LOOKUP_THREADS) * _LOOKUP_THREADS
-    _launch(
-        "vq_adc_lookup", tables.data_ptr(), codes.data_ptr(), int(u8), out.data_ptr(),
-        q, m, k, n, group, int(in_smem), rows,
-    )
+    _launch("vq_adc_lookup", tables.data_ptr(), codes.data_ptr(), int(u8), out.data_ptr(),
+            q, m, k, n)
     adc_lookup_fused.launches += 1
     return out
 
