@@ -88,9 +88,10 @@ Phases, one line each (any failure exits non-zero with no result line):
    and its 16-byte design's floor counted on this run's codes
    (:func:`k8_wavefronts`); then a
    ``torch.profiler`` line a call of the PQ and IVF-PQ trainers,
-   ``PQIndex.add``, the IVF adds, ``PQIndex.search``, the IVF-Flat and
-   IVF-SQ searches, and the precision and RQ paths (wall, device time,
-   busy share, top kernels, K8's share);
+   ``PQIndex.add``, the IVF adds, ``PQIndex.search``, the IVF-Flat,
+   IVF-SQ and IVF-PQ searches (nprobe 8 and 64), and the precision and
+   RQ paths (wall, device time, busy share, top kernels, K7's launches
+   by stage, K8's share);
 12. bench kernels — the benchmark twins' kernels on seeded uniform data
    made on the card (x [1M, 128], codebooks 8x256x16 through
    ``build_w``, tables [128, 8, 256], u8 codes [1M, 8] and their
@@ -179,6 +180,9 @@ K3_STAGES = (("pq scan", "pq_scan_"), ("terms", "pq_terms_kernel")) + K2_STAGES[
 K6_STAGES = (("memset", "Memset"), ("entry pass", "entry_pass_kernel"), ("scan", "bin_scan_kernel"),
              ("cursor", "bin_cursor_kernel"), ("scatter", "entry_scatter_kernel"),
              ("matvec", "chunk_matvec_kernel"))
+# K7's launches (csrc/ivf_probe.cu): the pairs' bins, K6's work list over
+# them (the quads), then the sums.
+K7_STAGES = (("keys", "pair_key_kernel"),) + K6_STAGES[:-1] + (("sums", "ivf_probe_kernel"),)
 # Every kernel wrapper the paths call, and the modules that call it.
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
@@ -1437,14 +1441,14 @@ def k8_floors(smi, name, tables, codes, ms):
 
 def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     """Each call of the precision, PQ search and RQ paths, the IVF
-    trainers and adds that K1 dominates, and the IVF-Flat / IVF-SQ
-    searches, once warm,
+    trainers and adds that K1 dominates, and the IVF-Flat / IVF-SQ and
+    IVF-PQ searches, once warm,
     then once under ``torch.profiler`` (up to three times, where it
     recorded no device activity): wall time (host clock to a
     synchronize), device time (the device activities' own time summed),
     busy share (device over wall, the profiler's host cost included), the
-    three kernels that took most of it, and K8's time and share where it
-    ran."""
+    three kernels that took most of it, K7's launches by stage and K8's
+    time and share where they ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1480,6 +1484,8 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     for name, p in flat["searches"]:
         idx = flat["indexes"][name]
         calls[f"{name} search nprobe={p}"] = lambda idx=idx, p=p: idx.search(queries, k=10, nprobe=p)
+    for p in NPROBES:
+        calls[f"IVFPQIndex.search nprobe={p}"] = lambda p=p: pqi.search(queries, k=10, nprobe=p)
     cuda = torch.autograd.DeviceType.CUDA
     for name, fn in calls.items():
         fn()
@@ -1503,9 +1509,13 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
         k8_ms = sum(e.self_device_time_total for e in k8) / 1e3
         k8 = (f"; K8 {k8_ms:.3f} ms x{sum(e.count for e in k8)}, {k8_ms / dev:.2f} of the device time"
               if k8 else "")
+        k7 = (stage_times(evts, K7_STAGES) if any("ivf_probe_kernel" in e.key for e in evts)
+              else {})
+        k7 = ("; K7: " + ", ".join(f"{s} {ms:.4f} ms x{n:g}" for s, (ms, n) in k7.items())
+              if k7 else "")
         log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
             + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
-            + k2 + k8 + f" | {smi}")
+            + k2 + k7 + k8 + f" | {smi}")
 
 
 def make_bench_data(device):

@@ -598,6 +598,79 @@ def test_ivf_probe_matches_plain(card, shape):
     assert not bool(got[:, ch:2 * ch].any())
 
 
+# List-major K7 (csrc/ivf_probe.cu): pairs grouped by their chain's first
+# chunk into quads. (code type, m, kk, rows a chunk, chain slots, pool
+# chunks, pairs a list, how): "lists" gives each list its own chain of
+# chunks no other list holds (1 to nc of them, the rest -1) and repeats
+# it for each of its pairs, shuffled; "differ_later" then changes a later slot of
+# some pairs' chains (same first chunk, so the same quad); "stray" adds
+# lists with no chunk, ids past the pool and a -1 first slot before live
+# ones. Quads of 1 to 4 pairs, 5 and 70 pairs a list (two and eighteen
+# quads); single-pair lists, as at nprobe 8; 40-slot chains past several
+# tiles of the kernel; u8 codes at kk > 256 (no range check); tables of
+# 1 MB a quad (streamed in groups of 3 subspaces) and of 256 KB a
+# subspace (read from device memory).
+_PROBE_LISTS = {
+    "pairs_per_list_1_3_4_5_70": (torch.uint8, 8, 256, 256, 6, 40, [1, 3, 4, 5, 70], "lists"),
+    "same_first_chunk_differ_later": (torch.uint8, 8, 256, 64, 5, 30, [4, 6, 9, 2], "differ_later"),
+    "single_pair_lists": (torch.uint8, 8, 256, 256, 4, 1200, [1] * 300, "lists"),
+    "long_chains": (torch.uint8, 8, 256, 64, 40, 200, [2, 9, 1, 5, 3], "lists"),
+    "u8_kk300_m12": (torch.uint8, 12, 300, 100, 3, 20, [3, 1, 7], "lists"),
+    "u8_kk16_stray": (torch.uint8, 5, 16, 37, 4, 25, [3, 1, 5, 2], "stray"),
+    "i32_tables_past_227kb": (torch.int32, 16, 4096, 32, 3, 16, [1, 2, 3, 4, 6], "lists"),
+    "i32_subspace_past_227kb": (torch.int32, 3, 16000, 16, 3, 10, [1, 2, 5], "differ_later"),
+}
+
+
+def _probe_lists(card, case, seed=23):
+    """(tables, chains, pool, cap) of a _PROBE_LISTS case."""
+    dtype, m, kk, ch, nc, n_chunks, sizes, how = _PROBE_LISTS[case]
+    g = torch.Generator(device=card).manual_seed(seed)
+    lists = torch.randperm(n_chunks, generator=g, device=card)[:len(sizes) * nc].int()
+    lists = lists.reshape(len(sizes), nc)
+    length = torch.randint(1, nc + 1, (len(sizes), 1), generator=g, device=card)
+    lists[torch.arange(nc, device=card) >= length] = -1
+    owner = torch.repeat_interleave(torch.arange(len(sizes), device=card),
+                                    torch.tensor(sizes, device=card))
+    chains = lists[owner[torch.randperm(owner.numel(), generator=g, device=card)]]
+    if how == "differ_later":
+        chains[::3, -1] = (chains[::3, -1] + 1) % n_chunks
+    elif how == "stray":
+        chains[::4] = -1  # pairs of an empty list
+        chains[1::5, 1] = n_chunks + 7  # an id past the pool
+        chains[2::7, 0] = -1  # dead first slot, live ones after it
+    pairs = chains.shape[0]
+    hi = 256 if dtype == torch.uint8 else kk + 2
+    lo = 0 if dtype == torch.uint8 else -2
+    pool = torch.randint(lo, hi, (n_chunks, ch, m), generator=g, device=card).to(dtype)
+    tables = torch.randn(pairs, m, kk, generator=g, device=card)
+    return tables, chains, pool, nc * ch - ch // 2 - 1
+
+
+@pytest.mark.parametrize("case", sorted(_PROBE_LISTS))
+def test_ivf_probe_lists_match_plain(card, case):
+    """K7 list-major, bit for bit against its plain version and on a
+    second run, one launch a call."""
+    tables, chains, pool, cap = _probe_lists(card, case)
+    before = ck.ivf_probe_adc_fused.launches
+    got = ck.ivf_probe_adc_fused(tables, chains, pool, cap=cap)
+    torch.cuda.synchronize()
+    assert ck.ivf_probe_adc_fused.launches == before + 1
+    assert torch.equal(got, ck.ivf_probe_adc_plain(tables, chains, pool, cap=cap))
+    assert torch.equal(ck.ivf_probe_adc_fused(tables, chains, pool, cap=cap), got)
+
+
+@pytest.mark.parametrize("case", sorted(_PROBE_LISTS))
+def test_ivf_probe_quads_match_plain(card, case):
+    """K7's grouping on the card: the pairs by bin and the quads, as the
+    plain version lists them, the same on a second run."""
+    _, chains, pool, _ = _probe_lists(card, case)
+    want = ck.ivf_probe_quads_plain(chains, pool.shape[0])
+    for _ in range(2):
+        got = ck.ivf_probe_quads(chains, pool.shape[0])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # (d, rows a chunk): the serving width; a d that is not a multiple of
 # the 16-byte load width (element loads); d = 1536; a d whose f32 row is
 # past the 48 KB shared-memory window (streamed in 32-wide groups).

@@ -110,6 +110,52 @@ def test_ivf_probe_rejects_bad_operands():
                                torch.zeros(2, 5, 4, dtype=torch.uint8))  # pair count
 
 
+# K7's grouping on the card (csrc/ivf_probe.cu step 1): each pair's bin is
+# its chain's first chunk id (the dead bin, n_chunks, where that id is
+# outside the pool); pairs stably by bin, each bin cut into quads of up to
+# 4 pairs. (chains, chunks in the pool.)
+_QUAD_CASES = {
+    "random_chains": (np.random.default_rng(70).integers(-1, 9, (40, 3)), 8),
+    "one_list_many_pairs": (np.tile(np.array([[5, 2, 7]]), (70, 1)), 9),
+    "lists_of_1_to_5_pairs": (np.repeat(np.array([[3, 1], [0, 4], [6, -1], [2, 5], [7, 8]]),
+                                        [1, 2, 3, 4, 5], axis=0)[np.random.default_rng(71)
+                                                                 .permutation(15)], 9),
+    "empty_lists": (np.array([[-1, -1], [4, 0], [-1, -1], [-1, -1], [4, 0], [-1, -1], [-1, -1]]),
+                    6),
+    "stray_ids": (np.array([[9, 1], [2 ** 30, 0], [-7, 3], [2, 9], [10, -1], [2, 2], [9, 9]]), 9),
+    "first_slot_dead_later_live": (np.array([[-1, 3, 4], [1, 2, 3], [-1, 0, 0], [1, -1, 7]]), 8),
+    "probe_1d": (np.array([3, 1, 3, 0, 7, 3, 3, 3, -1]), 8),
+    "no_pairs": (np.zeros((0, 3), np.int64), 8),
+    "no_slots": (np.zeros((3, 0), np.int64), 8),
+}
+
+
+def _quads_numpy(chains, n_chunks):
+    chains = chains[:, None] if chains.ndim == 1 else chains
+    bins = [[] for _ in range(n_chunks + 1)]
+    for p, row in enumerate(chains):
+        c = row[0] if row.size else -1
+        bins[c if 0 <= c < n_chunks else n_chunks].append(p)
+    order, quads = [], []
+    for b, pairs in enumerate(bins):
+        quads += [(b, len(order) + j, min(4, len(pairs) - j)) for j in range(0, len(pairs), 4)]
+        order += pairs
+    return np.array(order, np.int64), np.array(quads, np.int64).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("case", sorted(_QUAD_CASES))
+def test_ivf_probe_quads_match_numpy(case):
+    chains, n_chunks = _QUAD_CASES[case]
+    order, quads = ck.ivf_probe_quads(torch.from_numpy(chains.astype(np.int32)), n_chunks)
+    want_order, want_quads = _quads_numpy(chains, n_chunks)
+    assert order.dtype == quads.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(quads.numpy(), want_quads)
+    # every pair in exactly one quad
+    covered = np.concatenate([order.numpy()[f:f + n] for _, f, n in quads.numpy()] or [[]])
+    assert sorted(covered.tolist()) == list(range(len(chains)))
+
+
 # ---------------------------------------------------------------------------
 # IVFPQIndex: JAX index carried into the port.
 # ---------------------------------------------------------------------------

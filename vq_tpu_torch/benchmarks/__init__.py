@@ -8,8 +8,10 @@ plain versions and reports no times).
 
 The scripts under ``benchmarks/`` stay as they are; nothing here imports
 them or JAX. :mod:`.pq_scan_ab` is not a twin: it runs K2, K3, K4 (at
-each precision) and K6 beside another checkout's on one card
-(``--against DIR``), whether they agree, and timed in alternating rounds.
+each precision), K6, K7 and K8 beside another checkout's on one card
+(``--against DIR``), whether they agree, and timed in alternating rounds;
+:mod:`.k7_stages` gives K7's device time by launch, its host enqueue time
+and an IVF-PQ search's device time, for this checkout and others.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""K2, K3, K4, K4-bf16, K4-bf16x3, K6 and K8 of this checkout beside
+"""K2, K3, K4, K4-bf16, K4-bf16x3, K6, K7 and K8 of this checkout beside
 another checkout's, on one card.
 
     python3 -m vq_tpu_torch.benchmarks.pq_scan_ab --against DIR
@@ -16,14 +16,16 @@ Lloyd pass on the first 100k and 200k rows (K3) and one k-means Lloyd
 pass on the first 200k rows against 1024 and 256 of the rows (K2), and
 runs K6 on the operands of this checkout's IVF-Flat f32 / bf16 and IVF-SQ
 searches (IVF1024 trained on the first 200k rows, the 1M rows added, 128
-queries at nprobe 8 and 64), and runs K8 on squared-L2 ADC tables of 128
+queries at nprobe 8 and 64), runs K7 on the operands of this checkout's
+IVF-PQ search (IVF1024 with PQ 8x256 on residuals, built the same way,
+at nprobe 8 and 64), and runs K8 on squared-L2 ADC tables of 128
 queries against those codebooks over the 1M rows' u8 codes
 (``adc_distances``' shape) and over the first 262,144 of them (one chunk
 of the RQ scan). It prints one JSON line a case: whether the
 outputs agree, and the milliseconds a call (CUDA events, 5 calls a
-round) of each version in rounds other, this, this, other. K2, K4, K6
-and K8 agree bit for bit (K8 is also held to this checkout's plain
-version); the lower-precision encodes by
+round) of each version in rounds other, this, this, other. K2, K4, K6,
+K7 and K8 agree bit for bit (K7 and K8 are also held to this checkout's
+plain version); the lower-precision encodes by
 ``cuda_kernels.encode_parity`` (their tensor-core sums may flip a code at
 a float64 near tie), with the share of codes equal. K3 sums in another
 order than a checkout before its segmented sums stage: there the counts
@@ -95,30 +97,51 @@ def make_operands(device):
     return x.contiguous(), cb
 
 
+def _queries(x):
+    g = torch.Generator(device=x.device).manual_seed(SEED + 1)
+    pick = torch.randperm(N, generator=g, device=x.device)[:QUERIES]
+    return x[pick] + 0.05 * torch.randn(QUERIES, DIM, generator=g, device=x.device)
+
+
+def _recorded(mod, name: str, indexes: dict, queries, tag: str) -> dict:
+    """``{f"{tag} {index} nprobe={p}": (args, kwargs)}``: the first call of
+    ``mod.name`` in each index's search at each of NPROBES."""
+    kernel, out = getattr(mod, name), {}
+    for idx_name, idx in indexes.items():
+        for p in NPROBES:
+            calls = []
+            setattr(mod, name, lambda *a, **kw: calls.append((a, kw)) or kernel(*a, **kw))
+            try:
+                idx.search(queries, k=10, nprobe=p)
+            finally:
+                setattr(mod, name, kernel)
+            out[f"{tag} {idx_name}nprobe={p}"] = calls[0]
+    return out
+
+
 def k6_operands(x) -> dict:
     """``{case: (args, kwargs)}`` of K6's call in each IVF-Flat f32 /
     bf16 and IVF-SQ search of this checkout, over ``x``."""
     import vq_tpu_torch
     import vq_tpu_torch.ivf_flat as ivf_flat
 
-    g = torch.Generator(device=x.device).manual_seed(SEED + 1)
-    pick = torch.randperm(N, generator=g, device=x.device)[:QUERIES]
-    queries = x[pick] + 0.05 * torch.randn(QUERIES, DIM, generator=g, device=x.device)
     flat = vq_tpu_torch.IVFFlatIndex.train(x[:IVF_TRAIN], NLIST, max_iters=10)
-    indexes = {"f32": flat, "bf16": vq_tpu_torch.IVFFlatIndex(flat.coarse, store_dtype="bfloat16"),
-               "u8": vq_tpu_torch.IVFSQIndex.train(x[:IVF_TRAIN], NLIST, max_iters=10)}
-    kernel, out = ivf_flat.ivf_probe_matvec_fused, {}
-    for name, idx in indexes.items():
+    indexes = {"f32 ": flat, "bf16 ": vq_tpu_torch.IVFFlatIndex(flat.coarse, store_dtype="bfloat16"),
+               "u8 ": vq_tpu_torch.IVFSQIndex.train(x[:IVF_TRAIN], NLIST, max_iters=10)}
+    for idx in indexes.values():
         idx.add(x)
-        for p in NPROBES:
-            calls = []
-            ivf_flat.ivf_probe_matvec_fused = lambda *a, **kw: calls.append((a, kw)) or kernel(*a, **kw)
-            try:
-                idx.search(queries, k=10, nprobe=p)
-            finally:
-                ivf_flat.ivf_probe_matvec_fused = kernel
-            out[f"K6 {name} nprobe={p}"] = calls[0]
-    return out
+    return _recorded(ivf_flat, "ivf_probe_matvec_fused", indexes, _queries(x), "K6")
+
+
+def k7_operands(x) -> dict:
+    """``{case: (args, kwargs)}`` of K7's call in this checkout's IVF-PQ
+    search (IVF1024, PQ 8x256 on residuals) over ``x``."""
+    import vq_tpu_torch
+    import vq_tpu_torch.ivf as ivf
+
+    index = vq_tpu_torch.IVFPQIndex.train(x[:IVF_TRAIN], NLIST, M, K, max_iters=10)
+    index.add(x)
+    return _recorded(ivf, "ivf_probe_adc_fused", {"": index}, _queries(x), "K7")
 
 
 def k8_operands(x, cb):
@@ -192,6 +215,12 @@ def main(argv: Sequence[str] = ()) -> int:
         for name, (a, kw) in k6_operands(x).items():
             cases[name] = (lambda a=a, kw=kw: ck.ivf_probe_matvec_fused(*a, **kw),
                            lambda a=a, kw=kw: other.ivf_probe_matvec_fused(*a, **kw))
+    k7_args = {}
+    if any(selected(f"K7 nprobe={p}") for p in NPROBES):
+        k7_args = k7_operands(x)
+        for name, (a, kw) in k7_args.items():
+            cases[name] = (lambda a=a, kw=kw: ck.ivf_probe_adc_fused(*a, **kw),
+                           lambda a=a, kw=kw: other.ivf_probe_adc_fused(*a, **kw))
     rules = {}
     for name, xx, p in (("K4-bf16 f32 1M", x, "bf16_fast"), ("K4-bf16 bf16 1M", xb, "bf16_fast"),
                         ("K4-bf16x3 1M", x, "bf16x3")):
@@ -217,6 +246,12 @@ def main(argv: Sequence[str] = ()) -> int:
                     other_plain_close=k3_close(b, other_plain))
                 return (k3_close(a, b) and extra["this_plain_equal"]
                         and (extra["other_plain_equal"] or extra["other_plain_close"]))
+        elif name in k7_args:
+            a7, kw7 = k7_args[name]
+
+            def agree(a, b, a7=a7, kw7=kw7):
+                extra.update(this_plain_equal=torch.equal(a, ck.ivf_probe_adc_plain(*a7, **kw7)))
+                return torch.equal(a, b) and extra["this_plain_equal"]
         elif name in K8_ROWS:
             n = K8_ROWS[name]
 

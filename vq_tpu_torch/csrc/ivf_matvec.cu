@@ -42,7 +42,8 @@
 //     segment's first slot and writes its tasks (bin_cursor_kernel); a
 //     thread an entry places it (entry_scatter_kernel). Integer counts
 //     only: the list is the same on every run. No host sync: the matvec
-//     reads the task count from the device.
+//     reads the task count from the device. K7 (ivf_probe.cu) runs the
+//     same list over its pairs' bins, 4 a task (work_list.cuh).
 //  2. The matvec (chunk_matvec_kernel), persistent: three blocks an SM,
 //     block b taking tasks b, b + G, ... (G blocks), each task one chunk
 //     read once for up to 32 entries, in tiles of 16 entries x 256 rows.
@@ -75,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "tile_scan.cuh"
+#include "work_list.cuh"
 
 using namespace vqk;
 
@@ -209,8 +211,8 @@ __device__ __forceinline__ int block_exclusive_scan(int a, int* warp_sums, int* 
   return x - a + (w > 0 ? warp_sums[w - 1] : 0);
 }
 
-__device__ __forceinline__ int task_count(int live) {
-  return (live + kTaskEntries - 1) / kTaskEntries;
+__device__ __forceinline__ int task_count(int live, int task_entries) {
+  return (live + task_entries - 1) / task_entries;
 }
 
 // Step 1b: exclusive scans of the totals into offsets [n_chunks + 1] and
@@ -218,14 +220,14 @@ __device__ __forceinline__ int task_count(int live) {
 // all tasks).
 __global__ void __launch_bounds__(kScanThreads)
     bin_scan_kernel(const int* __restrict__ totals, int* __restrict__ offsets,
-                    int* __restrict__ task_off, int nb) {
+                    int* __restrict__ task_off, int nb, int task_entries) {
   __shared__ int warp_sums[kScanThreads / 32];
   const int per = (nb + kScanThreads - 1) / kScanThreads;
   const int j0 = min(nb, (int)threadIdx.x * per), j1 = min(nb, j0 + per);
   int a = 0, t = 0;
   for (int j = j0; j < j1; ++j) {
     a += totals[j];
-    t += task_count(totals[j]);
+    t += task_count(totals[j], task_entries);
   }
   int all_entries, all_tasks;
   int run = block_exclusive_scan(a, warp_sums, &all_entries);
@@ -234,7 +236,7 @@ __global__ void __launch_bounds__(kScanThreads)
     offsets[j] = run;
     task_off[j] = trun;
     run += totals[j];
-    trun += task_count(totals[j]);
+    trun += task_count(totals[j], task_entries);
   }
   if (threadIdx.x == 0) {
     offsets[nb] = all_entries;
@@ -247,16 +249,16 @@ __global__ void __launch_bounds__(kScanThreads)
 // writes the chunk's tasks (chunk, first slot, entries).
 __global__ void bin_cursor_kernel(int* __restrict__ table, const int* __restrict__ offsets,
                                   const int* __restrict__ task_off, int4* __restrict__ tasks,
-                                  int nb, int segs) {
+                                  int nb, int segs, int task_entries) {
   const long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (c >= nb) return;
   int base = offsets[c];
   const int live = offsets[c + 1] - base;
   if (live == 0) return;  // no entry reads this chunk
-  for (int k = lane; k < task_count(live); k += 32)
-    tasks[task_off[c] + k] =
-        make_int4((int)c, base + k * kTaskEntries, min(kTaskEntries, live - k * kTaskEntries), 0);
+  for (int k = lane; k < task_count(live, task_entries); k += 32)
+    tasks[task_off[c] + k] = make_int4((int)c, base + k * task_entries,
+                                       min(task_entries, live - k * task_entries), 0);
   int* row = table + c * segs;
   for (int g0 = 0; g0 < segs; g0 += 32) {
     const int g = g0 + lane;
@@ -480,38 +482,22 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   while (z < z_end) zero_next();
 }
 
-// The scratch of the work list: tasks [max_tasks] int4 (max_tasks =
-// n_chunks + ceil(E / kTaskEntries), at least the tasks there can be),
-// then i32 table [n_chunks, segs], totals [n_chunks], offsets
-// [n_chunks + 1], task_off [n_chunks + 1], rank [E] and work [E].
-struct Scratch {
-  int4* tasks;
-  int *table, *totals, *offsets, *task_off, *rank, *work;
-  long long max_tasks;
-  Scratch(int* s, long long entries, int n_chunks, int segs) {
-    max_tasks = n_chunks + (entries + kTaskEntries - 1) / kTaskEntries;
-    tasks = reinterpret_cast<int4*>(s);
-    table = s + 4 * max_tasks;
-    totals = table + (long long)n_chunks * segs;
-    offsets = totals + n_chunks;
-    task_off = offsets + n_chunks + 1;
-    rank = task_off + n_chunks + 1;
-    work = rank + entries;
-  }
-};
+}  // namespace
 
-int plan(const int* chunks, const Scratch& s, long long entries, int nc, int ch, int n_chunks,
-         long long cap, int seg_len, int segs, cudaStream_t st) {
+int vqk::work_list(const int* chunks, const WorkList& s, long long entries, int nc, int ch,
+                   int n_chunks, long long cap, int seg_len, int segs, int task_entries,
+                   cudaStream_t st) {
   const size_t counted = ((size_t)n_chunks * segs + n_chunks) * sizeof(int);
   int err = counted ? (int)cudaMemsetAsync(s.table, 0, counted, st) : 0;
   if (err != 0) return err;
   if (entries > 0)
     entry_pass_kernel<<<(unsigned)segs, 32, 0, st>>>(chunks, s.table, s.totals, s.rank, entries,
                                                      nc, ch, n_chunks, cap, seg_len, segs);
-  bin_scan_kernel<<<1, kScanThreads, 0, st>>>(s.totals, s.offsets, s.task_off, n_chunks);
+  bin_scan_kernel<<<1, kScanThreads, 0, st>>>(s.totals, s.offsets, s.task_off, n_chunks,
+                                               task_entries);
   if (n_chunks > 0)
     bin_cursor_kernel<<<(unsigned)(((long long)n_chunks * 32 + 255) / 256), 256, 0, st>>>(
-        s.table, s.offsets, s.task_off, s.tasks, n_chunks, segs);
+        s.table, s.offsets, s.task_off, s.tasks, n_chunks, segs, task_entries);
   if (entries > 0)
     entry_scatter_kernel<<<(unsigned)((entries + kScatterThreads - 1) / kScatterThreads),
                            kScatterThreads, 0, st>>>(chunks, s.table, s.rank, s.work, entries,
@@ -519,9 +505,11 @@ int plan(const int* chunks, const Scratch& s, long long entries, int nc, int ch,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
 template <typename T>
 int launch_matvec(const float* lhs, const int* chunks, const void* payload, float* out,
-                  const Scratch& s, long long entries, int d, int nc, int ch, int n_chunks,
+                  const WorkList& s, long long entries, int d, int nc, int ch, int n_chunks,
                   long long cap, bool vec, bool qvec, cudaStream_t st) {
   constexpr int smem = Tile<T>::kSmem;
   int dev = 0, sms = 0;
@@ -550,8 +538,9 @@ extern "C" int vq_ivf_matvec_plan(const int* chunks, int* scratch, int pairs, in
                                   int n_chunks, long long cap, int seg_len, int segs,
                                   void* stream) {
   const long long entries = (long long)pairs * nc;
-  return plan(chunks, Scratch(scratch, entries, n_chunks, segs), entries, nc, ch, n_chunks, cap,
-              seg_len, segs, static_cast<cudaStream_t>(stream));
+  return work_list(chunks, WorkList(scratch, entries, n_chunks, segs, kTaskEntries), entries, nc,
+                   ch, n_chunks, cap, seg_len, segs, kTaskEntries,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // Both steps: the work list, then the matvec, which writes every output
@@ -564,8 +553,9 @@ extern "C" int vq_ivf_matvec(const float* lhs, const int* chunks, const void* pa
                              int vec, int qvec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long entries = (long long)pairs * nc;
-  const Scratch s(scratch, entries, n_chunks, segs);
-  const int err = plan(chunks, s, entries, nc, ch, n_chunks, cap, seg_len, segs, st);
+  const WorkList s(scratch, entries, n_chunks, segs, kTaskEntries);
+  const int err = work_list(chunks, s, entries, nc, ch, n_chunks, cap, seg_len, segs,
+                            kTaskEntries, st);
   if (err != 0) return err;
   switch (payload_type) {
     case 0:

@@ -70,10 +70,12 @@ _SIGNATURES = {
     # stream
     "vq_lloyd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _P, _P, _P, _LL, _I, _I, _LL, _I, _LL, _I, _P),
-    # tables, chunks, codes, codes_are_u8, out, pairs, m, kk, nc, ch,
-    # n_chunks, cap, gsub, slices, stream
-    "vq_ivf_probe": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _LL, _I,
-                     _I, _P),
+    # tables, chunks, codes, codes_are_u8, out, scratch, pairs, m, kk, nc,
+    # ch, n_chunks, cap, seg_len, segs, stream
+    "vq_ivf_probe": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
+                     _I, _I, _P),
+    # chunks, scratch, pairs, nc, n_chunks, seg_len, segs, stream
+    "vq_ivf_probe_plan": (_P, _P, _I, _I, _I, _I, _I, _P),
     # chunks, scratch, pairs, nc, ch, n_chunks, cap, seg_len, segs, stream
     "vq_ivf_matvec_plan": (_P, _P, _I, _I, _I, _I, _LL, _I, _I, _P),
     # lhs, chunks, payload, payload_type, out, scratch, pairs, d, nc, ch,

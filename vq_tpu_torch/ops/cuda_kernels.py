@@ -16,7 +16,8 @@ train, encode, flat ADC search and IVF search reach in
 * K6 :func:`ivf_probe_matvec_fused` (``csrc/ivf_matvec.cu``) — dots with
   the rows of the probed chunks of an IVF-Flat / IVF-SQ index;
 * K7 :func:`ivf_probe_adc_fused` (``csrc/ivf_probe.cu``) — ADC sums over
-  the probed chunks of an IVF index;
+  the probed chunks of an IVF index, list-major (its pair grouping:
+  :func:`ivf_probe_quads`);
 * K8 :func:`adc_lookup_fused` (``csrc/adc_lookup.cu``) — the dense ADC
   table sum ``[Q, n]`` that the chunked PQ / RQ scans and
   ``adc_distances`` take.
@@ -74,6 +75,8 @@ __all__ = [
     "adc_tile",
     "ivf_probe_adc_fused",
     "ivf_probe_adc_plain",
+    "ivf_probe_quads",
+    "ivf_probe_quads_plain",
     "ivf_probe_matvec_fused",
     "ivf_probe_matvec_plain",
     "ivf_matvec_work_list",
@@ -99,7 +102,7 @@ _INERTIA_THREADS = 1024  # K2's inertia partial sums (csrc/lloyd.cu kScanThreads
 _SEGMENT_ROWS = 32  # K2's rows a segment of a cluster's sum (csrc/lloyd.cu kSegRows)
 _K3_TERM_THREADS = 256  # K3's inertia partials a block (csrc/pq_lloyd.cu kTermThreads)
 _K3_BLOCK_TERMS = 1024  # K3's inertia terms a block (csrc/pq_lloyd.cu kBlockTerms)
-_PROBE_THREADS = 256  # row positions per K7 block step (csrc/ivf_probe.cu)
+_K7_QUAD = 4  # pairs a quad of K7 (csrc/ivf_probe.cu kQuad)
 _K6_SEGMENT = 128  # entries a warp of K6's work-list pass, at least
 _K6_TASK = 32  # work entries a task of K6's matvec, at most (csrc/ivf_matvec.cu kTaskEntries)
 _K6_TABLE_CELLS = 1 << 21  # K6's (chunk, segment) counts, at most (8 MB)
@@ -983,6 +986,63 @@ def ivf_probe_adc_plain(tables, probe, bucket_codes, *, cap: Optional[int] = Non
     return torch.where(live, acc, 0.0)
 
 
+def _probe_keys(chains, n_chunks: int):
+    """``(chunks [P, nc] i32, bins [P] i64)`` of K7's grouping: pair p's
+    bin is the first chunk id of its chain, or ``n_chunks`` (the dead
+    bin) where that id lies outside ``[0, n_chunks)``."""
+    chunks = chains.to(torch.int32)
+    if chunks.ndim == 1:
+        chunks = chunks[:, None]
+    if chunks.ndim != 2:
+        raise InvalidParameter("probe", f"expected [P] or [P, nc], got {tuple(chains.shape)}")
+    first = (chunks[:, 0].to(torch.int64) if chunks.shape[1]
+             else torch.full((chunks.shape[0],), -1, dtype=torch.int64, device=chunks.device))
+    return chunks, torch.where((first >= 0) & (first < n_chunks), first, n_chunks)
+
+
+def ivf_probe_quads_plain(chains, n_chunks: int):
+    """Plain version of K7's pair grouping over ``chains [P, nc]`` (or a
+    ``[P]`` probe) into a pool of ``n_chunks`` chunks. Returns ``(order
+    [P], quads [n, 3])`` i32: the pairs stably sorted by bin (the first
+    chunk id of the chain, ``n_chunks`` for the dead bin), and each bin's
+    run cut into quads of up to 4 pairs, in bin order, each ``(bin, first
+    slot of order, pairs)``."""
+    _, key = _probe_keys(chains, n_chunks)
+    dev = key.device
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n_chunks + 1)
+    per = (counts + _K7_QUAD - 1) // _K7_QUAD
+    bins = torch.repeat_interleave(torch.arange(n_chunks + 1, device=dev), per)
+    j = torch.arange(bins.numel(), device=dev) - (per.cumsum(0) - per)[bins]
+    start = (counts.cumsum(0) - counts)[bins] + _K7_QUAD * j
+    size = torch.clamp(counts[bins] - _K7_QUAD * j, max=_K7_QUAD)
+    return order.to(torch.int32), torch.stack([bins, start, size], 1).to(torch.int32)
+
+
+def _k7_scratch(pairs: int, n_chunks: int, device) -> "_WorkList":
+    """K7's scratch (``csrc/ivf_probe.cu::Plan``): the pairs' bins (``P``
+    rounded up to 4 i32), the item counter (4 i32) and the quads' records
+    (8 i32 a possible quad), then the work list of the pairs over
+    ``n_chunks + 1`` bins, a quad a task."""
+    max_quads = n_chunks + 1 + -(-pairs // _K7_QUAD)
+    return _work_list_scratch(pairs, n_chunks + 1, _K7_QUAD, device,
+                              head=-(-pairs // 4) * 4 + 4 + 8 * max_quads)
+
+
+def ivf_probe_quads(chains, n_chunks: int):
+    """K7's pair grouping (:func:`ivf_probe_quads_plain`), built on the
+    card by the kernel's own step 1 for a CUDA ``chains``."""
+    if not _on_card(chains):
+        return ivf_probe_quads_plain(chains, n_chunks)
+    chunks = _probe_keys(chains, n_chunks)[0].contiguous()
+    p = chunks.shape[0]
+    sc = _k7_scratch(p, n_chunks, chunks.device)
+    _launch("vq_ivf_probe_plan", chunks.data_ptr(), sc.buf.data_ptr(), p, chunks.shape[1],
+            n_chunks, sc.seg_len, sc.segs)
+    tasks, _, task_off, work = sc.views()
+    return work.clone(), tasks[:int(task_off[-1]), :3].clone()
+
+
 def ivf_probe_adc_fused(tables, probe, bucket_codes, *, cap: Optional[int] = None):
     """ADC sums of probed IVF chunks.
 
@@ -993,24 +1053,31 @@ def ivf_probe_adc_fused(tables, probe, bucket_codes, *, cap: Optional[int] = Non
     of chunk ids per pair (-1 = none) -> ``[P, nc*rows]``. Positions at or
     past ``cap`` (default: all of them kept) and positions of a chunk id
     outside ``[0, chunks)`` are 0; the caller masks them with the row
-    ids."""
+    ids. On the card the kernel works list by list (``csrc/ivf_probe.cu``):
+    it groups the pairs by their chain's first chunk
+    (:func:`ivf_probe_quads`), then fills each quad's tables into shared
+    memory once and reads its chain's codes once for all its pairs."""
     tables = tables.to(torch.float32)
     if not _on_card(tables, probe, bucket_codes):
         return ivf_probe_adc_plain(tables, probe, bucket_codes, cap=cap)
     chunks, width, cap = _probe_operands(tables, probe, bucket_codes, cap)
     p, m, kk = tables.shape
+    n_chunks, ch = bucket_codes.shape[:2]
+    if width >= 2 ** 31:
+        raise InvalidParameter("probe", f"{width} positions a pair; K7 takes fewer than 2^31")
     tables, chunks = tables.contiguous(), chunks.contiguous()
     u8 = bucket_codes.dtype == torch.uint8
-    codes = (bucket_codes if u8 else bucket_codes.to(torch.int32)).contiguous()
+    if not u8 and bucket_codes.dtype != torch.int32:  # out-of-range stays out of range
+        bucket_codes = bucket_codes.clamp(-1, kk).to(torch.int32)
+    codes = bucket_codes.contiguous()
     out = torch.empty((p, width), dtype=torch.float32, device=tables.device)
-    if p == 0 or width == 0:
-        return out
-    gsub = min(m, _SMEM_BYTES // (kk * 4))  # 0: tables read from device memory
-    slices = max(1, min(-(-width // _PROBE_THREADS), -(-_TARGET_BLOCKS // p)))
+    if p == 0 or width == 0 or m == 0:
+        return out.zero_()
+    sc = _k7_scratch(p, n_chunks, tables.device)
     _launch(
-        "vq_ivf_probe", tables.data_ptr(), chunks.data_ptr(), codes.data_ptr(),
-        int(u8), out.data_ptr(), p, m, kk, chunks.shape[1], codes.shape[1],
-        codes.shape[0], cap, gsub, slices,
+        "vq_ivf_probe", tables.data_ptr(), chunks.data_ptr(), codes.data_ptr(), int(u8),
+        out.data_ptr(), sc.buf.data_ptr(), p, m, kk, chunks.shape[1], ch, n_chunks,
+        max(0, min(cap, width)), sc.seg_len, sc.segs,
     )
     ivf_probe_adc_fused.launches += 1
     return out
@@ -1076,27 +1143,46 @@ def _k6_segments(entries: int, n_chunks: int) -> Tuple[int, int]:
     return seg_len, max(1, -(-entries // seg_len))
 
 
-class _K6Scratch(NamedTuple):
-    buf: torch.Tensor  # the i32 scratch of csrc/ivf_matvec.cu
+class _WorkList(NamedTuple):
+    buf: torch.Tensor  # i32: `head` words, then csrc/work_list.cuh's WorkList
     seg_len: int
     segs: int
-    offsets: torch.Tensor  # view: [n_chunks + 1], each chunk's first work slot
-    work: torch.Tensor  # view: [E], the work list's slots
+    head: int
+    n_bins: int
+    entries: int
+    max_tasks: int
+
+    def views(self):
+        """``(tasks [max_tasks, 4], offsets [n_bins + 1], task_off
+        [n_bins + 1], work [E])``: each task (bin, first work slot,
+        entries, 0), each bin's first work slot and first task (the
+        last: all tasks), the work list's slots."""
+        base = self.head + 4 * self.max_tasks + self.n_bins * (self.segs + 1)
+        nb1, buf = self.n_bins + 1, self.buf
+        return (buf[self.head:self.head + 4 * self.max_tasks].view(self.max_tasks, 4),
+                buf[base:base + nb1], buf[base + nb1:base + 2 * nb1],
+                buf[base + 2 * nb1 + self.entries:])
 
 
-def _k6_scratch(chunks, n_chunks: int) -> _K6Scratch:
-    """K6's scratch over ``chunks [P, nc]``: tasks (int4), the (chunk,
-    segment) counts, totals, offsets, task offsets, ranks and the work
-    list, as csrc/ivf_matvec.cu's ``Scratch`` lays them out."""
-    entries = chunks.numel()
+def _work_list_scratch(entries: int, n_bins: int, task: int, device, head: int = 0) -> _WorkList:
+    """The scratch of the work list (``csrc/work_list.cuh``) of
+    ``entries`` entries over ``n_bins`` bins, ``task`` entries a task at
+    most, after ``head`` i32 (a multiple of 4) of the caller's own: tasks
+    (int4), the (bin, segment) counts, totals, offsets, task offsets,
+    ranks and the work list."""
     if entries >= 2 ** 31:
-        raise InvalidParameter("probe", f"{entries} (pair, chunk) entries; K6 takes fewer than 2^31")
-    seg_len, segs = _k6_segments(entries, n_chunks)
-    base = 4 * (n_chunks + -(-entries // _K6_TASK)) + n_chunks * (segs + 1)  # offsets' start
-    buf = torch.empty(base + 2 * (n_chunks + 1) + 2 * entries, dtype=torch.int32,
-                      device=chunks.device)
-    return _K6Scratch(buf, seg_len, segs, buf[base:base + n_chunks + 1],
-                      buf[base + 2 * (n_chunks + 1) + entries:])
+        raise InvalidParameter("probe", f"{entries} work-list entries; the list takes fewer than 2^31")
+    seg_len, segs = _k6_segments(entries, n_bins)
+    max_tasks = n_bins + -(-entries // task)
+    words = head + 4 * max_tasks + n_bins * (segs + 1) + 2 * (n_bins + 1) + 2 * entries
+    buf = torch.empty(words, dtype=torch.int32, device=device)
+    return _WorkList(buf, seg_len, segs, head, n_bins, entries, max_tasks)
+
+
+def _k6_scratch(chunks, n_chunks: int) -> _WorkList:
+    """K6's scratch over ``chunks [P, nc]``: its (pair, chain slot)
+    entries over the pool's chunks, up to 32 a task."""
+    return _work_list_scratch(chunks.numel(), n_chunks, _K6_TASK, chunks.device)
 
 
 def ivf_matvec_work_list_plain(chains, n_chunks: int, ch: int, cap: Optional[int] = None):
@@ -1125,7 +1211,8 @@ def ivf_matvec_work_list(chains, n_chunks: int, ch: int, cap: Optional[int] = No
     sc = _k6_scratch(chunks, n_chunks)
     _launch("vq_ivf_matvec_plan", chunks.data_ptr(), sc.buf.data_ptr(), *chunks.shape, ch,
             n_chunks, cap, sc.seg_len, sc.segs)
-    return sc.offsets, sc.work[:int(sc.offsets[-1])]
+    _, offsets, _, work = sc.views()
+    return offsets, work[:int(offsets[-1])]
 
 
 def ivf_probe_matvec_fused(qvecs, probe, payload, *, cap: Optional[int] = None):
