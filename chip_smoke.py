@@ -107,7 +107,25 @@ Phases, one line each (any failure exits non-zero with no result line):
    run at their default sizes, the slice's main path: launch counts read
    from that run, every ``parity`` field true. Then timings: B1's three
    variants beside K4, K4-bf16 and K4-bf16x3 at 1M, and B2, B3, B4 beside
-   K8 and ``embedding_bag`` at [128, 1M].
+   K8 and ``embedding_bag`` at [128, 1M];
+13. eval path — the four eval harnesses' ``main()``
+   (``vq_tpu_torch.cli.eval_{bq,sq,pq,tsvq}``) at the reference grid's
+   width, ``--sizes 1000000 --dim 384 --recall`` with every other flag
+   at its default (seed 66, BQ threshold 0.5, SQ 256 levels, PQ 16x256
+   with 10 iterations, TSVQ depth 5, euclidean): every row parsed, its
+   ``mse`` and ``recall_at_k`` finite, K3's and K4's launch counts read
+   from ``eval_pq``'s run (no kernel in the other three); K4 on all 1M
+   rows and K3 on 100k of them, with ``eval_pq``'s own codebooks
+   (16x256x24), bit for bit against their plain versions; BQ codes,
+   uint32 words and a [128, 1M] Hamming block equal to the same functions
+   on the CPU copies; TSVQ leaf ids of 100k rows on the card equal to the
+   CPU run's except float near ties (printed and counted); the TSVQ
+   device build at 200k x 384, depth 5, bit-identical to the same build
+   on the CPU, and to the host recursion's tree except splits at float
+   near ties (each printed with its two summed deviations). Then K3 and
+   K4 timed at that shape beside their plain versions and floors, and a
+   ``torch.profiler`` line a harness (one more ``main()`` each: wall,
+   device time, busy share, top kernels).
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -164,6 +182,13 @@ RQ_STAGES, RQ_ITERS, RQ_RERANK, RQ_CHUNK = 8, 8, 500, 262_144
 # The benchmark twins' kernels: B1 held to its plain version on the
 # scripts' 100k parity rows (``mpacked_encode.kernel_parity``).
 B1_ROWS = 100_000
+# Phase 13, the eval harnesses at the reference grid's width: 1M x 384
+# rows; K3 held on 100k of them; 128 Hamming queries; TSVQ's builds on 200k
+# rows and its encode on 100k; a TSVQ near tie is a float64 gap within
+# 1e-5 of the larger distance (or summed deviation).
+EVAL_ROWS, EVAL_DIM, EVAL_K3_ROWS, EVAL_QUERIES = 1_000_000, 384, 100_000, 128
+EVAL_TSVQ_ROWS, EVAL_TSVQ_ENCODE, TSVQ_TIE_RTOL = 200_000, 100_000, 1e-5
+PQ_EVAL = (16, 256, 24)  # eval_pq's default codebooks on dim 384
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
 HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1673,6 +1698,185 @@ def phase_bench_timings(smi, bd):
     return t
 
 
+EVAL_CLIS = ("bq", "sq", "pq", "tsvq")
+
+
+def _eval_rows(mod, argv):
+    """``(rows, wall s)`` of one harness ``main(argv)``, its stdout parsed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    return [json.loads(line) for line in buf.getvalue().splitlines()], time.perf_counter() - t0
+
+
+def phase_eval_path(smi):
+    """The four harnesses' ``main()`` at the reference grid's width (1M x
+    384, every other flag at its default, plus ``--recall``): rows parsed
+    and finite, K3's and K4's launches read from ``eval_pq``'s run, and
+    their operands there recorded."""
+    import importlib as il
+    import math
+
+    argv = ["--sizes", str(EVAL_ROWS), "--dim", str(EVAL_DIM), "--recall"]
+    out = {"rows": {}, "wall": {}, "launches": {}}
+    reset_counts()
+    with recording("vq_tpu_torch.ops.kmeans", "pq_lloyd_accumulate_fused") as k3_calls, \
+            recording("vq_tpu_torch.models.pq", "pq_encode_fused") as k4_calls:
+        for name in EVAL_CLIS:
+            before = read_counts()
+            (rec,), wall = _eval_rows(il.import_module(f"vq_tpu_torch.cli.eval_{name}"), argv)
+            log("eval", f"eval_{name}: {json.dumps(rec)}")
+            assert rec["num_samples"] == EVAL_ROWS and rec["dim"] == EVAL_DIM, rec
+            assert math.isfinite(rec["mse"]) and math.isfinite(rec["recall_at_k"]), rec
+            out["rows"][name], out["wall"][name] = rec, wall
+            out["launches"][name] = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+            log("time", f"eval_{name} {EVAL_ROWS} x {EVAL_DIM}: main() {wall:.3f} s, train "
+                f"{rec['train_ms']:.3f} ms, encode {rec['encode_ms']:.3f} ms, encode by CUDA events "
+                f"{rec.get('encode_ms_device')} ms, mse {rec['mse']:.9g}, recall@10 "
+                f"{rec['recall_at_k']:.4f}; launches {out['launches'][name]} | {smi}")
+        out["k3_args"], out["k4_args"] = k3_calls[-1][0], k4_calls[-1][0]
+    on_path = out["launches"]["pq"]
+    assert on_path.get("pq_lloyd_accumulate_fused", 0) > 0, on_path
+    assert on_path.get("pq_encode_fused[highest]", 0) > 0, on_path
+    assert not any(out["launches"][n] for n in ("bq", "sq", "tsvq")), out["launches"]
+    return out
+
+
+def phase_eval_checks(smi, ev):
+    """K3 (on 100k of the eval rows) and K4 (on all 1M) at the eval's
+    16x256x24 against their plain versions, bit for bit; BQ codes, words
+    and a [128, 1M] Hamming block against the CPU copies; TSVQ leaf ids of
+    100k rows against the CPU run (near ties counted), and the device
+    build against the CPU's (bit for bit) and the host recursion's (every
+    differing split a float near tie)."""
+    import numpy as np
+    import torch
+
+    from vq_tpu_torch.cli.common import generate_synthetic_data
+    from vq_tpu_torch.models import bq as tbq
+    from vq_tpu_torch.models import tsvq as tt
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    x, cb = ev["k4_args"][:2]
+    k4 = ck.pq_encode_fused(x, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(k4, ck.pq_encode_plain(x, cb)), "K4 at the eval shape differs from its plain version"
+    x3, cb3 = ev["k3_args"][0][:EVAL_K3_ROWS], ev["k3_args"][1]
+    got = ck.pq_lloyd_accumulate_fused(x3, cb3)
+    torch.cuda.synchronize()
+    want = ck.pq_lloyd_accumulate_plain(x3, cb3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), "K3 at the eval shape differs"
+    m, k, s = cb.shape
+    log("kernels", f"K4 {tuple(x.shape)} x {m}x{k}x{s} (eval_pq's codebooks) and K3 on {EVAL_K3_ROWS} of "
+        "its rows: bit-identical to their plain versions")
+    out = {"k3": (x3, cb3), "k4": (x, cb)}
+    del k4, got, want
+
+    data = generate_synthetic_data(EVAL_ROWS, EVAL_DIM, 66)  # eval_bq's corpus
+    q = tbq.BinaryQuantizer(0.5)
+    host = data.cpu()
+    codes, packed = q.quantize(data), q.quantize_packed(data)
+    assert torch.equal(codes.cpu(), q.quantize(host)), "BQ codes differ from the CPU's"
+    assert torch.equal(packed.cpu(), q.quantize_packed(host)), "BQ words differ from the CPU's"
+    ham, ham_ms = cuda_once(lambda: tbq.hamming_distance(packed[:EVAL_QUERIES], packed))
+    t0 = time.perf_counter()
+    ham_cpu = tbq.hamming_distance(packed[:EVAL_QUERIES].cpu(), packed.cpu())
+    cpu_s = time.perf_counter() - t0
+    assert torch.equal(ham.cpu(), ham_cpu), "the Hamming block differs from the CPU's"
+    log("eval", f"BQ {tuple(data.shape)}: codes, uint32 words {tuple(packed.shape)} and the Hamming "
+        f"block {tuple(ham.shape)} equal the CPU's bit for bit; Hamming block {ham_ms:.3f} ms on the "
+        f"card (first call), {cpu_s:.2f} s on the CPU | {smi}")
+    del data, host, codes, packed, ham, ham_cpu
+
+    rows = generate_synthetic_data(EVAL_TSVQ_ROWS, EVAL_DIM, 66, device=False)
+    t0 = time.perf_counter()
+    host_tree = tt.tsvq_build(rows, 5, device="cpu")
+    host_s = time.perf_counter() - t0
+    card = ev["k4_args"][0].device
+    rows_card = torch.from_numpy(rows).to(card)
+    dev_tree, dev_ms = cuda_once(lambda: tt.tsvq_build_batched(rows_card, 5))
+    t0 = time.perf_counter()
+    cpu_tree = tt.tsvq_build_batched(rows, 5, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = (torch.equal(dev_tree.left.cpu(), cpu_tree.left) and torch.equal(dev_tree.right.cpu(), cpu_tree.right)
+            and torch.equal(dev_tree.centroids.cpu(), cpu_tree.centroids))
+    assert same, "the card's device build differs from the same build on the CPU"
+    diffs = tt.split_differences(rows, host_tree, dev_tree)
+    for node, da, db, va, vb in diffs:
+        log("eval", f"TSVQ split of host node {node}: dim {da} (summed deviation {va:.9g}) against "
+            f"dim {db} ({vb:.9g}), relative gap {abs(va - vb) / max(va, vb):.3g}")
+        assert abs(va - vb) <= TSVQ_TIE_RTOL * max(va, vb), "a differing split that is no near tie"
+    topo = (torch.equal(dev_tree.left.cpu(), host_tree.left)
+            and torch.equal(dev_tree.right.cpu(), host_tree.right))
+    cgap = (float((dev_tree.centroids.cpu() - host_tree.centroids).abs().max()) if topo else None)
+    log("eval", f"TSVQ device build {tuple(rows.shape)} depth 5: {dev_tree.num_nodes} nodes, bit-identical to "
+        f"the same build on the CPU; against the host recursion {len(diffs)} differing splits, topology "
+        f"{'equal' if topo else 'differs'}, centroids within {cgap}")
+    log("time", f"TSVQ build {tuple(rows.shape)} depth 5: device build {dev_ms:.3f} ms on the card (CUDA "
+        f"events, first call), {cpu_s:.3f} s on the CPU; host recursion {host_s:.3f} s | {smi}")
+    xe = generate_synthetic_data(EVAL_TSVQ_ENCODE, EVAL_DIM, 67)
+    card_q = tt.TSVQ(tree=host_tree.to(card))
+    leaves = card_q.encode(xe).cpu()
+    want = tt.TSVQ(tree=host_tree).encode(xe.cpu())
+    gaps = tt.descent_gaps(host_tree, xe.cpu(), leaves, want)
+    for gap in gaps:
+        log("eval", f"TSVQ leaf differs from the CPU's at a relative distance gap of {gap:.3g}")
+    assert (gaps <= TSVQ_TIE_RTOL).all(), f"TSVQ leaves differ beyond a near tie: {gaps}"
+    log("eval", f"TSVQ encode {tuple(xe.shape)} on the card: {int(gaps.size)} of {xe.shape[0]} leaf ids "
+        f"differ from the CPU run's, all float near ties (max gap {float(gaps.max(initial=0.0)):.3g})")
+    out["tsvq_build_ms"], out["tsvq_host_s"] = dev_ms, host_s
+    return out
+
+
+def phase_eval_timings(smi, checks):
+    """K3 and K4 at the eval's 16x256x24 beside their plain versions, with
+    their floors; then a ``torch.profiler`` line a harness (one more
+    ``main()`` each)."""
+    import importlib as il
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    (x3, cb3), (x4, cb4) = checks["k3"], checks["k4"]
+    t = {"K3_eval": (cuda_ms(lambda: ck.pq_lloyd_accumulate_fused(x3, cb3), 10),
+                     cuda_ms(lambda: ck.pq_lloyd_accumulate_plain(x3, cb3), 2)),
+         "K4_eval": (cuda_ms(lambda: ck.pq_encode_fused(x4, cb4), 5),
+                     cuda_ms(lambda: ck.pq_encode_plain(x4, cb4), 1))}
+    m, k, s = cb4.shape
+    sms, mhz = sm_rate()
+    for name, n in (("K3_eval", x3.shape[0]), ("K4_eval", x4.shape[0])):
+        floor = 2.0 * n * m * k * s / (sms * 128 * mhz * 1e6) * 1e3
+        log("time", f"{name} {n} x {m}x{k}x{s}: kernel {t[name][0]:.4f} ms, plain {t[name][1]:.4f} ms; "
+            f"floor under its exact contract {floor:.4f} ms, {floor / t[name][0]:.3f} of it | {smi}")
+    argv = ["--sizes", str(EVAL_ROWS), "--dim", str(EVAL_DIM), "--recall"]
+    cuda = torch.autograd.DeviceType.CUDA
+    for name in EVAL_CLIS:
+        mod = il.import_module(f"vq_tpu_torch.cli.eval_{name}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = _eval_rows(mod, argv)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        dev = sum(e.self_device_time_total for e in evts) / 1e3
+        top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
+        log("profile", f"eval_{name} main() {EVAL_ROWS} x {EVAL_DIM} --recall: wall {wall * 1e3:.1f} ms, "
+            f"device {dev:.3f} ms, busy {dev / (wall * 1e3):.3f}; "
+            + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
+            + f" | {smi}")
+    return t
+
+
+def eval_fields(key, t_eval, bounds, rows):
+    """Extra fields of the K3 / K4 rows: their time, plain time and bound
+    at the eval harness's shape."""
+    return {"eval_shape": f"{rows} x {EVAL_DIM}, {'x'.join(map(str, PQ_EVAL))}",
+            "ms_eval": t_eval[key][0], "plain_ms_eval": t_eval[key][1],
+            "bound_ms_eval": bounds[key][0], "bound_by_eval": bounds[key][1]}
+
+
 def bench_bounds():
     """``{kernel: (bound ms, "bytes" or "operations")}`` of B1-B4 at the
     twins' shapes, as :func:`kernel_bounds` reckons them, and B2's own
@@ -1765,6 +1969,10 @@ def main() -> None:
     bl = phase_bench_path()
     t_bench = phase_bench_timings(smi, bd)
     del bd
+    ev = phase_eval_path(smi)
+    ev_checks = phase_eval_checks(smi, ev)
+    t_eval = phase_eval_timings(smi, ev_checks)
+    del ev_checks
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
@@ -1773,9 +1981,17 @@ def main() -> None:
     launches["ivf_probe_matvec_fused"] = flat["launches"]["ivf_probe_matvec_fused"]
     pl, rl = prec["launches"], rqres["launches"]
     k3_paths = {"pq": launches["pq_lloyd_accumulate_fused"],
-                "ivf_pq": ivf["launches"]["pq_lloyd_accumulate_fused"]}
-    k4_paths = {"pq": launches["pq_encode_fused"], "ivf_pq": ivf["launches"]["pq_encode_fused[highest]"]}
+                "ivf_pq": ivf["launches"]["pq_lloyd_accumulate_fused"],
+                "eval_pq": ev["launches"]["pq"]["pq_lloyd_accumulate_fused"]}
+    k4_paths = {"pq": launches["pq_encode_fused"], "ivf_pq": ivf["launches"]["pq_encode_fused[highest]"],
+                "eval_pq": ev["launches"]["pq"]["pq_encode_fused[highest]"]}
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
+    e_m, e_k, e_s = PQ_EVAL
+    e_ops = 2.0 * e_m * e_k * e_s
+    bounds["K3_eval"] = bound(EVAL_K3_ROWS * EVAL_DIM * 4 + 2 * e_m * e_k * e_s * 4 + e_m * e_k * 4,
+                              e_ops * EVAL_K3_ROWS, PEAK_F32)
+    bounds["K4_eval"] = bound(EVAL_ROWS * EVAL_DIM * 4 + e_m * e_k * e_s * 4 + EVAL_ROWS * e_m * 4,
+                              e_ops * EVAL_ROWS, PEAK_F32)
     bbounds = bench_bounds()
     bounds.update({k: v for k, v in bbounds.items() if k != "B2_design_floor"})
     src = "vq_tpu_torch/csrc/"
@@ -1796,9 +2012,11 @@ def main() -> None:
             res["k3_err"], "K3", t["K3"], {
                 "launches_by_path": k3_paths, "ms_200k": t["K3_200k"][0],
                 "plain_ms_200k": t["K3_200k"][1],
-                "sums_stage_by_rows": {str(n): v for n, v in k3_stages.items()}}),
+                "sums_stage_by_rows": {str(n): v for n, v in k3_stages.items()},
+                **eval_fields("K3_eval", t_eval, bounds, EVAL_K3_ROWS)}),
         row("pq_encode_fused", "pq_encode.cu", "379", sum(k4_paths.values()), res["k4_err"],
-            "K4", t["K4"], {"launches_by_path": k4_paths}),
+            "K4", t["K4"], {"launches_by_path": k4_paths,
+                            **eval_fields("K4_eval", t_eval, bounds, EVAL_ROWS)}),
         row("adc_scan_topk_fused", "adc_topk.cu", "802", launches["adc_scan_topk_fused"],
             res["k5_err"], "K5", t["K5"]),
         row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"],

@@ -31,6 +31,9 @@ import torch
 from vq_tpu_torch.benchmarks import adc_vmem_bench as av
 from vq_tpu_torch.benchmarks import mpacked_encode as mp
 from vq_tpu_torch.ops import cuda_kernels as ck
+from vq_tpu_torch.models import bq as tbq
+from vq_tpu_torch.models import tsvq as tt
+from vq_tpu_torch.models.pq import _smallest
 from vq_tpu_torch.ops.packing import pack_codes
 
 pytestmark = pytest.mark.cuda
@@ -48,12 +51,14 @@ def card():
 # multiple of 4 (4-byte copies, zeros past s) with k odd and three
 # 128-centroid passes; a codebook past shared memory (the streamed scan).
 _PQ_SHAPES = [(8, 256, 16), (4, 300, 24), (2, 1000, 12), (3, 257, 5), (1, 4096, 64)]
+# The eval harness's default PQ (16 x 256 on dim 384: 24-wide subspaces).
+_EVAL_PQ = (16, 256, 24)
 # K4-bf16 / K4-bf16x3 also past 64 e (x reloaded in chunks of 4 k-steps).
 _LOWP_SHAPES = _PQ_SHAPES + [(2, 100, 130)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", _PQ_SHAPES)
+@pytest.mark.parametrize("shape", _PQ_SHAPES + [_EVAL_PQ])
 def test_pq_encode_matches_plain(card, shape, dtype):
     m, k, s = shape
     g = torch.Generator(device=card).manual_seed(1)
@@ -301,7 +306,7 @@ def test_pq_encode_nan_and_ties(card):
     assert not bool((got == 3).any())
 
 
-@pytest.mark.parametrize("shape", _PQ_SHAPES)
+@pytest.mark.parametrize("shape", _PQ_SHAPES + [_EVAL_PQ])
 @pytest.mark.parametrize("n", [20_000, 77])
 def test_pq_lloyd_matches_plain(card, shape, n):
     """K3 bit for bit: sums, counts and inertia, and the scan's minimum
@@ -1041,3 +1046,68 @@ def test_bench_launch_counters_count_card_launches(card):
     for f in fns[1:]:
         f(tables, codes_t)
     assert [f.launches for f in fns] == [b + 1 for b in before]
+
+
+# BQ, TSVQ and the stable top-k have no kernel: plain PyTorch on the card,
+# held to the same functions on the CPU copies.
+
+
+@pytest.mark.parametrize("dim", [33, 384])
+def test_bq_on_the_card_equals_the_cpu(card, dim):
+    g = torch.Generator(device=card).manual_seed(21)
+    x = torch.rand(20_000, dim, generator=g, device=card)
+    x[5, 3], x[7, 0] = float("nan"), 0.5
+    q = tbq.BinaryQuantizer(0.5, 2, 9)
+    xc = x.cpu()
+    assert torch.equal(q.quantize(x).cpu(), q.quantize(xc))
+    packed = q.quantize_packed(x)
+    assert packed.dtype == torch.uint32 and torch.equal(packed.cpu(), q.quantize_packed(xc))
+    assert torch.equal(tbq.unpack_bits(packed, dim).cpu(), tbq.unpack_bits(packed.cpu(), dim))
+    ham = tbq.hamming_distance(packed[:37], packed)
+    assert torch.equal(ham.cpu(), tbq.hamming_distance(packed[:37].cpu(), packed.cpu()))
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan", "cosine"])
+def test_tsvq_encode_on_the_card_equals_the_cpu(card, metric):
+    """Leaf ids equal the CPU run's except float near ties (two summation
+    orders of the same distances)."""
+    rng = np.random.default_rng(22)
+    data = rng.random((20_000, 96), dtype=np.float32)
+    q = tt.TSVQ(data, 6, metric, device=card)
+    x = torch.from_numpy(rng.random((50_000, 96), dtype=np.float32))
+    got = q.encode(x.to(card)).cpu()
+    want = tt.TSVQ(tree=q.tree.to("cpu"), distance=metric).encode(x)
+    gaps = tt.descent_gaps(q.tree, x, got, want, metric)
+    assert (gaps <= 1e-5).all(), gaps
+    assert gaps.size <= 5, gaps
+
+
+def test_tsvq_device_build_on_the_card(card):
+    """The card's level build equals the same build on the CPU bit for bit
+    (one fixed order of f32 adds), and the host recursion's tree except
+    splits at float near ties."""
+    rng = np.random.default_rng(23)
+    data = rng.random((30_000, 64), dtype=np.float32)
+    data[11, 4] = np.nan
+    on_card = tt.tsvq_build_batched(torch.from_numpy(data).to(card), 5)
+    on_cpu = tt.tsvq_build_batched(data, 5, device="cpu")
+    assert torch.equal(on_card.left.cpu(), on_cpu.left) and torch.equal(on_card.right.cpu(), on_cpu.right)
+    assert torch.equal(on_card.centroids.cpu().nan_to_num(7.0), on_cpu.centroids.nan_to_num(7.0))
+    host = tt.tsvq_build(data, 5, device="cpu")
+    for _, _, _, dev_a, dev_b in tt.split_differences(data, host, on_card):
+        assert abs(dev_a - dev_b) <= 1e-5 * max(dev_a, dev_b)
+
+
+def test_smallest_order_on_the_card_equals_the_cpu(card):
+    """The stable sort under the searches' and recall's top-k: the card's
+    order equals the CPU's on +-0.0, NaN of either sign and heavy ties."""
+    neg_nan = torch.tensor([-0x400000], dtype=torch.int32).view(torch.float32)[0].item()
+    pool = torch.tensor([0.0, -0.0, 1.0, -1.0, float("nan"), neg_nan, float("inf"),
+                         float("-inf"), 0.5])
+    g = torch.Generator().manual_seed(24)
+    for shape, k in (((64, 300), 10), ((8, 70_000), 500), ((3, 2049), 2049)):
+        d = pool[torch.randint(0, pool.numel(), shape, generator=g)]
+        vals, pos = _smallest(d.to(card), k)
+        want_vals, want_pos = _smallest(d, k)
+        assert torch.equal(pos.cpu(), want_pos)
+        assert torch.equal(vals.cpu().view(torch.int32), want_vals.view(torch.int32))

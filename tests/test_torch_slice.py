@@ -201,7 +201,10 @@ def test_port_imports_no_jax():
         "import sys, vq_tpu_torch, vq_tpu_torch.ops._build, "
         "vq_tpu_torch.convert, vq_tpu_torch.utils, "
         "vq_tpu_torch.benchmarks.mpacked_encode, vq_tpu_torch.benchmarks.adc_vmem_bench, "
-        "vq_tpu_torch.benchmarks.pq_scan_ab\n"
+        "vq_tpu_torch.benchmarks.pq_scan_ab, vq_tpu_torch.models.bq, vq_tpu_torch.models.tsvq, "
+        "vq_tpu_torch.utils.datasets, vq_tpu_torch.utils.metrics, vq_tpu_torch.cli.common, "
+        "vq_tpu_torch.cli.eval_bq, vq_tpu_torch.cli.eval_sq, vq_tpu_torch.cli.eval_pq, "
+        "vq_tpu_torch.cli.eval_tsvq\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'vq_tpu', 'benchmarks') "
         "or m.startswith(('jax.', 'vq_tpu.', 'benchmarks.')))\n"
         "assert not bad, bad\n"

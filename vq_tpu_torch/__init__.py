@@ -1,6 +1,13 @@
 """vq_tpu_torch — the PyTorch / CUDA port of vq_tpu, for NVIDIA Hopper.
 
-Ported so far: the product-quantization main path — train a
+Ported so far: the four quantizers of the source library — binary
+(:class:`BinaryQuantizer`, with sign bits packed 32 to a word and their
+Hamming distance), scalar, product and tree-structured (:class:`TSVQ`,
+built by the host recursion or level by level on the card) — with the
+distances (:func:`distance`, :func:`pairwise`, :func:`nearest`,
+:func:`rowwise`, :class:`Distance`) and the four eval harnesses
+(``python -m vq_tpu_torch.cli.eval_{bq,sq,pq,tsvq}``); the
+product-quantization main path — train a
 :class:`ProductQuantizer`, build a :class:`PQIndex` and ``add`` a corpus
 (which encodes it, exactly or at the bf16 precisions), then ``search``
 query batches with the flat ADC top-k; residual quantization
@@ -13,7 +20,8 @@ probed ``search``. Their kernels — assign, Lloyd accumulate, PQ Lloyd
 accumulate, PQ encode (exact, bf16 and bf16x3), the ADC scan with
 per-tile top-k, the IVF probe matvec, the IVF ADC probe and the dense ADC
 table sum — are CUDA C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built
-with nvcc on first use.
+with nvcc on first use. BQ, TSVQ and the distances reach no TPU kernel:
+they are plain PyTorch on every device.
 
 Entry points run on the card: input that is not a tensor lands on
 ``cuda`` unless a ``device`` is given (or :func:`default_device` names
@@ -50,6 +58,13 @@ from vq_tpu_torch.errors import (
 from vq_tpu_torch.ivf import IVFPQIndex
 from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
 from vq_tpu_torch.models.base import Quantizer, default_device
+from vq_tpu_torch.models.bq import (
+    BinaryQuantizer,
+    hamming_distance,
+    pack_bits,
+    packed_width,
+    unpack_bits,
+)
 from vq_tpu_torch.models.pq import ProductQuantizer, pq_decode, pq_encode, pq_train
 from vq_tpu_torch.models.rq import (
     ResidualQuantizer,
@@ -59,7 +74,8 @@ from vq_tpu_torch.models.rq import (
     rq_train,
 )
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
-from vq_tpu_torch.ops.distance import Metric, pairwise
+from vq_tpu_torch.models.tsvq import TSVQ, TSVQTree, tsvq_build
+from vq_tpu_torch.ops.distance import Distance, Metric, distance, nearest, pairwise, rowwise
 from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
 from vq_tpu_torch.search import PQIndex, RQIndex
@@ -75,6 +91,14 @@ __all__ = [
     "InvalidParameter",
     "InvalidData",
     "Quantizer",
+    "BinaryQuantizer",
+    "packed_width",
+    "pack_bits",
+    "unpack_bits",
+    "hamming_distance",
+    "TSVQ",
+    "TSVQTree",
+    "tsvq_build",
     "ProductQuantizer",
     "ScalarQuantizer",
     "PerDimScalarQuantizer",
@@ -87,7 +111,11 @@ __all__ = [
     "rq_decode",
     "rq_refine_joint",
     "Metric",
+    "Distance",
+    "distance",
     "pairwise",
+    "nearest",
+    "rowwise",
     "bits_for",
     "pack_codes",
     "unpack_codes",

@@ -26,6 +26,10 @@ Kinds ported so far (config; arrays):
 * ``"ivfsq_index"`` — :class:`IVFSQIndex` (``metric``, ``by_residual``,
   ``levels``, ``max_list_size``; ``coarse``, ``mins``, ``maxs``, ``codes``,
   ``sqn`` and ``lists`` in id order);
+* ``"bq"`` — :class:`BinaryQuantizer` (``threshold``, ``low``, ``high``;
+  none);
+* ``"tsvq"`` — :class:`TSVQ` (``distance``, ``depth``; ``centroids``,
+  ``left``, ``right``);
 * ``"rq"`` — :class:`ResidualQuantizer` (none; ``codebooks``);
 * ``"rq_index"`` — :class:`RQIndex` (``metric``, ``keep_corpus``,
   ``beam``; ``codebooks``, ``codes``, ``row_sqn`` and, when kept,
@@ -77,11 +81,20 @@ def state_of(obj) -> State:
     """``(kind, config, arrays)`` of a port object, arrays as numpy."""
     from vq_tpu_torch.ivf import IVFPQIndex
     from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
+    from vq_tpu_torch.models.bq import BinaryQuantizer
     from vq_tpu_torch.models.pq import ProductQuantizer
     from vq_tpu_torch.models.rq import ResidualQuantizer
     from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
+    from vq_tpu_torch.models.tsvq import TSVQ
     from vq_tpu_torch.search import PQIndex, RQIndex
 
+    if isinstance(obj, BinaryQuantizer):
+        return "bq", {"threshold": obj.threshold, "low": obj.low, "high": obj.high}, {}
+    if isinstance(obj, TSVQ):
+        t = obj.tree
+        return "tsvq", {"distance": obj.distance_metric, "depth": t.depth}, {
+            "centroids": _np(t.centroids), "left": _np(t.left), "right": _np(t.right),
+        }
     if isinstance(obj, IVFRQIndex):
         s = obj.rq.num_stages
         config = {"metric": obj.metric, "by_residual": obj.by_residual, "beam": obj.beam,
@@ -298,7 +311,23 @@ def _sq_perdim_from(config, arrays, device):
     return PerDimScalarQuantizer(arrays["mins"], arrays["maxs"], config["levels"], device=device)
 
 
+def _bq_from(config, arrays, device):
+    from vq_tpu_torch.models.bq import BinaryQuantizer
+
+    return BinaryQuantizer(config["threshold"], config["low"], config["high"])
+
+
+def _tsvq_from(config, arrays, device):
+    from vq_tpu_torch.models.tsvq import TSVQ, TSVQTree
+
+    tree = TSVQTree(np.asarray(arrays["centroids"], np.float32), np.asarray(arrays["left"]),
+                    np.asarray(arrays["right"]), config["depth"], device=device)
+    return TSVQ(distance=config["distance"], tree=tree)
+
+
 _FROM_STATE = {
+    "bq": _bq_from,
+    "tsvq": _tsvq_from,
     "pq": lambda config, arrays, device: _pq_from(arrays, config["distance"], device),
     "sq": _sq_from,
     "sq_perdim": _sq_perdim_from,

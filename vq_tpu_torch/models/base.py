@@ -121,14 +121,17 @@ def _as_batch(x: torch.Tensor):
     raise InvalidParameter("x", f"expected [d] or [n, d] input, got {x.ndim}-D")
 
 
-def as_batch_f32(x, device: Optional[torch.device] = None):
-    """Coerce input to an f32 ``[n, d]`` tensor: ``(array_2d, was_1d)``."""
+def as_batch_f32(x, device: Optional[torch.device] = None, *, allow_any_rank: bool = False):
+    """Coerce input to an f32 ``[n, d]`` tensor: ``(array_2d, was_1d)``.
+    With ``allow_any_rank`` (the elementwise quantizers) any shape passes
+    through unchanged, and ``was_1d`` is False."""
     x = as_tensor(x, device)
     _check_numeric(x)
-    return _as_batch(x.to(torch.float32))
+    x = x.to(torch.float32)
+    return (x, False) if allow_any_rank else _as_batch(x)
 
 
-def as_batch_compute(x, device: Optional[torch.device] = None):
+def as_batch_compute(x, device: Optional[torch.device] = None, *, allow_any_rank: bool = False):
     """Like :func:`as_batch_f32` but keeps f16/bf16 input half: the
     kernels upcast in registers, so codes equal those of the same values
     given as f32."""
@@ -136,7 +139,7 @@ def as_batch_compute(x, device: Optional[torch.device] = None):
     _check_numeric(x)
     if x.dtype not in _HALF_DTYPES:
         x = x.to(torch.float32)
-    return _as_batch(x)
+    return (x, False) if allow_any_rank else _as_batch(x)
 
 
 def check_training_matrix(data, device: Optional[torch.device] = None) -> torch.Tensor:

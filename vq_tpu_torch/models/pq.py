@@ -137,10 +137,16 @@ def _cosine_from_dots(acc, cb, codes, qn):
 
 def _smallest(d: torch.Tensor, k: int):
     """``(values, positions)`` of the k smallest per row, ascending, the
-    lowest position first on exact ties (a stable sort; ``torch.topk``
-    promises no tie order)."""
-    vals, pos = torch.sort(d, dim=1, stable=True)
-    return vals[:, :k], pos[:, :k]
+    lowest position first on exact ties, every NaN last and -0.0 equal to
+    +0.0 (``torch.topk`` promises no tie order). A stable sort of the key
+    ``d + 0.0``, which turns -0.0 into +0.0 and, on the card, every NaN
+    into the canonical +NaN (the card's float add returns it). Sorting the
+    values themselves orders them so on the CPU only: the card's radix
+    sort puts a NaN with its sign bit set first and -0.0 before +0.0 (the
+    CPU's sort takes every NaN as largest, whatever its sign). The values
+    returned are the row's own."""
+    pos = torch.sort(d + 0.0, dim=1, stable=True)[1][:, :k]
+    return torch.gather(d, 1, pos), pos
 
 
 def _merge_candidates(vals, ids, fetch: int, euclidean: bool = False):

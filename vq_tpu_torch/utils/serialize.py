@@ -2,7 +2,8 @@
 checkpoint written by either package loads in the other: a JSON header
 (``format_version``, ``kind``, ``config``) stored as a u8 array under
 ``__vq_header__``, then the model's arrays by name. The port carries
-the kinds ``"pq"``, ``"sq"``, ``"sq_perdim"``, ``"rq"`` (:func:`save` /
+the kinds ``"pq"``, ``"sq"``, ``"sq_perdim"``, ``"rq"``, ``"bq"``,
+``"tsvq"`` (:func:`save` /
 :func:`load`), ``"pq_index"``, ``"rq_index"``, ``"ivfpq_index"``,
 ``"ivfflat_index"``, ``"ivfsq_index"`` and ``"ivfrq_index"`` (each index's
 ``save`` / ``load``); the layouts are listed in
