@@ -125,7 +125,26 @@ Phases, one line each (any failure exits non-zero with no result line):
    near ties (each printed with its two summed deviations). Then K3 and
    K4 timed at that shape beside their plain versions and floors, and a
    ``torch.profiler`` line a harness (one more ``main()`` each: wall,
-   device time, busy share, top kernels).
+   device time, busy share, top kernels);
+14. flat serving path — on the phase-4 mixture: ``FlatIndex`` f32, bf16
+   and f16 (squared L2, k=10) with recall@10 against the ground truth and
+   the f32 ids equal to its own at separated ranks (values within
+   ``FLAT_ATOL`` of its float64 distances); all five metrics at f32 over
+   the 1M rows (Manhattan at its 8,192-row chunk) held to the same index
+   searched on the CPU for ``FLAT_CPU_QUERIES`` queries; ``range_search``
+   at the median 10th distance (hits within it, the prefix of search,
+   counts bracketed by the CPU's at the radius +- the tolerance);
+   ``range_search`` of PQ (phase 4's codes) and RQ (phase 10's indexes),
+   squared L2 and cosine, K8's launches read from that run and every
+   result bit for bit the plain route's, and ``_search_core``'s ``fn``
+   equal to ``search``; ``SQIndex`` SQ8 (k=10, rerank 100 from the kept
+   corpus, dot) and ``BinaryIndex`` (k=10, rerank 500) with recall@10 and
+   CPU checks (the [8, 1M] Hamming counts bit for bit); ``knn_graph`` over
+   the first 100k rows (k=10, query_batch 1024), 256 sampled rows held to
+   ``FlatIndex.search(k=11)`` less the self-match; CUDA-event times of
+   each search and a ``torch.profiler`` line for the f32 ``FlatIndex``,
+   ``SQIndex`` and ``BinaryIndex`` searches and ``knn_graph`` (with the
+   share of the top-k merges' sort kernels).
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -189,6 +208,22 @@ B1_ROWS = 100_000
 EVAL_ROWS, EVAL_DIM, EVAL_K3_ROWS, EVAL_QUERIES = 1_000_000, 384, 100_000, 128
 EVAL_TSVQ_ROWS, EVAL_TSVQ_ENCODE, TSVQ_TIE_RTOL = 200_000, 100_000, 1e-5
 PQ_EVAL = (16, 256, 24)  # eval_pq's default codebooks on dim 384
+# Phase 14, the flat serving layer on the phase-4 mixture. The card's
+# searches are held to the same indexes searched on the CPU for
+# FLAT_CPU_QUERIES queries: values within FLAT_RTOL relative plus the
+# metric's FLAT_ATOL (the two devices' products and sums add in their own
+# f32 orders; squared distances, Manhattan sums and scores run to ~10^3
+# here), ids equal at every rank whose value is farther than that from
+# every other value of its row. The f32 FlatIndex is held the same way to
+# the exact float64 distances of the ground truth's ids.
+FLAT_STORAGES, FLAT_CPU_QUERIES, FLAT_MIN_RECALL_EXACT = ("float32", "bfloat16", "float16"), 8, 0.999
+FLAT_METRICS = ("squared_euclidean", "euclidean", "cosine", "dot", "manhattan")
+FLAT_RTOL = 1e-5
+FLAT_ATOL = {"squared_euclidean": 2e-2, "euclidean": 1e-3, "cosine": 1e-5, "dot": 2e-2,
+             "manhattan": 5e-3}
+SQ_RERANK, BQ_RERANK = 100, 500
+KNN_ROWS, KNN_K, KNN_BATCH, KNN_SAMPLE = 100_000, 10, 1024, 256
+SORT_KERNELS = ("Sort", "sort")  # the stable sorts of the top-k merges, by kernel name
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
 HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1474,9 +1509,6 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
     busy share (device over wall, the profiler's host cost included), the
     three kernels that took most of it, K7's launches by stage and K8's
     time and share where they ran."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     import vq_tpu_torch
 
     rq, ivf, pq, codes = rqres["rq"], rqres["ivf"], prec["pq"], prec["codes"]
@@ -1511,36 +1543,53 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
         calls[f"{name} search nprobe={p}"] = lambda idx=idx, p=p: idx.search(queries, k=10, nprobe=p)
     for p in NPROBES:
         calls[f"IVFPQIndex.search nprobe={p}"] = lambda p=p: pqi.search(queries, k=10, nprobe=p)
-    cuda = torch.autograd.DeviceType.CUDA
     for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):  # the profiler now and then records no device activity: again
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            evts = [e for e in prof.key_averages() if e.device_type == cuda]
-            if evts:
-                break
-        dev = sum(e.self_device_time_total for e in evts) / 1e3
-        top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
-        stages = stage_times(evts)
-        k2 = ("; K2's sums stage: " + ", ".join(
-            f"{s} {stages[s][0]:.3f} ms x{stages[s][1]:g}" for s in ("sums", "combine") if s in stages)
-            if "sums" in stages else "")
-        k8 = [e for e in evts if "adc_lookup_kernel" in e.key]
-        k8_ms = sum(e.self_device_time_total for e in k8) / 1e3
-        k8 = (f"; K8 {k8_ms:.3f} ms x{sum(e.count for e in k8)}, {k8_ms / dev:.2f} of the device time"
-              if k8 else "")
-        k7 = (stage_times(evts, K7_STAGES) if any("ivf_probe_kernel" in e.key for e in evts)
-              else {})
-        k7 = ("; K7: " + ", ".join(f"{s} {ms:.4f} ms x{n:g}" for s, (ms, n) in k7.items())
-              if k7 else "")
-        log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
-            + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
-            + k2 + k7 + k8 + f" | {smi}")
+        profile_line(smi, name, fn)
+
+
+def profile_line(smi, name, fn, sort_keys=()):
+    """One call of ``fn`` once warm, then once under ``torch.profiler`` (up
+    to three times, where it recorded no device activity): one
+    ``[profile]`` line of wall time, device time, busy share, the three
+    kernels that took most of it, K2's sums stage, K7's launches by stage
+    and K8's time and share where they ran, and the share of the kernels
+    whose names hold one of ``sort_keys``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no device activity: again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        if evts:
+            break
+    dev = sum(e.self_device_time_total for e in evts) / 1e3
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
+    stages = stage_times(evts)
+    k2 = ("; K2's sums stage: " + ", ".join(
+        f"{s} {stages[s][0]:.3f} ms x{stages[s][1]:g}" for s in ("sums", "combine") if s in stages)
+        if "sums" in stages else "")
+    k8 = [e for e in evts if "adc_lookup_kernel" in e.key]
+    k8_ms = sum(e.self_device_time_total for e in k8) / 1e3
+    k8 = (f"; K8 {k8_ms:.3f} ms x{sum(e.count for e in k8)}, {k8_ms / dev:.2f} of the device time"
+          if k8 else "")
+    k7 = (stage_times(evts, K7_STAGES) if any("ivf_probe_kernel" in e.key for e in evts)
+          else {})
+    k7 = ("; K7: " + ", ".join(f"{s} {ms:.4f} ms x{n:g}" for s, (ms, n) in k7.items())
+          if k7 else "")
+    sorts = [e for e in evts if any(key in e.key for key in sort_keys)]
+    sort_ms = sum(e.self_device_time_total for e in sorts) / 1e3
+    sorts = (f"; sort kernels {sort_ms:.3f} ms x{sum(e.count for e in sorts)}, "
+             f"{sort_ms / dev if dev else 0.0:.2f} of the device time" if sort_keys else "")
+    log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
+        + k2 + k7 + k8 + sorts + f" | {smi}")
 
 
 def make_bench_data(device):
@@ -1869,6 +1918,229 @@ def phase_eval_timings(smi, checks):
     return t
 
 
+def _apart_parity(got, want, atol, name, rtol=FLAT_RTOL):
+    """``got`` ``(ids, values)`` against ``want`` (as wide or wider): values
+    within ``rtol`` / ``atol``, ids equal at every rank whose value lies
+    farther than that from every other value of ``want``'s row. Returns
+    the number of ranks held by id."""
+    import torch
+
+    gi, gd = (t.cpu() for t in got)
+    wi, wd = (t.cpu() for t in want)
+    k = gi.shape[1]
+    gd, wd = gd.double(), wd.double()
+    err = float(torch.where(torch.isfinite(wd[:, :k]), (gd - wd[:, :k]).abs(), 0.0).max())
+    assert bool(torch.isclose(gd, wd[:, :k], rtol=rtol, atol=atol).all()), (
+        f"{name}: values differ by up to {err:.3g}")
+    fin = torch.where(torch.isfinite(wd), wd, 1e30)
+    close = (fin[:, :, None] - fin[:, None, :]).abs() <= atol + rtol * fin[:, None, :].abs()
+    apart = (close.sum(-1) == 1)[:, :k]
+    bad = int((apart & (gi.long() != wi[:, :k].long())).sum())
+    assert bad == 0, f"{name}: {bad} ids differ at separated ranks"
+    return int(apart.sum())
+
+
+def phase_flat_serving(smi, corpus, queries, main, rqres):
+    """Phase 14, the flat serving layer through the public entry points at
+    1M x 128: ``FlatIndex`` at three storage widths and five metrics with
+    ``range_search``, ``range_search`` and ``_search_core`` of the phase-4
+    PQ and phase-10 RQ indexes (K8's launches read from that run, held bit
+    for bit to the plain route), ``SQIndex`` (SQ8, rerank, dot),
+    ``BinaryIndex`` (Hamming, rerank) and ``knn_graph``; CPU checks on
+    FLAT_CPU_QUERIES queries, CUDA-event times and four profiler lines."""
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.convert import from_state, state_of
+    from vq_tpu_torch.models.bq import hamming_distance
+
+    t, recall = {}, {}
+    q8, q8c, corpus_cpu = queries[:FLAT_CPU_QUERIES], queries[:FLAT_CPU_QUERIES].cpu(), corpus.cpu()
+    gt11 = _ground_truth(corpus, queries, k=11)
+    gt_d = ((corpus[gt11].double() - queries[:, None].double()) ** 2).sum(-1)
+
+    # FlatIndex, squared L2 at f32 / bf16 / f16: recall@10 against the
+    # ground truth; f32 held to its float64 distances.
+    flat = {}
+    for storage in FLAT_STORAGES:
+        idx = vq_tpu_torch.FlatIndex.from_data(corpus, storage=storage)
+        ids, d = idx.search(queries, k=10)
+        _check_search(f"FlatIndex {storage}", ids, d)
+        recall[f"flat {storage}"] = _recall(ids, gt11[:, :10])
+        t[f"FlatIndex {storage} search"] = cuda_ms(lambda: idx.search(queries, k=10), 3)
+        if storage == "float32":
+            held = _apart_parity((ids, d), (gt11, gt_d), FLAT_ATOL["squared_euclidean"],
+                                 "FlatIndex f32 against the ground truth")
+            flat["squared_euclidean"] = (idx, ids, d)
+        del idx
+    assert recall["flat float32"] >= FLAT_MIN_RECALL_EXACT, recall
+    log("flat", f"FlatIndex f32 / bf16 / f16 (squared L2, k=10): recall@10 " + ", ".join(
+        f"{recall[f'flat {s}']:.4f}" for s in FLAT_STORAGES) + f"; f32 ids equal the ground "
+        f"truth's at {held} of {N_QUERY * 10} ranks (the separated ones), values within "
+        f"{FLAT_ATOL['squared_euclidean']} of its float64 distances")
+
+    # Five metrics at f32, each held to the same index on the CPU.
+    cpu_flat = {}
+    for metric in FLAT_METRICS:
+        if metric not in flat:
+            idx = vq_tpu_torch.FlatIndex.from_data(corpus, metric=metric)
+            ids, d = idx.search(queries, k=10)
+            _check_search(f"FlatIndex {metric}", ids, d, descending=metric == "dot")
+            flat[metric] = (idx, ids, d)
+            t[f"FlatIndex {metric} search"] = cuda_ms(lambda: idx.search(queries, k=10), 1)
+        idx, ids, d = flat[metric]
+        cpu = vq_tpu_torch.FlatIndex.from_data(corpus_cpu, metric=metric)
+        cpu_flat[metric] = cpu
+        held = _apart_parity((ids[:FLAT_CPU_QUERIES], d[:FLAT_CPU_QUERIES]),
+                             cpu.search(q8c, k=10), FLAT_ATOL[metric], f"FlatIndex {metric}")
+        log("flat", f"FlatIndex {metric} (chunk {idx._default_chunk(None)}): {FLAT_CPU_QUERIES} "
+            f"queries equal the CPU's at {held} of {FLAT_CPU_QUERIES * 10} ranks (the separated "
+            f"ones), values within {FLAT_ATOL[metric]}")
+    dot_ids = flat["dot"][1]
+
+    # range_search with a radius from the 10th distances: hits within it,
+    # the matching prefix of search, counts equal to the CPU's.
+    idx, ids, d = flat["squared_euclidean"]
+    radius = float(d[:, 9].median())
+    rids, rvals, counts = idx.range_search(queries, radius, max_results=10)
+    hit = rids >= 0
+    assert bool((rvals[hit] <= radius).all()), "range_search: a hit beyond the radius"
+    assert torch.equal(rids, torch.where(hit, ids, -1)), "range_search: not the prefix of search"
+    assert torch.equal(torch.where(hit, rvals, 0.0), torch.where(hit, d, 0.0))
+    assert torch.equal(hit.sum(1), counts.clamp_max(10)), "range_search: hits and counts disagree"
+    cpu_counts = cpu_flat["squared_euclidean"].range_search(q8c, radius, max_results=10)[2]
+    tol = FLAT_ATOL["squared_euclidean"] + FLAT_RTOL * radius
+    lo, hi = (cpu_flat["squared_euclidean"].range_search(q8c, radius + s, max_results=1)[2]
+              for s in (-tol, tol))
+    card = counts[:FLAT_CPU_QUERIES].cpu()
+    assert bool(((card >= lo) & (card <= hi)).all()), (card, cpu_counts, lo, hi)
+    n_equal = int((card == cpu_counts).sum())
+    t["FlatIndex f32 range_search"] = cuda_ms(
+        lambda: idx.range_search(queries, radius, max_results=10), 3)
+    log("flat", f"range_search radius {radius:.6g} (the median 10th distance), max_results 10: "
+        f"hits within the radius and equal to the prefix of search; counts {counts.min().item()}"
+        f"-{counts.max().item()}; the CPU's counts for {FLAT_CPU_QUERIES} queries equal the "
+        f"card's at {n_equal} ({int((hi - lo).sum())} values within {tol:.3g} of the radius)")
+    del cpu_flat
+
+    # PQ and RQ range_search, squared L2 and cosine: K8 a chunk.
+    pq = main["pq"]
+    pq_idx = {}
+    for metric in ("squared_euclidean", "cosine"):
+        i = vq_tpu_torch.PQIndex(vq_tpu_torch.ProductQuantizer(
+            codebooks=pq.codebooks, distance=metric, device=corpus.device))
+        i._codes = main["index"]._codes  # the phase-4 codes, searched under this metric
+        pq_idx[f"pq {metric}"] = i
+    pq_idx["rq squared_euclidean"] = rqres["indexes"]["l2"]
+    pq_idx["rq cosine"] = rqres["indexes"]["cosine"]
+    radii = {name: float(i.search(queries, k=10)[1][:, 9].median()) for name, i in pq_idx.items()}
+    reset_counts()
+    ranged = {name: i.range_search(queries, radii[name], max_results=10)
+              for name, i in pq_idx.items()}
+    torch.cuda.synchronize()
+    k8_range = read_counts()["adc_lookup_fused"]
+    chunks = -(-N_CORPUS // RQ_CHUNK)
+    assert k8_range == chunks * 5, f"K8 ran {k8_range} times in the range searches"
+    with plain_route():
+        plain = {name: i.range_search(queries, radii[name], max_results=10)
+                 for name, i in pq_idx.items()}
+    for name, got in ranged.items():
+        for a, b in zip(got, plain[name]):
+            assert torch.equal(a, b), f"{name} range_search differs from the plain route"
+        # at the median 10th distance, half the queries or more have 10 hits
+        assert int((got[2] >= 10).sum()) >= N_QUERY // 2, name
+        assert bool((got[1][got[0] >= 0] <= radii[name]).all()), name
+        t[f"{name} range_search"] = cuda_ms(
+            lambda i=pq_idx[name], r=radii[name]: i.range_search(queries, r, max_results=10), 3)
+    cores = {"pq": (main["index"], dict()), "pq rerank": (main["index"], dict(rerank=100)),
+             "rq": (rqres["indexes"]["l2"], dict()),
+             "rq rerank": (rqres["indexes"]["l2"], dict(rerank=RQ_RERANK))}
+    for name, (i, kw) in cores.items():
+        fn, arrays = i._search_core(10, **kw)
+        got, want = fn(queries, *arrays), i.search(queries, k=10, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+    log("flat", f"PQ (phase 4's codes) and RQ (phase 10) range_search, squared L2 and cosine, "
+        f"radius the median 10th distance: K8 launched {k8_range} times ({chunks} chunks a scan, "
+        f"twice for PQ cosine's norms), every result equal to the plain route's; "
+        f"_search_core's fn equals search for " + ", ".join(cores) + " (torch.equal)")
+
+    # SQIndex, SQ8 per dimension: k=10, rerank from the kept corpus, dot.
+    sq = vq_tpu_torch.SQIndex.from_data(corpus, keep_corpus=True)
+    sq_dot = vq_tpu_torch.SQIndex(sq.sq, metric="dot")
+    sq_dot._codes, sq_dot._row_sqn = sq._codes, sq._row_sqn  # the same codes
+    sq_calls = {"SQIndex k=10": (sq, dict(k=10)), f"SQIndex rerank={SQ_RERANK}": (
+        sq, dict(k=10, rerank=SQ_RERANK)), "SQIndex dot": (sq_dot, dict(k=10))}
+    sq_cpu = {"SQIndex dot": from_state(*state_of(sq_dot), device="cpu")}
+    sq_cpu["SQIndex k=10"] = sq_cpu[f"SQIndex rerank={SQ_RERANK}"] = from_state(
+        *state_of(sq), device="cpu")
+    n_diff = int((sq_cpu["SQIndex k=10"].sq.quantize(corpus_cpu) != sq._codes.cpu()).sum())
+    assert n_diff == 0, f"{n_diff} SQ8 codes of the card differ from the CPU's quantize"
+    del corpus_cpu
+    for name, (i, kw) in sq_calls.items():
+        ids, d = i.search(queries, **kw)
+        dot = "dot" in name
+        _check_search(name, ids, d, descending=dot)
+        recall[name] = _recall(ids, dot_ids if dot else gt11[:, :10])
+        atol = FLAT_ATOL["dot" if dot else "squared_euclidean"]
+        held = _apart_parity((ids[:FLAT_CPU_QUERIES], d[:FLAT_CPU_QUERIES]),
+                             sq_cpu[name].search(q8c, **kw), atol, name)
+        t[name] = cuda_ms(lambda i=i, kw=kw: i.search(queries, **kw), 3)
+        log("flat", f"{name}: codes equal the CPU's quantize of the 1M rows; recall@10 "
+            f"{recall[name]:.4f} (dot: against the exact dot top-10); "
+            f"{FLAT_CPU_QUERIES} queries equal the CPU's at {held} of {FLAT_CPU_QUERIES * 10} "
+            f"ranks, values within {atol}")
+    del sq_cpu
+
+    # BinaryIndex: Hamming counts bit for bit against the CPU's.
+    bi = vq_tpu_torch.BinaryIndex(DIM, keep_corpus=True)
+    bi.add(corpus)
+    ham = hamming_distance(bi.bq.quantize_packed(q8), bi._packed)
+    ham_cpu = hamming_distance(bi.bq.quantize_packed(q8c), bi._packed.cpu())
+    assert torch.equal(ham.cpu(), ham_cpu), "BinaryIndex: Hamming counts differ from the CPU's"
+    for name, kw in (("BinaryIndex k=10", dict(k=10)),
+                     (f"BinaryIndex rerank={BQ_RERANK}", dict(k=10, rerank=BQ_RERANK))):
+        ids, d = bi.search(queries, **kw)
+        _check_search(name, ids, d)
+        recall[name] = _recall(ids, gt11[:, :10])
+        t[name] = cuda_ms(lambda kw=kw: bi.search(queries, **kw), 3)
+    log("flat", f"BinaryIndex ({bi._packed.shape[1]} words a row): the [{FLAT_CPU_QUERIES}, "
+        f"{N_CORPUS}] Hamming counts equal the CPU's bit for bit; recall@10 " + ", ".join(
+            f"{n}: {recall[n]:.4f}" for n in recall if n.startswith("BinaryIndex")))
+
+    # knn_graph over the first KNN_ROWS rows, held to FlatIndex.search(k + 1)
+    # less the self-match on sampled rows.
+    sub = corpus[:KNN_ROWS]
+    (g_ids, g_vals), t_knn = cuda_once(lambda: vq_tpu_torch.knn_graph(
+        sub, k=KNN_K, query_batch=KNN_BATCH))
+    assert tuple(g_ids.shape) == (KNN_ROWS, KNN_K) and bool(torch.isfinite(g_vals).all())
+    rows = torch.randperm(KNN_ROWS, generator=torch.Generator().manual_seed(SEED))[:KNN_SAMPLE]
+    rows = rows.to(corpus.device)
+    s_ids, s_vals = vq_tpu_torch.FlatIndex.from_data(sub).search(sub[rows], k=KNN_K + 1)
+    keep = s_ids != rows[:, None].to(torch.int32)
+    assert bool((keep.sum(1) == KNN_K).all()), "a sampled row's self-match is not in its top 11"
+    want = (s_ids[keep].view(KNN_SAMPLE, KNN_K), s_vals[keep].view(KNN_SAMPLE, KNN_K))
+    held = _apart_parity((g_ids[rows], g_vals[rows]), want, FLAT_ATOL["squared_euclidean"],
+                         "knn_graph")
+    same = int((g_ids[rows] == want[0]).all(1).sum())
+    t["knn_graph"] = cuda_ms(lambda: vq_tpu_torch.knn_graph(sub, k=KNN_K, query_batch=KNN_BATCH), 1)
+    log("flat", f"knn_graph {KNN_ROWS} x {DIM}, k={KNN_K}, query_batch {KNN_BATCH}: first call "
+        f"{t_knn:.1f} ms; {KNN_SAMPLE} sampled rows equal FlatIndex.search(k={KNN_K + 1}) less the "
+        f"self-match at {held} of {KNN_SAMPLE * KNN_K} ranks (separated), {same} rows whole")
+
+    for name, ms in t.items():
+        log("time", f"{name} {N_QUERY} queries: {ms:.4f} ms, {N_QUERY / ms * 1e3:.6g} QPS | {smi}"
+            if name != "knn_graph" else f"knn_graph {KNN_ROWS} rows: {ms:.4f} ms, "
+            f"{KNN_ROWS / ms * 1e3:.6g} rows/s | {smi}")
+    f32 = flat["squared_euclidean"][0]
+    for name, fn in (("FlatIndex f32 search k=10", lambda: f32.search(queries, k=10)),
+                     ("SQIndex search k=10", lambda: sq.search(queries, k=10)),
+                     ("BinaryIndex search k=10", lambda: bi.search(queries, k=10)),
+                     (f"knn_graph {KNN_ROWS} rows", lambda: vq_tpu_torch.knn_graph(
+                         sub, k=KNN_K, query_batch=KNN_BATCH))):
+        profile_line(smi, name, fn, SORT_KERNELS)
+    return k8_range
+
+
 def eval_fields(key, t_eval, bounds, rows):
     """Extra fields of the K3 / K4 rows: their time, plain time and bound
     at the eval harness's shape."""
@@ -1973,6 +2245,7 @@ def main() -> None:
     ev_checks = phase_eval_checks(smi, ev)
     t_eval = phase_eval_timings(smi, ev_checks)
     del ev_checks
+    k8_range = phase_flat_serving(smi, corpus, queries, main_res, rqres)
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
@@ -2038,9 +2311,11 @@ def main() -> None:
             {"bf16_x_ms": t_new["K4_bf16_bf16in"][0]}),
         row("pq_encode_fused[bf16x3]", "pq_encode.cu", "420", pl["pq_encode_fused[bf16x3]"],
             lowp_gap["bf16x3"], "K4_bf16x3", t_new["K4_bf16x3"]),
-        row("adc_lookup_fused", "adc_lookup.cu", "727", pl["adc_lookup_fused"] + rl["adc_lookup_fused"],
+        row("adc_lookup_fused", "adc_lookup.cu", "727",
+            pl["adc_lookup_fused"] + rl["adc_lookup_fused"] + k8_range,
             0.0, "K8", t_new["K8"], {
-                "launches_by_path": {"precision": pl["adc_lookup_fused"], "rq": rl["adc_lookup_fused"]},
+                "launches_by_path": {"precision": pl["adc_lookup_fused"], "rq": rl["adc_lookup_fused"],
+                                     "range": k8_range},
                 "ms_rq_chunk": t_new["K8_rq_chunk"][0], "plain_ms_rq_chunk": t_new["K8_rq_chunk"][1],
                 "library_ms_rq_chunk": t_new["K8_rq_chunk"][2],
                 "bound_ms_rq_chunk": bounds["K8_rq_chunk"][0], "bound_by_rq_chunk": bounds["K8_rq_chunk"][1],

@@ -1111,3 +1111,121 @@ def test_smallest_order_on_the_card_equals_the_cpu(card):
         want_vals, want_pos = _smallest(d, k)
         assert torch.equal(pos.cpu(), want_pos)
         assert torch.equal(vals.cpu().view(torch.int32), want_vals.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The flat serving layer: FlatIndex, SQIndex, BinaryIndex, range_search,
+# knn_graph. Searches on the card against the same index on the CPU:
+# values within rtol 1e-5 / atol 1e-3 (the devices' products sum in their
+# own f32 orders), ids equal at every rank whose value lies farther than
+# that from every other value of its row; Hamming counts bit for bit; PQ /
+# RQ range_search (K8 a chunk) bit for bit against the plain route.
+# ---------------------------------------------------------------------------
+
+
+def _separated_parity(got, want, rtol=1e-5, atol=1e-3):
+    gi, gd = (t.cpu() for t in got)
+    wi, wd = (t.cpu() for t in want)
+    assert gi.dtype == torch.int32 and gi.shape == wi.shape
+    assert bool(torch.isclose(gd, wd, rtol=rtol, atol=atol).all())
+    fin = torch.where(torch.isfinite(wd), wd, 1e30)
+    close = (fin[:, :, None] - fin[:, None, :]).abs() <= atol + rtol * fin[:, None, :].abs()
+    apart = close.sum(-1) == 1
+    assert torch.equal(torch.where(apart, gi, -2), torch.where(apart, wi, -2))
+
+
+def _flat_data(card, n=30_000, d=32):
+    g = torch.Generator(device=card).manual_seed(31)
+    centres = torch.randn(64, d, generator=g, device=card) * 3
+    x = centres[torch.randint(0, 64, (n,), generator=g, device=card)] + torch.randn(
+        n, d, generator=g, device=card)
+    return x, x[:40] + 0.1 * torch.randn(40, d, generator=g, device=card)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["squared_euclidean", "euclidean", "cosine", "dot", "manhattan"])
+def test_flat_index_on_the_card_equals_the_cpu(card, metric, storage):
+    import vq_tpu_torch
+
+    x, q = _flat_data(card)
+    on_card = vq_tpu_torch.FlatIndex.from_data(x, metric=metric, storage=storage)
+    on_cpu = vq_tpu_torch.FlatIndex.from_data(x.cpu(), metric=metric, storage=storage)
+    got = on_card.search(q, k=10, chunk=7000)
+    assert got[0].device == x.device
+    _separated_parity(got, on_cpu.search(q.cpu(), k=10, chunk=7000))
+    radius = float(got[1][:, 9].median())
+    gi, gv, gc = on_card.range_search(q, radius, max_results=10, chunk=7000)
+    assert torch.equal(gi, torch.where(gi >= 0, got[0], -1))
+    wc = on_cpu.range_search(q.cpu(), radius, max_results=10, chunk=7000)[2]
+    assert int((gc.cpu() - wc).abs().max()) <= 1  # a value on the radius may round either way
+
+
+@pytest.mark.parametrize("levels", [256, 16])
+def test_sq_index_on_the_card_equals_the_cpu(card, levels):
+    import vq_tpu_torch
+
+    x, q = _flat_data(card)
+    on_card = vq_tpu_torch.SQIndex.from_data(x, levels, keep_corpus=True)
+    on_cpu = vq_tpu_torch.SQIndex.from_data(x.cpu(), levels, keep_corpus=True)
+    assert torch.equal(on_card._codes.cpu(), on_cpu._codes)
+    for kw in (dict(k=10), dict(k=10, rerank=50), dict(k=10, chunk=7000)):
+        _separated_parity(on_card.search(q, **kw), on_cpu.search(q.cpu(), **kw))
+    dot_card = vq_tpu_torch.SQIndex(on_card.sq, metric="dot")
+    dot_card.add(x)
+    dot_cpu = vq_tpu_torch.SQIndex(on_cpu.sq, metric="dot")
+    dot_cpu.add(x.cpu())
+    _separated_parity(dot_card.search(q, k=10), dot_cpu.search(q.cpu(), k=10))
+
+
+def test_binary_index_on_the_card_equals_the_cpu(card):
+    import vq_tpu_torch
+
+    x, q = _flat_data(card, d=40)
+    on_card = vq_tpu_torch.BinaryIndex(40, threshold=0.5, keep_corpus=True, device=card)
+    on_card.add(x)
+    on_cpu = vq_tpu_torch.BinaryIndex(40, threshold=0.5, keep_corpus=True, device="cpu")
+    on_cpu.add(x.cpu())
+    assert torch.equal(on_card._packed.cpu(), on_cpu._packed)
+    got, want = on_card.search(q, k=12), on_cpu.search(q.cpu(), k=12)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    _separated_parity(on_card.search(q, k=5, rerank=200), on_cpu.search(q.cpu(), k=5, rerank=200))
+
+
+def test_pq_and_rq_range_search_equal_plain_route(card, monkeypatch):
+    """PQ (squared L2, cosine, packed) and RQ (squared L2, cosine, dot)
+    range_search sum their tables through K8 a chunk: bit for bit the
+    same search with K8 swapped for its plain version."""
+    import vq_tpu_torch
+    import vq_tpu_torch.models.pq as pq_mod
+
+    x, q = _flat_data(card)
+    indexes = []
+    for metric, k in (("squared_euclidean", 64), ("cosine", 64), ("squared_euclidean", 16)):
+        pq = vq_tpu_torch.ProductQuantizer(x[:5000], 8, k, max_iters=3, distance=metric)
+        idx = vq_tpu_torch.PQIndex(pq)
+        idx.add(x)
+        indexes.append(idx)
+    rq = vq_tpu_torch.ResidualQuantizer(x[:5000], 3, 64, max_iters=3)
+    for metric in ("squared_euclidean", "cosine", "dot"):
+        idx = vq_tpu_torch.RQIndex(rq, metric=metric)
+        idx.add(x)
+        indexes.append(idx)
+    radii = [float(i.search(q, k=10)[1][:, 9].median()) for i in indexes]
+    before = ck.adc_lookup_fused.launches
+    got = [i.range_search(q, r, max_results=16, chunk=7000) for i, r in zip(indexes, radii)]
+    assert ck.adc_lookup_fused.launches - before == 5 * 7  # 5 chunks a scan, PQ cosine's twice
+    with monkeypatch.context() as m:
+        m.setattr(pq_mod, "adc_lookup_fused", ck.adc_lookup_plain)
+        want = [i.range_search(q, r, max_results=16, chunk=7000) for i, r in zip(indexes, radii)]
+    for g_, w_ in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g_, w_))
+
+
+def test_knn_graph_on_the_card_equals_the_cpu(card):
+    import vq_tpu_torch
+
+    x, _ = _flat_data(card, n=5000)
+    got = vq_tpu_torch.knn_graph(x, k=8, query_batch=700)
+    assert got[0].device == x.device
+    _separated_parity(got, vq_tpu_torch.knn_graph(x.cpu(), k=8, query_batch=700))
+    assert not bool((got[0] == torch.arange(5000, device=card)[:, None]).any())

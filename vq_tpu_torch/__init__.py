@@ -12,7 +12,13 @@ product-quantization main path — train a
 (which encodes it, exactly or at the bf16 precisions), then ``search``
 query batches with the flat ADC top-k; residual quantization
 (:class:`ResidualQuantizer`, greedy or beam encode, joint refinement) and
-its flat :class:`RQIndex`; and the IVF ladder's IVF-Flat, IVF-SQ, IVF-PQ
+its flat :class:`RQIndex`; the rest of the flat serving layer — the exact
+:class:`FlatIndex` (five metrics, f32 / bf16 / f16 rows), :class:`SQIndex`
+(per-dimension SQ codes, sub-byte packed at 16 levels and fewer) and
+:class:`BinaryIndex` (sign bits by Hamming count) beside PQ and RQ, every
+flat index with ``range_search`` and, where the JAX package has them,
+``search_and_reconstruct``, ``_search_core`` and ``_reconstruct_core`` —
+and the exact :func:`knn_graph` over it; and the IVF ladder's IVF-Flat, IVF-SQ, IVF-PQ
 and IVF-RQ indexes: ``train`` (k-means with :func:`lloyd`; then
 per-dimension SQ ranges, PQ or RQ codebooks on the residuals), ``add``
 (coarse :func:`assign`, then the raw row or its SQ, PQ or RQ code) and
@@ -20,8 +26,9 @@ probed ``search``. Their kernels — assign, Lloyd accumulate, PQ Lloyd
 accumulate, PQ encode (exact, bf16 and bf16x3), the ADC scan with
 per-tile top-k, the IVF probe matvec, the IVF ADC probe and the dense ADC
 table sum — are CUDA C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built
-with nvcc on first use. BQ, TSVQ and the distances reach no TPU kernel:
-they are plain PyTorch on every device.
+with nvcc on first use. BQ, TSVQ, the distances and the Flat, SQ and
+Binary scans reach no TPU kernel (the JAX package's are XLA products and
+``lax.top_k``): they are plain PyTorch on every device.
 
 Entry points run on the card: input that is not a tensor lands on
 ``cuda`` unless a ``device`` is given (or :func:`default_device` names
@@ -77,8 +84,9 @@ from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
 from vq_tpu_torch.models.tsvq import TSVQ, TSVQTree, tsvq_build
 from vq_tpu_torch.ops.distance import Distance, Metric, distance, nearest, pairwise, rowwise
 from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
+from vq_tpu_torch.ops.knn import knn_graph
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
-from vq_tpu_torch.search import PQIndex, RQIndex
+from vq_tpu_torch.search import BinaryIndex, FlatIndex, PQIndex, RQIndex, SQIndex
 from vq_tpu_torch.utils.serialize import load, save
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,8 +127,12 @@ __all__ = [
     "bits_for",
     "pack_codes",
     "unpack_codes",
+    "FlatIndex",
     "PQIndex",
+    "BinaryIndex",
+    "SQIndex",
     "RQIndex",
+    "knn_graph",
     "IVFPQIndex",
     "IVFFlatIndex",
     "IVFSQIndex",

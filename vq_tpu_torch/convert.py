@@ -34,6 +34,13 @@ Kinds ported so far (config; arrays):
 * ``"rq_index"`` — :class:`RQIndex` (``metric``, ``keep_corpus``,
   ``beam``; ``codebooks``, ``codes``, ``row_sqn`` and, when kept,
   ``corpus``);
+* ``"flat_index"`` — :class:`FlatIndex` (``dim``, ``metric``,
+  ``storage``; ``rows``, bf16 rows as f32, and ``row_sqn``);
+* ``"sq_index"`` — :class:`SQIndex` (``levels``, ``metric``,
+  ``keep_corpus``; ``mins``, ``maxs``, ``codes`` as stored, packed when
+  sub-byte, ``row_sqn`` and, when kept, ``corpus``);
+* ``"binary_index"`` — :class:`BinaryIndex` (``dim``, ``threshold``,
+  ``keep_corpus``; ``packed`` uint32 words and, when kept, ``corpus``);
 * ``"ivfrq_index"`` — :class:`IVFRQIndex` (``metric``, ``by_residual``,
   ``beam``, ``max_list_size``; ``coarse``, ``codebooks``, ``codes``,
   ``sqn``, ``cross`` and ``lists`` in id order).
@@ -66,6 +73,10 @@ def _np(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def _optional(t, empty: np.ndarray) -> np.ndarray:
+    return empty if t is None else _np(t)
+
+
 def _lists(idx) -> np.ndarray:
     return np.zeros((0,), np.int32) if idx._flat_lists is None else _np(idx._flat_lists)
 
@@ -86,8 +97,29 @@ def state_of(obj) -> State:
     from vq_tpu_torch.models.rq import ResidualQuantizer
     from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
     from vq_tpu_torch.models.tsvq import TSVQ
-    from vq_tpu_torch.search import PQIndex, RQIndex
+    from vq_tpu_torch.search import BinaryIndex, FlatIndex, PQIndex, RQIndex, SQIndex
 
+    if isinstance(obj, FlatIndex):
+        return "flat_index", {"dim": obj.dim, "metric": obj.metric, "storage": obj.storage}, {
+            "rows": _np(obj._rows) if obj._rows is not None else np.zeros((0, obj.dim), np.float32),
+            "row_sqn": _optional(obj._row_sqn, np.zeros((0,), np.float32)),
+        }
+    if isinstance(obj, SQIndex):
+        arrays = {"mins": _np(obj.sq.mins), "maxs": _np(obj.sq.maxs),
+                  "codes": _optional(obj._codes, np.zeros((0, obj.dim), np.uint8)),
+                  "row_sqn": _optional(obj._row_sqn, np.zeros((0,), np.float32))}
+        if obj.keep_corpus and obj._corpus is not None:
+            arrays["corpus"] = _np(obj._corpus)
+        config = {"levels": obj.sq.levels, "metric": obj.metric,
+                  "keep_corpus": bool(obj.keep_corpus)}
+        return "sq_index", config, arrays
+    if isinstance(obj, BinaryIndex):
+        arrays = {"packed": _optional(obj._packed, np.zeros((0, (obj.dim + 31) // 32), np.uint32))}
+        if obj.keep_corpus and obj._corpus is not None:
+            arrays["corpus"] = _np(obj._corpus)
+        config = {"dim": obj.dim, "threshold": obj.bq.threshold,
+                  "keep_corpus": bool(obj.keep_corpus)}
+        return "binary_index", config, arrays
     if isinstance(obj, BinaryQuantizer):
         return "bq", {"threshold": obj.threshold, "low": obj.low, "high": obj.high}, {}
     if isinstance(obj, TSVQ):
@@ -257,6 +289,45 @@ def _ivfrq_from(config, arrays, device):
     return idx
 
 
+def _flat_index_from(config, arrays, device):
+    from vq_tpu_torch.search import _STORAGE, FlatIndex
+
+    idx = FlatIndex(config["dim"], metric=config["metric"], storage=config["storage"],
+                    device=device)
+    rows = np.asarray(arrays["rows"])
+    if rows.shape[0]:
+        idx._rows = torch.as_tensor(rows).to(device=device, dtype=_STORAGE[config["storage"]])
+        idx._row_sqn = as_tensor(np.asarray(arrays["row_sqn"]), device)
+    return idx
+
+
+def _sq_index_from(config, arrays, device):
+    from vq_tpu_torch.search import SQIndex
+
+    idx = SQIndex(_sq_perdim_from(config, arrays, device), metric=config["metric"],
+                  keep_corpus=bool(config["keep_corpus"]))
+    codes = np.asarray(arrays["codes"])
+    if codes.shape[0]:
+        idx._codes = as_tensor(codes, device)
+        idx._row_sqn = as_tensor(np.asarray(arrays["row_sqn"]), device)
+    if "corpus" in arrays:
+        idx._corpus = as_tensor(np.asarray(arrays["corpus"]), device)
+    return idx
+
+
+def _binary_index_from(config, arrays, device):
+    from vq_tpu_torch.search import BinaryIndex
+
+    idx = BinaryIndex(config["dim"], threshold=config["threshold"],
+                      keep_corpus=bool(config["keep_corpus"]), device=device)
+    packed = np.asarray(arrays["packed"])
+    if packed.shape[0]:
+        idx._packed = as_tensor(packed.astype(np.uint32), device)
+    if "corpus" in arrays:
+        idx._corpus = as_tensor(np.asarray(arrays["corpus"], np.float32), device)
+    return idx
+
+
 def _ivfpq_from(config, arrays, device):
     from vq_tpu_torch.ivf import IVFPQIndex
 
@@ -338,6 +409,9 @@ _FROM_STATE = {
     "rq": lambda config, arrays, device: _rq_from(arrays, device),
     "rq_index": _rq_index_from,
     "ivfrq_index": _ivfrq_from,
+    "flat_index": _flat_index_from,
+    "sq_index": _sq_index_from,
+    "binary_index": _binary_index_from,
 }
 
 

@@ -149,6 +149,28 @@ def _smallest(d: torch.Tensor, k: int):
     return torch.gather(d, 1, pos), pos
 
 
+def _topk_scan(values, n: int, nq: int, fetch: int, chunk: int, device, radius=None):
+    """Running top-``fetch`` over ``values(c0, c1) -> [Q, c1 - c0]``
+    (smaller is better), one chunk of rows at a time: each chunk is merged
+    with the best so far by :func:`_smallest` over ``[best, chunk]``, so
+    the working set never grows with n and ``lax.top_k``'s order holds
+    (the lowest id first on ties). With a ``radius``, also counts a row's
+    values ``<= radius`` in the same pass (``range_search``). Returns
+    ``(ids [Q, fetch] i32, values [Q, fetch], hits [Q] i32 or None)``;
+    slots no row fills keep id -1 and value +inf."""
+    best_d = torch.full((nq, fetch), float("inf"), device=device)
+    best_i = torch.full((nq, fetch), -1, dtype=torch.int64, device=device)
+    hits = None if radius is None else torch.zeros(nq, dtype=torch.int64, device=device)
+    for c0 in range(0, n, chunk):
+        d = values(c0, min(c0 + chunk, n))
+        if hits is not None:
+            hits += (d <= radius).sum(1)
+        best_d, pos = _smallest(torch.cat([best_d, d], dim=1), fetch)
+        kept = torch.gather(best_i, 1, pos.clamp_max(max(fetch - 1, 0)))
+        best_i = torch.where(pos < fetch, kept, pos + (c0 - fetch))
+    return best_i.to(torch.int32), best_d, None if hits is None else hits.to(torch.int32)
+
+
 def _merge_candidates(vals, ids, fetch: int, euclidean: bool = False):
     """Merge K5's per-tile candidates into the top ``fetch`` -> ``(ids,
     values)``. Only the first ``fetch`` lanes of each tile can hold a
@@ -429,7 +451,7 @@ class ProductQuantizer(Quantizer):
                 tables, codes_arr, fetch, self._metric, pack_bits
             )
         elif n > int(chunk) and fetch < n:
-            ids, dist = self._adc_search_chunked(
+            ids, dist, _ = self._adc_search_chunked(
                 q2d, codes_arr, fetch, int(chunk), pack_bits=pack_bits
             )
         else:
@@ -451,32 +473,28 @@ class ProductQuantizer(Quantizer):
         pair = _PAIRWISE[self._metric]
         exact = torch.vmap(lambda qv, cv: pair(qv[None, :], cv)[0])(q2d, cand)
         vals, pos = _smallest(exact, min(k, short.shape[1]))
-        return torch.gather(short, 1, pos), vals
+        return torch.gather(short, 1, pos).to(torch.int32), vals
 
     def _adc_search_chunked(self, q2d, codes, fetch: int, chunk: int, *,
-                            pack_bits: int = 8):
-        """Blockwise ADC scan with a running top-``fetch`` merge: the
-        working set is one ``[Q, chunk]`` block, never ``[Q, n]``."""
+                            pack_bits: int = 8, radius=None):
+        """Blockwise ADC scan (K8 a chunk; packed codes unpacked a chunk at
+        a time) with a running top-``fetch`` merge: the working set is one
+        ``[Q, chunk]`` block, never ``[Q, n]``. Returns ``(ids, values,
+        hits)``, ``hits`` the count of values ``<= radius`` a query (None
+        without a radius)."""
         tables = _adc_tables(q2d, self._codebooks, self._metric)
         qn = torch.sqrt((q2d * q2d).sum(-1))
-        nq = q2d.shape[0]
-        best_d = torch.full((nq, fetch), float("inf"), device=q2d.device)
-        best_i = torch.full((nq, fetch), -1, dtype=torch.int64, device=q2d.device)
-        for c0 in range(0, codes.shape[0], chunk):
-            block = self._codes(codes[c0:c0 + chunk], pack_bits)
+
+        def values(c0, c1):
+            block = self._codes(codes[c0:c1], pack_bits)
             acc = _adc_lookup(tables, block)
             if self._metric == Metric.EUCLIDEAN:
-                d = torch.sqrt(acc.clamp_min(0.0))
-            elif self._metric == Metric.COSINE:
-                d = _cosine_from_dots(acc, self._codebooks, block, qn)
-            else:
-                d = acc
-            gidx = torch.arange(c0, c0 + block.shape[0], device=q2d.device)
-            cat_d = torch.cat([best_d, d], dim=1)
-            cat_i = torch.cat([best_i, gidx[None, :].expand(nq, -1)], dim=1)
-            best_d, pos = _smallest(cat_d, fetch)
-            best_i = torch.gather(cat_i, 1, pos)
-        return best_i.to(torch.int32), best_d
+                return torch.sqrt(acc.clamp_min(0.0))
+            if self._metric == Metric.COSINE:
+                return _cosine_from_dots(acc, self._codebooks, block, qn)
+            return acc
+
+        return _topk_scan(values, codes.shape[0], q2d.shape[0], fetch, chunk, q2d.device, radius)
 
     def __repr__(self) -> str:
         return (

@@ -111,7 +111,10 @@ class PerDimScalarQuantizer(Quantizer):
         if not 2 <= levels <= 256:
             raise InvalidParameter("levels", "must be in [2, 256]")
         self._lo, self._hi, self._levels = lo, hi, levels
-        self._step = (hi - lo) / (levels - 1)
+        # A tensor divisor: on the card, PyTorch divides by a Python number
+        # as a product with its reciprocal, which can round one ulp away
+        # from the quotient the CPU and the JAX package compute.
+        self._step = (hi - lo) / torch.full_like(hi, levels - 1)
 
     @classmethod
     def from_data(cls, data, levels: int = 256, *, device=None) -> "PerDimScalarQuantizer":

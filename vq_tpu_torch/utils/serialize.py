@@ -4,7 +4,8 @@ checkpoint written by either package loads in the other: a JSON header
 ``__vq_header__``, then the model's arrays by name. The port carries
 the kinds ``"pq"``, ``"sq"``, ``"sq_perdim"``, ``"rq"``, ``"bq"``,
 ``"tsvq"`` (:func:`save` /
-:func:`load`), ``"pq_index"``, ``"rq_index"``, ``"ivfpq_index"``,
+:func:`load`), ``"flat_index"``, ``"pq_index"``, ``"sq_index"``,
+``"binary_index"``, ``"rq_index"``, ``"ivfpq_index"``,
 ``"ivfflat_index"``, ``"ivfsq_index"`` and ``"ivfrq_index"`` (each index's
 ``save`` / ``load``); the layouts are listed in
 :mod:`vq_tpu_torch.convert`."""
