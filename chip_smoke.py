@@ -145,6 +145,24 @@ Phases, one line each (any failure exits non-zero with no result line):
    each search and a ``torch.profiler`` line for the f32 ``FlatIndex``,
    ``SQIndex`` and ``BinaryIndex`` searches and ``knn_graph`` (with the
    share of the top-k merges' sort kernels).
+15. mips and opq path — on the phase-4 mixture, the exact dot top-10 of
+   ``FlatIndex(metric="dot")`` as the ground truth: ``AnisotropicProductQuantizer``
+   8x256 on the first 100k rows (score threshold 0.2, five refine
+   rounds), ``encode`` of the 1M rows and ``mips_search(k=10)`` (K5 in
+   mode ``"dot"``); ``IVFPQIndex.train(metric="dot")`` (IVF1024,
+   anisotropic PQ on the raw rows) on 200k rows, ``add`` of 1M,
+   ``search`` at nprobe 8 / 64 and rerank 0 / 500 (K7 over negated dot
+   tables), and one ``by_residual=True`` dot index at nprobe 8 (K7, then
+   the ``q.c`` offset); ``OPQQuantizer`` 8x256 on 200k rows (6 rounds x 3
+   Lloyd iterations, the width of ``docs/performance.md:35``) with its MSE
+   beside plain PQ's, ``encode`` of 1M and ``adc_search(k=10)`` (K5
+   ``"sum"``). Launch counts of K1, K2, K3, K4, K5 and K7 read from that
+   run; training, codes and searches held to the plain route bit for bit
+   (lists by the float64 near-tie rule); K5 ``"dot"`` and K7 held to
+   their plain versions on the searches' operands; the refine the same
+   bits twice; recall@10; CUDA-event times beside the plain route and a
+   ``torch.profiler`` line for the refine, the 1M encode,
+   ``mips_search``, the dot IVF searches and ``opq_train``.
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -223,6 +241,10 @@ FLAT_ATOL = {"squared_euclidean": 2e-2, "euclidean": 1e-3, "cosine": 1e-5, "dot"
              "manhattan": 5e-3}
 SQ_RERANK, BQ_RERANK = 100, 500
 KNN_ROWS, KNN_K, KNN_BATCH, KNN_SAMPLE = 100_000, 10, 1024, 256
+# Phase 15, score-aware PQ (the JAX package's default threshold and
+# refine rounds) and OPQ at the width of docs/performance.md:35.
+ANISO_THRESHOLD, ANISO_REFINE = 0.2, 5
+OPQ_ROWS, OPQ_ITERS, OPQ_PQ_ITERS = 200_000, 6, 3
 SORT_KERNELS = ("Sort", "sort")  # the stable sorts of the top-k merges, by kernel name
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
@@ -250,6 +272,7 @@ KERNEL_CALLERS = (
     ("vq_tpu_torch.models.pq", ("pq_encode_fused", "adc_scan_topk_fused", "adc_lookup_fused")),
     ("vq_tpu_torch.models.rq", ("assign_fused",)),
     ("vq_tpu_torch.search", ("adc_scan_topk_fused",)),
+    ("vq_tpu_torch.models.pq_anisotropic", ("adc_scan_topk_fused",)),
     ("vq_tpu_torch.ivf", ("ivf_probe_adc_fused",)),
     ("vq_tpu_torch.ivf_flat", ("ivf_probe_matvec_fused", "ivf_probe_adc_fused")),
     ("vq_tpu_torch.benchmarks.mpacked_encode", ("pq_encode_fused",)),
@@ -798,7 +821,7 @@ def phase_k7(queries, ivf):
     chains_s = pool.chains_search()
     cases = {}
     for p in NPROBES:
-        probe, tables = _probe_tables(queries, index.coarse, index.pq.codebooks, p, True)
+        probe, tables, _ = _probe_tables(queries, index.coarse, index.pq.codebooks, p, True)
         args = (tables.reshape(N_QUERY * p, M, K), chains_s[probe].reshape(N_QUERY * p, -1),
                 pool.data["codes"])
         got = ck.ivf_probe_adc_fused(*args, cap=pool.cap)
@@ -2141,6 +2164,176 @@ def phase_flat_serving(smi, corpus, queries, main, rqres):
     return k8_range
 
 
+def phase_mips_opq(smi, corpus, queries):
+    """Phase 15, score-aware quantization and OPQ through the public entry
+    points on the phase-4 mixture: ``AnisotropicProductQuantizer`` 8x256
+    (K3, the refine, K4 and the sweeps) with ``encode`` of 1M and
+    ``mips_search`` (K5 ``"dot"``); ``IVFPQIndex.train(metric="dot")``
+    with anisotropic codes (IVF1024: K1, K2, K3, K4, then K7 over negated
+    dot tables) at nprobe 8 / 64 and rerank 0 / 500, and one residual dot
+    index (K7 with the ``q.c`` offset); ``OPQQuantizer`` 8x256 (K3, K4,
+    then K5 ``"sum"``). Launch counts read from the run, every result held
+    to the plain route on the same card, recall@10 against the exact dot
+    top-10 (``FlatIndex(metric="dot")``) or the L2 ground truth (OPQ);
+    K5 ``"dot"`` and K7 held to their plain versions on the operands the
+    searches gave them; CUDA-event times and profiler lines."""
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.models.pq_anisotropic import pq_refine_anisotropic
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    dot_gt = vq_tpu_torch.FlatIndex.from_data(corpus, metric="dot").search(queries, k=10)[0]
+    gt = _ground_truth(corpus, queries)
+    train, opq_rows = corpus[:N_TRAIN], corpus[:OPQ_ROWS]
+    by_path, recall, t = {}, {}, {}
+
+    def counted(name, fn):
+        before = read_counts()
+        out, ms = cuda_once(fn)
+        after = read_counts()
+        by_path[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        return out, ms
+
+    reset_counts()
+    apq, t["aniso train"] = counted("aniso train", lambda: vq_tpu_torch.AnisotropicProductQuantizer(
+        train, M, K, max_iters=10, threshold=ANISO_THRESHOLD, refine_iters=ANISO_REFINE,
+        device=corpus.device))
+    codes, t["aniso encode"] = counted("aniso encode", lambda: apq.encode(corpus))
+    with recording("vq_tpu_torch.models.pq_anisotropic", "adc_scan_topk_fused") as k5_calls:
+        mips, t["mips_search"] = counted("mips_search", lambda: apq.mips_search(queries, codes, k=10))
+    ivf, t["ivf dot train"] = counted("ivf dot train", lambda: vq_tpu_torch.IVFPQIndex.train(
+        corpus[:N_IVF_TRAIN], NLIST, M, K, max_iters=10, metric="dot",
+        anisotropic_threshold=ANISO_THRESHOLD, refine_iters=ANISO_REFINE, keep_corpus=True))
+    _, t["ivf dot add"] = counted("ivf dot add", lambda: ivf.add(corpus))
+    res, t["ivf dot residual train"] = counted("ivf dot residual train", lambda:
+                                               vq_tpu_torch.IVFPQIndex.train(
+        corpus[:N_IVF_TRAIN], NLIST, M, K, max_iters=10, metric="dot", by_residual=True))
+    _, t["ivf dot residual add"] = counted("ivf dot residual add", lambda: res.add(corpus))
+    searches = {f"ivf dot nprobe={p} rerank={r}": (ivf, dict(k=10, nprobe=p, rerank=r))
+                for p in NPROBES for r in RERANKS}
+    searches[f"ivf dot residual nprobe={NPROBES[0]}"] = (res, dict(k=10, nprobe=NPROBES[0]))
+    out = {}
+    with recording("vq_tpu_torch.ivf", "ivf_probe_adc_fused") as k7_calls:
+        for name, (idx, kw) in searches.items():
+            out[name], _ = counted(name, lambda idx=idx, kw=kw: idx.search(queries, **kw))
+    opq, t["opq train"] = counted("opq train", lambda: vq_tpu_torch.OPQQuantizer(
+        opq_rows, M, K, opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS, device=corpus.device))
+    opq_codes, t["opq encode"] = counted("opq encode", lambda: opq.encode(corpus))
+    opq_out, t["opq adc_search"] = counted("opq adc_search",
+                                           lambda: opq.adc_search(queries, opq_codes, k=10))
+    plain_pq = vq_tpu_torch.ProductQuantizer(opq_rows, M, K, max_iters=10, device=corpus.device)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log("mips", f"launches in the mips / opq path: {launches}; by call: {by_path}")
+    for name, need in (("aniso train", "pq_lloyd_accumulate_fused"), ("aniso encode", "pq_encode_fused"),
+                       ("mips_search", "adc_scan_topk_fused"), ("ivf dot train", "assign_fused"),
+                       ("ivf dot train", "lloyd_accumulate_fused"),
+                       ("ivf dot train", "pq_lloyd_accumulate_fused"), ("ivf dot add", "assign_fused"),
+                       ("ivf dot add", "pq_encode_fused"), ("opq train", "pq_lloyd_accumulate_fused"),
+                       ("opq train", "pq_encode_fused"), ("opq adc_search", "adc_scan_topk_fused")):
+        assert by_path[name].get(need, 0) > 0, f"{name}: {need} was not launched: {by_path[name]}"
+    for name in searches:
+        assert by_path[name].get("ivf_probe_adc_fused") == 1, (name, by_path[name])
+
+    # The plain route on the same card: training, codes and searches.
+    with plain_route():
+        apq_p = vq_tpu_torch.AnisotropicProductQuantizer(
+            train, M, K, max_iters=10, threshold=ANISO_THRESHOLD, refine_iters=ANISO_REFINE,
+            device=corpus.device)
+        codes_p = apq.encode(corpus)
+        mips_p = apq.mips_search(queries, codes, k=10)
+        lists_p, _ = vq_tpu_torch.assign(corpus, ivf.coarse)
+        ivf_codes_p = ivf.pq.encode(corpus)
+        res_lists_p, _ = vq_tpu_torch.assign(corpus, res.coarse)
+        want = {name: idx.search(queries, **kw) for name, (idx, kw) in searches.items()}
+        opq_p = vq_tpu_torch.OPQQuantizer(opq_rows, M, K, opq_iters=OPQ_ITERS,
+                                          pq_iters=OPQ_PQ_ITERS, device=corpus.device)
+        opq_codes_p = opq.encode(corpus)
+        opq_want = opq.adc_search(queries, opq_codes, k=10)
+    assert torch.equal(apq_p.codebooks, apq.codebooks), "anisotropic training differs from the plain route"
+    assert torch.equal(codes_p, codes), "anisotropic codes differ from the plain route"
+    _check_search("mips_search", *mips, descending=True)
+    _parity(mips, mips_p, "mips_search")
+    flips, gap = _near_ties(corpus, ivf.coarse, ivf._flat_lists, lists_p)
+    assert flips == 0 and torch.equal(ivf._pool.to_flat()["codes"], ivf_codes_p), (
+        "dot IVF-PQ codes differ from the plain route")
+    assert torch.equal(res._flat_lists, res_lists_p), "residual dot IVF-PQ lists differ"
+    for name, (ids, scores) in out.items():
+        _check_search(name, ids, scores, descending=True)
+        _parity((ids, scores), want[name], name)
+        recall[name] = _recall(ids, dot_gt)
+    assert torch.equal(opq_p.rotation, opq.rotation) and torch.equal(
+        opq_p.codebooks, opq.codebooks), "OPQ training differs from the plain route"
+    assert torch.equal(opq_codes_p, opq_codes), "OPQ codes differ from the plain route"
+    _check_search("opq adc_search", *opq_out)
+    _parity(opq_out, opq_want, "opq adc_search")
+    recall["mips_search"] = _recall(mips[0], dot_gt)
+    recall["opq adc_search"] = _recall(opq_out[0], gt)
+    mse_opq = float(((opq.decode(opq_codes) - corpus) ** 2).mean())
+    mse_pq = float(((plain_pq.decode(plain_pq.encode(corpus)) - corpus) ** 2).mean())
+    orth = float((opq.rotation.T @ opq.rotation - torch.eye(DIM, device=corpus.device)).abs().max())
+    assert orth < 1e-4, orth
+    p_lo, p_hi = NPROBES
+    assert recall[f"ivf dot nprobe={p_hi} rerank={RERANKS[-1]}"] >= recall[
+        f"ivf dot nprobe={p_lo} rerank=0"], recall
+    log("mips", f"trained {apq!r} in {t['aniso train'] / 1e3:.4f} s, encoded 1M in "
+        f"{t['aniso encode']:.4f} ms; training, codes and mips_search equal the plain route's; "
+        f"dot IVF-PQ {ivf!r} trained in {t['ivf dot train'] / 1e3:.4f} s, added 1M in "
+        f"{t['ivf dot add']:.4f} ms, lists, codes and every search equal the plain route's; "
+        f"{opq!r} trained ({OPQ_ITERS} rounds x {OPQ_PQ_ITERS} Lloyd iterations on {OPQ_ROWS} rows) "
+        f"in {t['opq train'] / 1e3:.4f} s, rotation orthogonal to {orth:.3g}, training, codes and "
+        f"adc_search equal the plain route's; reconstruction MSE of the 1M rows: OPQ {mse_opq:.9g}, "
+        f"plain PQ (same rows, 10 iterations) {mse_pq:.9g}; recall@10 (dot: against the exact dot "
+        f"top-10; OPQ: the L2 ground truth) " + ", ".join(f"{n}: {v:.4f}" for n, v in recall.items()))
+
+    # K5 "dot" and K7 over dot tables against their plain versions.
+    args, kw = k5_calls[0]
+    got, again = ck.adc_scan_topk_fused(*args, **kw), ck.adc_scan_topk_fused(*args, **kw)
+    torch.cuda.synchronize()
+    want5 = ck.adc_scan_topk_plain(*args, **kw)
+    assert kw.get("mode") == "dot" and all(torch.equal(a, b) for a, b in zip(got, want5)) and all(
+        torch.equal(a, b) for a, b in zip(got, again)), "K5 dot: differs from its plain version"
+    log("kernels", f"K5 adc_scan_topk mode='dot' tables {tuple(args[0].shape)} x codes "
+        f"{tuple(args[1].shape)} fetch {args[2]} (mips_search's operands): bit-identical, twice")
+    k7 = {}
+    for (a7, kw7), name in zip(k7_calls, searches):
+        if "rerank=500" in name:
+            continue
+        got7 = ck.ivf_probe_adc_fused(*a7, **kw7)
+        torch.cuda.synchronize()
+        assert torch.equal(got7, ck.ivf_probe_adc_plain(*a7, **kw7)), f"K7 {name}: values differ"
+        assert bool((a7[0] <= 0).any() & (a7[0] >= 0).any()), "K7: tables are not signed dots"
+        k7[name] = (a7, kw7)
+        log("kernels", f"K7 ivf_probe_adc over negated dot tables ({name}): {a7[0].shape[0]} pairs x "
+            f"{a7[1].shape[1]} chunks: bit-identical")
+
+    # Times: kernel route beside the plain route, by CUDA events.
+    cb0 = vq_tpu_torch.pq_train(train, M, K, max_iters=10)
+    refine = lambda: pq_refine_anisotropic(train, cb0, threshold=ANISO_THRESHOLD, iters=ANISO_REFINE)
+    r1, r2 = refine(), refine()
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2)), "the refine is not the same bits twice"
+    assert torch.equal(r1[0], apq.codebooks), "the refine differs from the quantizer's"
+    timed = {"refine 100k, 5 rounds": refine,
+             "encode 1M": lambda: apq.encode(corpus),
+             "mips_search k=10": lambda: apq.mips_search(queries, codes, k=10),
+             "opq_train 200k, 6 x 3": lambda: vq_tpu_torch.opq_train(
+                 opq_rows, M, K, opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS)}
+    timed.update({f"{n} search": (lambda idx=idx, kw=kw: idx.search(queries, **kw))
+                  for n, (idx, kw) in searches.items()})
+    for name, fn in timed.items():
+        reps = 1 if name.startswith(("refine", "opq")) else 5
+        ms = cuda_ms(fn, reps)
+        with plain_route():
+            pms = cuda_ms(fn, 1)
+        t[name] = (ms, pms)
+        rec = next((f"; recall@10 {v:.4f}" for n, v in recall.items() if name.startswith(n)), "")
+        log("time", f"{name}: {ms:.4f} ms, plain route {pms:.4f} ms{rec} | {smi}")
+    for name, fn in timed.items():
+        profile_line(smi, name, fn)
+    return dict(launches=launches, by_path=by_path, recall=recall, t=t, k7=k7,
+                mse=(mse_opq, mse_pq))
+
 def eval_fields(key, t_eval, bounds, rows):
     """Extra fields of the K3 / K4 rows: their time, plain time and bound
     at the eval harness's shape."""
@@ -2246,6 +2439,7 @@ def main() -> None:
     t_eval = phase_eval_timings(smi, ev_checks)
     del ev_checks
     k8_range = phase_flat_serving(smi, corpus, queries, main_res, rqres)
+    mo = phase_mips_opq(smi, corpus, queries)
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
@@ -2253,11 +2447,22 @@ def main() -> None:
         launches[name] = ivf["launches"][name]
     launches["ivf_probe_matvec_fused"] = flat["launches"]["ivf_probe_matvec_fused"]
     pl, rl = prec["launches"], rqres["launches"]
+    def mips_opq(kernel):  # phase 15's launches of a kernel, by path
+        paths = {"aniso_pq": ("aniso", "mips_search"), "ivf_dot": ("ivf dot",), "opq": ("opq",)}
+        return {path: sum(v.get(kernel, 0) for n, v in mo["by_path"].items() if n.startswith(pre))
+                for path, pre in paths.items()}
+
     k3_paths = {"pq": launches["pq_lloyd_accumulate_fused"],
                 "ivf_pq": ivf["launches"]["pq_lloyd_accumulate_fused"],
-                "eval_pq": ev["launches"]["pq"]["pq_lloyd_accumulate_fused"]}
+                "eval_pq": ev["launches"]["pq"]["pq_lloyd_accumulate_fused"],
+                **mips_opq("pq_lloyd_accumulate_fused")}
     k4_paths = {"pq": launches["pq_encode_fused"], "ivf_pq": ivf["launches"]["pq_encode_fused[highest]"],
-                "eval_pq": ev["launches"]["pq"]["pq_encode_fused[highest]"]}
+                "eval_pq": ev["launches"]["pq"]["pq_encode_fused[highest]"],
+                **mips_opq("pq_encode_fused[highest]")}
+    k5_paths = {"pq": launches["adc_scan_topk_fused"], "rq": rl["adc_scan_topk_fused"],
+                **mips_opq("adc_scan_topk_fused")}
+    k7_paths = {"ivf_pq": launches["ivf_probe_adc_fused"], "ivf_rq": rl["ivf_probe_adc_fused"],
+                **mips_opq("ivf_probe_adc_fused")}
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     e_m, e_k, e_s = PQ_EVAL
     e_ops = 2.0 * e_m * e_k * e_s
@@ -2290,14 +2495,14 @@ def main() -> None:
         row("pq_encode_fused", "pq_encode.cu", "379", sum(k4_paths.values()), res["k4_err"],
             "K4", t["K4"], {"launches_by_path": k4_paths,
                             **eval_fields("K4_eval", t_eval, bounds, EVAL_ROWS)}),
-        row("adc_scan_topk_fused", "adc_topk.cu", "802", launches["adc_scan_topk_fused"],
-            res["k5_err"], "K5", t["K5"]),
+        row("adc_scan_topk_fused", "adc_topk.cu", "802", sum(k5_paths.values()),
+            res["k5_err"], "K5", t["K5"], {"launches_by_path": k5_paths}),
         row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"],
             {"bf16_ms": t["K1_bf16"][0]}),
         row("lloyd_accumulate_fused", "lloyd.cu", "1473", launches["lloyd_accumulate_fused"],
             kres["k2_err"], "K2", t["K2"], {"rq_shape_ms": t["K2_rq_shape"][0]}),
-        row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", launches["ivf_probe_adc_fused"], 0.0,
-            "K7", t["K7_nprobe8"], {
+        row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", sum(k7_paths.values()), 0.0,
+            "K7", t["K7_nprobe8"], {"launches_by_path": k7_paths,
                 "also_replaces": tpu + "1147", "ms_nprobe64": t["K7_nprobe64"][0],
                 "plain_ms_nprobe64": t["K7_nprobe64"][1], "bound_ms_nprobe64": bounds["K7_nprobe64"][0],
                 "bound_by_nprobe64": bounds["K7_nprobe64"][1],

@@ -31,6 +31,7 @@ from vq_tpu_torch.benchmarks import mpacked_encode as tmp
 from vq_tpu_torch.errors import InvalidParameter
 from vq_tpu_torch.models.base import default_device
 from vq_tpu_torch.ops import cuda_kernels as ck
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 _SCRIPTS = Path(__file__).resolve().parent.parent / "benchmarks"
 

@@ -21,6 +21,7 @@ from vq_tpu.utils import load as jload
 from vq_tpu.utils import save as jsave
 from vq_tpu_torch.models import bq as tbq
 from vq_tpu_torch.models.base import default_device
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

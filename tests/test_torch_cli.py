@@ -32,6 +32,7 @@ from vq_tpu_torch.models.base import default_device
 from vq_tpu_torch.models.pq import _smallest
 from vq_tpu_torch.utils import datasets as tdatasets
 from vq_tpu_torch.utils.metrics import MetricsLogger, trace
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 NEG_NAN = struct.unpack("<f", struct.pack("<I", 0xFFC00000))[0]
 

@@ -22,6 +22,13 @@ NaN, whatever its payload). The
 benchmark twins' kernels: B1 "highest", B2,
 B3 and B4 exact; B1 "default" (bf16 tensor cores, their own summation
 order) at >= 0.9999 of the codes, every other one a float64 near tie.
+Score-aware PQ and OPQ: ``mips_search`` (K5 "dot", or K8 a chunk) and
+the dot IVF-PQ search (K7 over negated dot tables) exact against the
+plain route; the anisotropic refine the same bits twice on the card,
+and within 1e-4 (codebooks) / 1e-5 relative (loss) of the CPU's, whose
+fp32 products sum in another order; the card's anisotropic and OPQ
+codes equal the CPU's on >= 99.9% of the rows, every other row a
+float64 near tie of its loss (anisotropic) or score (OPQ, 1e-5).
 """
 
 import numpy as np
@@ -1229,3 +1236,123 @@ def test_knn_graph_on_the_card_equals_the_cpu(card):
     assert got[0].device == x.device
     _separated_parity(got, vq_tpu_torch.knn_graph(x.cpu(), k=8, query_batch=700))
     assert not bool((got[0] == torch.arange(5000, device=card)[:, None]).any())
+
+
+# ---------------------------------------------------------------------------
+# Score-aware PQ, the dot IVF-PQ index and OPQ.
+# ---------------------------------------------------------------------------
+
+
+def _mips_rows(card, n=30_000, d=32):
+    """Clustered rows of varied norms, and 40 queries."""
+    g = torch.Generator(device=card).manual_seed(41)
+    centres = torch.randn(48, d, generator=g, device=card) * 2
+    x = centres[torch.randint(0, 48, (n,), generator=g, device=card)] + torch.randn(
+        n, d, generator=g, device=card)
+    x = x * (0.3 + 2.7 * torch.rand(n, 1, generator=g, device=card))
+    return x, torch.randn(40, d, generator=g, device=card)
+
+
+def _aniso_row_losses(x, cb, codes, eta):
+    x, cb = x.double(), cb.double()
+    rec = cb[torch.arange(cb.shape[0], device=cb.device)[None, :], codes.long()].reshape(x.shape)
+    r = x - rec
+    norm = x.norm(dim=1)
+    par = torch.where(norm > 0, (r * x).sum(1) / norm.clamp_min(1e-300), 0.0)
+    return (r * r).sum(1) + (eta - 1.0) * par * par
+
+
+def test_mips_search_equals_plain_route(card, monkeypatch):
+    """``mips_search`` launches K5 in mode "dot" once a search (K8 a
+    chunk where k > 128) and equals, bit for bit, the same search with
+    the kernels swapped for their plain versions; the card's anisotropic
+    codes equal the CPU's but at float64 near ties of a row's loss."""
+    import vq_tpu_torch
+    import vq_tpu_torch.models.pq as pq_mod
+    import vq_tpu_torch.models.pq_anisotropic as tpa
+
+    x, q = _mips_rows(card)
+    apq = vq_tpu_torch.AnisotropicProductQuantizer(x[:5000], 4, 64, max_iters=4, refine_iters=2)
+    codes = apq.encode(x)
+    cpu = vq_tpu_torch.AnisotropicProductQuantizer(codebooks=apq.codebooks.cpu(), eta=apq.eta)
+    want_codes = cpu.encode(x.cpu())
+    rows = (codes.cpu() != want_codes).any(1)
+    assert int(rows.sum()) <= 0.001 * x.shape[0]
+    if bool(rows.any()):
+        lg = _aniso_row_losses(x.cpu()[rows], cpu.codebooks, codes.cpu()[rows], apq.eta)
+        lw = _aniso_row_losses(x.cpu()[rows], cpu.codebooks, want_codes[rows], apq.eta)
+        assert bool(((lg - lw).abs() <= 1e-5 * lw.abs().clamp_min(1.0)).all())
+    calls = [dict(k=10), dict(k=128), dict(k=150, chunk=7000)]
+    before5, before8 = ck.adc_scan_topk_fused.launches, ck.adc_lookup_fused.launches
+    got = [apq.mips_search(q, codes, **kw) for kw in calls]
+    assert ck.adc_scan_topk_fused.launches == before5 + 2
+    assert ck.adc_lookup_fused.launches == before8 + 5  # 5 chunks of 7000 rows
+    with monkeypatch.context() as m:
+        m.setattr(tpa, "adc_scan_topk_fused", ck.adc_scan_topk_plain)
+        m.setattr(pq_mod, "adc_lookup_fused", ck.adc_lookup_plain)
+        want = [apq.mips_search(q, codes, **kw) for kw in calls]
+    for (gi, gs), (wi, ws) in zip(got, want):
+        assert torch.equal(gs, ws) and torch.equal(gi, wi)
+        assert bool((gs[:, :-1] >= gs[:, 1:]).all())
+
+
+def test_anisotropic_refine_is_reproducible(card):
+    """The refine's per-entry sums are one-hot fp32 products over row
+    blocks in one order: the same bits on a second run."""
+    import vq_tpu_torch
+    from vq_tpu_torch.models.pq_anisotropic import pq_refine_anisotropic
+
+    x, _ = _mips_rows(card)
+    cb0 = vq_tpu_torch.pq_train(x[:10_000], 4, 64, max_iters=3)
+    a = pq_refine_anisotropic(x, cb0, iters=3, chunk=7000)
+    b = pq_refine_anisotropic(x, cb0, iters=3, chunk=7000)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    c = pq_refine_anisotropic(x.cpu(), cb0.cpu(), iters=3, chunk=7000)
+    assert torch.allclose(a[0].cpu(), c[0], atol=1e-4, rtol=0)
+    assert abs(float(a[2]) - float(c[2])) <= 1e-5 * abs(float(c[2]))
+
+
+def test_ivfpq_dot_search_equals_plain_route(card, monkeypatch):
+    """The dot IVF-PQ index (anisotropic codes on the raw rows, and plain
+    PQ on the residuals with the q.c offset) launches K7 once a search,
+    over negated dot tables, and equals the search with K7 swapped for its
+    plain version, with and without rerank."""
+    import vq_tpu_torch
+    import vq_tpu_torch.ivf as ivf_mod
+
+    x, q = _mips_rows(card)
+    for by_residual in (False, True):
+        idx = vq_tpu_torch.IVFPQIndex.train(x[:8000], 32, 4, 64, max_iters=4, metric="dot",
+                                            by_residual=by_residual, keep_corpus=True)
+        idx.add(x)
+        for kw in (dict(nprobe=4), dict(nprobe=32), dict(nprobe=4, rerank=100)):
+            before = ck.ivf_probe_adc_fused.launches
+            got = idx.search(q, k=10, **kw)
+            assert ck.ivf_probe_adc_fused.launches == before + 1
+            with monkeypatch.context() as m:
+                m.setattr(ivf_mod, "ivf_probe_adc_fused", ck.ivf_probe_adc_plain)
+                want = idx.search(q, k=10, **kw)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), (by_residual, kw)
+            assert bool((got[1][:, :-1] >= got[1][:, 1:]).all())
+
+
+def test_opq_on_the_card_equals_the_cpu(card):
+    """OPQ trained on the card (K3, K4, the SVD), restored on the CPU from
+    its arrays: codes equal but at float64 near ties of ``x @ R``'s
+    scores, and ``adc_search`` (K5 "sum") ids equal where separated."""
+    import vq_tpu_torch
+
+    x, _ = _mips_rows(card, n=20_000)
+    x = x @ torch.randn(32, 32, generator=torch.Generator(device=card).manual_seed(42),
+                        device=card)
+    opq = vq_tpu_torch.OPQQuantizer(x[:5000], 4, 64, opq_iters=2, pq_iters=2)
+    assert opq.rotation.device.type == "cuda"
+    cpu = vq_tpu_torch.OPQQuantizer(rotation=opq.rotation.cpu(), codebooks=opq.codebooks.cpu())
+    got, want = opq.encode(x), cpu.encode(x.cpu())
+    flips, _, ties = ck.encode_near_ties(x.cpu() @ cpu.rotation, cpu.codebooks,
+                                         got.cpu().to(torch.int32), want.to(torch.int32), "highest")
+    assert flips <= 0.001 * got.numel() and ties, flips
+    before = ck.adc_scan_topk_fused.launches
+    ids, d = opq.adc_search(x[:30] + 0.01, got, k=10)
+    assert ck.adc_scan_topk_fused.launches == before + 1
+    _separated_parity((ids, d), cpu.adc_search(x[:30].cpu() + 0.01, got.cpu(), k=10))

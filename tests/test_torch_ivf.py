@@ -15,6 +15,13 @@ exact at every rank whose distance is unique in its row
 (fp32 rounding of the residual tables, |values| < 100), reranked exact
 distances within rtol 1e-5 / atol 1e-5; seeded training (random streams
 differ by design) within 0.1 of the JAX index's recall@10.
+
+``metric="dot"`` indexes (maximum inner product), both ``by_residual``
+values: the JAX index (anisotropic PQ on the raw rows, or plain PQ on
+the residuals) carried across with its ``pq_eta``; lists and codes
+exact; scores (descending, -1 / -inf padding) to the same tolerances,
+with and without rerank; seeded training within 0.1 of the JAX index's
+recall@10 against the exact dot top-10.
 """
 
 import jax.numpy as jnp
@@ -25,7 +32,7 @@ import torch
 import vq_tpu.errors as jerr
 import vq_tpu_torch
 import vq_tpu_torch.errors as terr
-from test_torch_pq import assert_search_parity
+from test_torch_pq import assert_search_parity, one_torch_thread  # noqa: F401  (an autouse fixture)
 from vq_tpu.ivf import IVFPQIndex as JIndex
 from vq_tpu.models.pq import ProductQuantizer as JPQ
 from vq_tpu.ops import pallas_kernels as pk
@@ -313,8 +320,10 @@ def test_construction_errors_match_jax():
         with pytest.raises(terr.VqError) as got:
             TIndex(coarse, tpq, **kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(terr.InvalidParameter, match="not ported"):
-        TIndex(rng.random((5, 6), dtype=np.float32), tpq, metric="dot")
+    coarse = rng.random((5, 6), dtype=np.float32)
+    jdot, tdot = JIndex(coarse, jpq, metric="dot"), TIndex(coarse, tpq, metric="dot")
+    assert tdot.metric == jdot.metric == "dot" and tdot.by_residual == jdot.by_residual
+    assert repr(tdot) == repr(jdot)
 
 
 def _recall(ids, truth):
@@ -348,3 +357,96 @@ def test_cpu_tensors_never_launch(built):
     before = ck.ivf_probe_adc_fused.launches, ck.assign_fused.launches
     tidx.search(q, k=5, nprobe=2)
     assert (ck.ivf_probe_adc_fused.launches, ck.assign_fused.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# IVFPQIndex(metric="dot").
+# ---------------------------------------------------------------------------
+
+
+def _dot_truth(q, x, k=10):
+    return np.argsort(-(q @ x.T), axis=1, kind="stable")[:, :k]
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["anisotropic", "residual"])
+def built_dot(request):
+    """A JAX dot index trained at ``built``'s shapes (IVF16, PQ 4x32, eight
+    iterations, adds of 2500 and 1500 rows: the JAX programs it shares),
+    carried into the port with its ``pq_eta``, and both filled alike."""
+    by_residual = request.param
+    x = _clustered(seed=19)
+    jidx = JIndex.train(x[:1500], nlist=16, num_subspaces=4, num_centroids=32, max_iters=8,
+                        metric="dot", by_residual=by_residual, keep_corpus=True)
+    arrays = {"coarse": np.asarray(jidx.coarse), "codebooks": np.asarray(jidx.pq.codebooks),
+              "flat_codes": np.zeros((0, 4), np.uint8), "flat_lists": np.zeros((0,), np.int32)}
+    config = {"by_residual": by_residual, "keep_corpus": True, "max_list_size": None,
+              "metric": "dot"}
+    if not by_residual:
+        config["pq_eta"] = jidx.pq.eta
+    tidx = from_state("ivfpq_index", config, arrays)
+    for part in (x[:2500], x[2500:]):
+        jidx.add(part)
+        tidx.add(part)
+    queries = x[np.random.default_rng(18).integers(0, len(x), 12)] + 0.05
+    return jidx, tidx, x, queries.astype(np.float32)
+
+
+def test_dot_add_gives_equal_lists_and_codes(built_dot):
+    jidx, tidx, _, _ = built_dot
+    assert isinstance(tidx.pq, vq_tpu_torch.AnisotropicProductQuantizer) != tidx.by_residual
+    np.testing.assert_array_equal(tidx._flat_lists.numpy(), np.asarray(jidx._flat_lists))
+    np.testing.assert_array_equal(
+        tidx._pool.to_flat()["codes"].numpy(), np.asarray(jidx._pool.to_flat()["codes"])
+    )
+
+
+@pytest.mark.parametrize("rerank", [0, 50])
+@pytest.mark.parametrize("nprobe", [4, 16])
+def test_dot_search_matches_jax(built_dot, nprobe, rerank):
+    jidx, tidx, _, q = built_dot
+    want = jidx.search(q, k=10, nprobe=nprobe, rerank=rerank)
+    got = tidx.search(q, k=10, nprobe=nprobe, rerank=rerank)
+    assert bool((got[1][:, :-1] >= got[1][:, 1:]).all())  # descending
+    assert_search_parity(got, want, **(_EXACT_TOL if rerank else _ADC_TOL))
+
+
+def test_dot_k_beyond_probed_rows_pads_like_jax(built_dot):
+    jidx, tidx, _, q = built_dot
+    big = 3 * jidx._pool.cap
+    want = jidx.search(q[:3], k=big, nprobe=1)
+    got = tidx.search(q[:3], k=big, nprobe=1)
+    assert_search_parity(got, want, **_ADC_TOL)
+    pads = got[0].numpy() == -1
+    assert pads.sum() == (np.asarray(want[0]) == -1).sum() > 0
+    assert bool(torch.isneginf(got[1][torch.from_numpy(pads)]).all())
+
+
+def test_dot_checkpoints_load_across_packages(built_dot, tmp_path):
+    jidx, tidx, _, q = built_dot
+    loaded = TIndex.load(jidx.save(str(tmp_path / "jax_dot")))
+    assert loaded.metric == "dot" and type(loaded.pq) is type(tidx.pq)
+    assert getattr(loaded.pq, "eta", None) == getattr(tidx.pq, "eta", None)
+    assert_search_parity(loaded.search(q, k=10, nprobe=4), jidx.search(q, k=10, nprobe=4),
+                         **_ADC_TOL)
+    back = JIndex.load(tidx.save(str(tmp_path / "port_dot")))
+    assert back.metric == "dot" and getattr(back.pq, "eta", None) == getattr(jidx.pq, "eta", None)
+    assert_search_parity(tidx.search(q, k=10, nprobe=4, rerank=30),
+                         back.search(q, k=10, nprobe=4, rerank=30), **_EXACT_TOL)
+
+
+def test_dot_seeded_train_recall_matches_jax(built_dot):
+    """The port trains a dot index with the JAX index's arguments (its
+    own random streams) and reaches the JAX index's recall@10 against the
+    exact dot top-10, within 0.1, with and without rerank."""
+    jidx, _, x, _ = built_dot
+    q = x[:100] + np.random.default_rng(17).normal(0, 0.05, (100, 32)).astype(np.float32)
+    truth = _dot_truth(q, x)
+    tidx = TIndex.train(x[:1500], nlist=16, num_subspaces=4, num_centroids=32, max_iters=8,
+                        metric="dot", by_residual=jidx.by_residual, keep_corpus=True)
+    assert tidx.metric == "dot" and tidx.by_residual == jidx.by_residual
+    assert type(tidx.pq).__name__ == type(jidx.pq).__name__
+    tidx.add(x)
+    for kw in ({"nprobe": 4}, {"nprobe": 4, "rerank": 50}):
+        r_j = _recall(jidx.search(q, k=10, **kw)[0], truth)
+        r_t = _recall(tidx.search(q, k=10, **kw)[0], truth)
+        assert abs(r_t - r_j) <= 0.1, (kw, r_t, r_j)

@@ -16,6 +16,7 @@ import torch
 from vq_tpu import ivf_pool as jpool
 from vq_tpu_torch import ivf_pool as tpool
 from vq_tpu_torch.models.base import default_device
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

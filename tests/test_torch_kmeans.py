@@ -36,6 +36,7 @@ import vq_tpu_torch.ops.kmeans as tkm
 from vq_tpu.ops import pallas_kernels as pk
 from vq_tpu_torch.ops import cuda_kernels as ck
 from vq_tpu_torch.models.base import default_device
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -21,6 +21,7 @@ import vq_tpu_torch
 import vq_tpu_torch.errors as terr
 from test_torch_ivf_flat import assert_probe_parity
 from vq_tpu_torch.models.base import default_device
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 _TOL = {"rtol": 1e-5, "atol": 1e-4}
 

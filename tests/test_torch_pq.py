@@ -27,6 +27,18 @@ def _on_the_cpu():
         yield
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """PyTorch on one thread for a module's tests: beside JAX's CPU thread
+    pool and the other test workers, its intra-op pool oversubscribes the
+    cores and runs these small problems many times slower. The other port
+    test modules import it, which makes it theirs too."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def assert_search_parity(got, want, *, rtol=1e-5, atol=1e-6):
     """Tie-aware search parity of ``(ids, dists)`` pairs."""
     gids, gd = (np.asarray(a) for a in got)

@@ -45,6 +45,7 @@ from test_torch_ivf_flat import _clustered, _queries, assert_probe_parity
 from vq_tpu.ivf_flat import _ivf_rq_search_jit
 from vq_tpu_torch.convert import from_state
 from vq_tpu_torch.models.base import default_device, resolve_device
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -180,10 +181,13 @@ def test_refine_joint_matches_jax(trained, iters):
 
 @pytest.mark.parametrize("shape", [(4, 32), (2, 64)], ids=lambda c: "S%d-k%d" % c)
 def test_seeded_train_mse_matches_jax(shape):
+    """At the shapes of ``trained``'s data and iterations (2000 x 16, six
+    Lloyd iterations a stage), so that the JAX package's encode and decode
+    reuse the programs the tests above compiled."""
     stages, k = shape
-    x = _data(seed=53, n=1200)
-    jq = vq_tpu.ResidualQuantizer(x, stages, k, max_iters=5, seed=4)
-    tq = vq_tpu_torch.ResidualQuantizer(x, stages, k, max_iters=5, seed=4)
+    x = _data(seed=53)
+    jq = vq_tpu.ResidualQuantizer(x, stages, k, max_iters=6, seed=4)
+    tq = vq_tpu_torch.ResidualQuantizer(x, stages, k, max_iters=6, seed=4)
     assert tq.codebooks.shape == (stages, k, 16) and tq.device == torch.device("cpu")
     mse_j = _mse(jq.decode(jq.encode(x)), x)
     mse_t = _mse(tq.decode(tq.encode(x)).numpy(), x)
@@ -458,14 +462,17 @@ def test_ivfrq_k_beyond_probed_rows_pads_like_jax(ivf_pair):
 
 def test_ivfrq_seeded_train_recall_matches_jax():
     """Seeded training draws from different random streams in the two
-    packages: compared on recall@10 over 100 queries."""
+    packages: compared on recall@10 over 100 queries. The index and its
+    adds take ``ivf_pair``'s shapes (IVF8, RQ 3 x 32, five iterations, adds
+    of 1800 and 1200 rows), whose JAX programs they reuse."""
     x = _clustered(seed=60, n=3000, centres=20)
     q = x[:100] + np.random.default_rng(61).normal(0, 0.05, (100, 32)).astype(np.float32)
     truth = np.argsort(((q[:, None, :] - x[None]) ** 2).sum(-1), axis=1)[:, :10]
-    jidx = vq_tpu.IVFRQIndex.train(x[:1500], 16, 2, 32, max_iters=4, seed=7)
-    tidx = vq_tpu_torch.IVFRQIndex.train(x[:1500], 16, 2, 32, max_iters=4, seed=7)
-    jidx.add(x)
-    tidx.add(x)
+    jidx = vq_tpu.IVFRQIndex.train(x[:1500], 8, 3, 32, max_iters=5, seed=7)
+    tidx = vq_tpu_torch.IVFRQIndex.train(x[:1500], 8, 3, 32, max_iters=5, seed=7)
+    for part in (x[:1800], x[1800:]):
+        jidx.add(part)
+        tidx.add(part)
 
     def recall(ids):
         ids = np.asarray(ids)
@@ -474,7 +481,7 @@ def test_ivfrq_seeded_train_recall_matches_jax():
     r_j = recall(jidx.search(q, k=10, nprobe=4)[0])
     r_t = recall(tidx.search(q, k=10, nprobe=4)[0])
     assert abs(r_t - r_j) <= 0.1, (r_t, r_j)
-    assert r_t >= 0.2  # 2 bytes a row of 32-d data
+    assert r_t >= 0.2  # 3 bytes a row of 32-d data
 
 
 # ---------------------------------------------------------------------------

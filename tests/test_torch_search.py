@@ -41,6 +41,7 @@ from vq_tpu_torch.models.base import default_device
 from vq_tpu_torch.models import pq as tpq
 from vq_tpu_torch.models.pq import _adc_lookup, _smallest, _topk_scan
 from vq_tpu_torch.search import _chunk_values
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 NEG_NAN = np.frombuffer(np.uint32(0xFFC00000).tobytes(), np.float32)[0]
 _TOL = {"rtol": 1e-5, "atol": 1e-4}

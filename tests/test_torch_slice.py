@@ -31,7 +31,7 @@ import torch
 import vq_tpu
 import vq_tpu_torch
 from vq_tpu_torch.convert import from_state, state_of
-from test_torch_pq import assert_search_parity
+from test_torch_pq import assert_search_parity, one_torch_thread  # noqa: F401  (an autouse fixture)
 from vq_tpu_torch.models.base import default_device
 
 

@@ -26,6 +26,7 @@ from vq_tpu.utils import save as jsave
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer as TPerDim
 from vq_tpu_torch.models.sq import ScalarQuantizer as TSQ
 from vq_tpu_torch.models.base import default_device
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -34,6 +34,7 @@ from vq_tpu.utils import save as jsave
 from vq_tpu_torch.models import tsvq as tt
 from vq_tpu_torch.models.base import default_device
 from vq_tpu_torch.ops import distance as td
+from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 TIE_RTOL = 1e-5
 METRICS = ["squared_euclidean", "euclidean", "manhattan", "cosine"]

@@ -18,7 +18,11 @@ its flat :class:`RQIndex`; the rest of the flat serving layer — the exact
 :class:`BinaryIndex` (sign bits by Hamming count) beside PQ and RQ, every
 flat index with ``range_search`` and, where the JAX package has them,
 ``search_and_reconstruct``, ``_search_core`` and ``_reconstruct_core`` —
-and the exact :func:`knn_graph` over it; and the IVF ladder's IVF-Flat, IVF-SQ, IVF-PQ
+and the exact :func:`knn_graph` over it; score-aware quantization for
+maximum-inner-product search (:func:`lloyd_anisotropic`,
+:class:`AnisotropicProductQuantizer` with its ``mips_search``) and OPQ
+(:class:`OPQQuantizer`, a learned rotation before PQ); and the IVF
+ladder's IVF-Flat, IVF-SQ, IVF-PQ (L2, or dot with anisotropic codes)
 and IVF-RQ indexes: ``train`` (k-means with :func:`lloyd`; then
 per-dimension SQ ranges, PQ or RQ codebooks on the residuals), ``add``
 (coarse :func:`assign`, then the raw row or its SQ, PQ or RQ code) and
@@ -72,7 +76,16 @@ from vq_tpu_torch.models.bq import (
     packed_width,
     unpack_bits,
 )
+from vq_tpu_torch.models.opq import OPQQuantizer, opq_train
 from vq_tpu_torch.models.pq import ProductQuantizer, pq_decode, pq_encode, pq_train
+from vq_tpu_torch.models.pq_anisotropic import (
+    AnisotropicProductQuantizer,
+    anisotropic_pq_loss,
+    mips_adc_search,
+    pq_encode_anisotropic,
+    pq_refine_anisotropic,
+    pq_train_anisotropic,
+)
 from vq_tpu_torch.models.rq import (
     ResidualQuantizer,
     rq_decode,
@@ -84,6 +97,11 @@ from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
 from vq_tpu_torch.models.tsvq import TSVQ, TSVQTree, tsvq_build
 from vq_tpu_torch.ops.distance import Distance, Metric, distance, nearest, pairwise, rowwise
 from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
+from vq_tpu_torch.ops.kmeans_anisotropic import (
+    anisotropic_assign,
+    anisotropic_eta,
+    lloyd_anisotropic,
+)
 from vq_tpu_torch.ops.knn import knn_graph
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
 from vq_tpu_torch.search import BinaryIndex, FlatIndex, PQIndex, RQIndex, SQIndex
@@ -113,6 +131,14 @@ __all__ = [
     "pq_train",
     "pq_encode",
     "pq_decode",
+    "AnisotropicProductQuantizer",
+    "pq_train_anisotropic",
+    "pq_encode_anisotropic",
+    "pq_refine_anisotropic",
+    "anisotropic_pq_loss",
+    "mips_adc_search",
+    "OPQQuantizer",
+    "opq_train",
     "ResidualQuantizer",
     "rq_train",
     "rq_encode",
@@ -141,6 +167,9 @@ __all__ = [
     "assign",
     "lloyd",
     "kmeans_plusplus_init_device",
+    "lloyd_anisotropic",
+    "anisotropic_assign",
+    "anisotropic_eta",
     "default_device",
     "save",
     "load",

@@ -11,13 +11,17 @@ JAX being imported here.
 Kinds ported so far (config; arrays):
 
 * ``"pq"`` — :class:`ProductQuantizer` (``distance``; ``codebooks``);
+* ``"pq_aniso"`` — :class:`AnisotropicProductQuantizer` (``eta``;
+  ``codebooks``);
+* ``"opq"`` — :class:`OPQQuantizer` (none; ``rotation``, ``codebooks``);
 * ``"sq"`` — :class:`ScalarQuantizer` (``min``, ``max``, ``levels``; none);
 * ``"sq_perdim"`` — :class:`PerDimScalarQuantizer` (``levels``; ``mins``,
   ``maxs``);
 * ``"pq_index"`` — :class:`PQIndex` (``distance``, ``keep_corpus``,
   ``pack_bits``; ``codebooks``, ``codes`` and, when kept, ``corpus``);
 * ``"ivfpq_index"`` — :class:`IVFPQIndex` (``by_residual``,
-  ``keep_corpus``, ``max_list_size``, ``metric``; ``coarse``,
+  ``keep_corpus``, ``max_list_size``, ``metric`` and, for an
+  anisotropic PQ, ``pq_eta``; ``coarse``,
   ``codebooks``, ``flat_codes`` and ``flat_lists`` in id order, and, when
   kept, ``corpus``);
 * ``"ivfflat_index"`` — :class:`IVFFlatIndex` (``metric``,
@@ -93,7 +97,9 @@ def state_of(obj) -> State:
     from vq_tpu_torch.ivf import IVFPQIndex
     from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
     from vq_tpu_torch.models.bq import BinaryQuantizer
+    from vq_tpu_torch.models.opq import OPQQuantizer
     from vq_tpu_torch.models.pq import ProductQuantizer
+    from vq_tpu_torch.models.pq_anisotropic import AnisotropicProductQuantizer
     from vq_tpu_torch.models.rq import ResidualQuantizer
     from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
     from vq_tpu_torch.models.tsvq import TSVQ
@@ -186,6 +192,8 @@ def state_of(obj) -> State:
             "max_list_size": obj.max_list_size,
             "metric": obj.metric,
         }
+        if isinstance(obj.pq, AnisotropicProductQuantizer):
+            config["pq_eta"] = float(obj.pq.eta)  # the anisotropic PQ round-trips
         return "ivfpq_index", config, arrays
     if isinstance(obj, PQIndex):
         width = obj.code_bytes_per_vector if obj.pack_bits < 8 else obj.pq.num_subspaces
@@ -204,6 +212,10 @@ def state_of(obj) -> State:
             "pack_bits": int(obj.pack_bits),
         }
         return "pq_index", config, arrays
+    if isinstance(obj, OPQQuantizer):
+        return "opq", {}, {"rotation": _np(obj.rotation), "codebooks": _np(obj.codebooks)}
+    if isinstance(obj, AnisotropicProductQuantizer):  # before its base class, ProductQuantizer
+        return "pq_aniso", {"eta": obj.eta}, {"codebooks": _np(obj.codebooks)}
     if isinstance(obj, ProductQuantizer):
         return "pq", {"distance": obj.distance_metric}, {"codebooks": _np(obj.codebooks)}
     if isinstance(obj, PerDimScalarQuantizer):
@@ -331,8 +343,12 @@ def _binary_index_from(config, arrays, device):
 def _ivfpq_from(config, arrays, device):
     from vq_tpu_torch.ivf import IVFPQIndex
 
+    if config.get("pq_eta") is not None:
+        pq = _pq_aniso_from({"eta": config["pq_eta"]}, arrays, device)
+    else:
+        pq = _pq_from(arrays, "squared_euclidean", device)
     idx = IVFPQIndex(
-        np.asarray(arrays["coarse"], np.float32), _pq_from(arrays, "squared_euclidean", device),
+        np.asarray(arrays["coarse"], np.float32), pq,
         by_residual=bool(config["by_residual"]),
         keep_corpus=bool(config["keep_corpus"]),
         # Checkpoints of early rounds carry neither of these two.
@@ -370,6 +386,20 @@ def _pq_from(arrays, distance, device):
                             distance=distance, device=device)
 
 
+def _pq_aniso_from(config, arrays, device):
+    from vq_tpu_torch.models.pq_anisotropic import AnisotropicProductQuantizer
+
+    return AnisotropicProductQuantizer(codebooks=np.asarray(arrays["codebooks"], np.float32),
+                                       eta=config["eta"], device=device)
+
+
+def _opq_from(config, arrays, device):
+    from vq_tpu_torch.models.opq import OPQQuantizer
+
+    return OPQQuantizer(rotation=np.asarray(arrays["rotation"], np.float32),
+                        codebooks=np.asarray(arrays["codebooks"], np.float32), device=device)
+
+
 def _sq_from(config, arrays, device):
     from vq_tpu_torch.models.sq import ScalarQuantizer
 
@@ -400,6 +430,8 @@ _FROM_STATE = {
     "bq": _bq_from,
     "tsvq": _tsvq_from,
     "pq": lambda config, arrays, device: _pq_from(arrays, config["distance"], device),
+    "pq_aniso": _pq_aniso_from,
+    "opq": _opq_from,
     "sq": _sq_from,
     "sq_perdim": _sq_perdim_from,
     "pq_index": _pq_index_from,

@@ -2,8 +2,8 @@
 checkpoint written by either package loads in the other: a JSON header
 (``format_version``, ``kind``, ``config``) stored as a u8 array under
 ``__vq_header__``, then the model's arrays by name. The port carries
-the kinds ``"pq"``, ``"sq"``, ``"sq_perdim"``, ``"rq"``, ``"bq"``,
-``"tsvq"`` (:func:`save` /
+the kinds ``"pq"``, ``"pq_aniso"``, ``"opq"``, ``"sq"``, ``"sq_perdim"``,
+``"rq"``, ``"bq"``, ``"tsvq"`` (:func:`save` /
 :func:`load`), ``"flat_index"``, ``"pq_index"``, ``"sq_index"``,
 ``"binary_index"``, ``"rq_index"``, ``"ivfpq_index"``,
 ``"ivfflat_index"``, ``"ivfsq_index"`` and ``"ivfrq_index"`` (each index's
