@@ -171,7 +171,9 @@ same work at its shapes — bytes over 3.35 TB/s or operations over the
 67 TFLOP/s fp32 / 989 TFLOP/s bf16 peak, whichever is larger — and a
 library call's time where one exists) and the ``nvidia-smi`` line; the last line is the run's verdict,
 ``{"ok": true, "device": {...}}``. The data is a seeded Gaussian mixture
-made on the card; the weights are trained from it.
+made on the card; the weights are trained from it. Every kernel row with
+more than one path carries ``launches_by_path``: each path's launches in its
+own phase's run.
 """
 
 from __future__ import annotations
@@ -2334,6 +2336,246 @@ def phase_mips_opq(smi, corpus, queries):
     return dict(launches=launches, by_path=by_path, recall=recall, t=t, k7=k7,
                 mse=(mse_opq, mse_pq))
 
+def _widths(idx, queries):
+    """The padded width of an IVF index's probe: list sizes (max / mean),
+    ``cap``, the chunks a probed pair reads (the chain width every pair is
+    cut to) against its live ones at the top nprobe, and the bytes of the
+    probe's ``[P, nc * ch]`` f32 output (K6's or K7's) at nprobe 64."""
+    from vq_tpu_torch.ivf_flat import _coarse_probe
+
+    st = idx.bucket_stats()
+    pool = idx._pool
+    chains = pool.chains_search()
+    probe, _ = _coarse_probe(queries, idx.coarse, NPROBES[-1], idx.metric)
+    live = float((chains[probe] >= 0).sum(-1).float().mean())
+    return {"max": st["max"], "mean": st["mean"], "max/mean": st["max"] / st["mean"],
+            "cap": st["cap"], "nlist": st["nlist"], "chunks a pair": int(chains.shape[1]),
+            "live chunks a pair": live,
+            "out bytes nprobe64": N_QUERY * NPROBES[-1] * chains.shape[1] * pool.ch * 4}
+
+
+def _same_pool(a, b, name):
+    """Two indexes' lists, centroids and pools, bit for bit."""
+    import torch
+
+    pa, pb = a._pool, b._pool
+    assert torch.equal(a.coarse, b.coarse), f"{name}: centroids differ"
+    assert torch.equal(a._flat_lists, b._flat_lists), f"{name}: lists differ"
+    assert (pa._chains_h == pb._chains_h).all() and (pa.lens_h == pb.lens_h).all(), f"{name}: chains"
+    assert torch.equal(pa.slot_ids, pb.slot_ids) and torch.equal(
+        pa.pos[:pa.n_rows], pb.pos[:pb.n_rows]), f"{name}: slots differ"
+    for n in pa.specs:
+        assert torch.equal(pa.data[n].view(torch.int32) if pa.data[n].dtype == torch.uint32 else pa.data[n],
+                           pb.data[n].view(torch.int32) if pb.data[n].dtype == torch.uint32 else pb.data[n]), (
+            f"{name}: payload {n} differs")
+
+
+def phase_maintenance(smi, corpus, queries, gt):
+    """Phase 16, IVF maintenance and IVF-Binary through the public entry
+    points on the phase-4 mixture at IVF1024, on indexes of its own:
+    ``rebalance`` (default target) of IVF-Flat f32 and IVF-PQ with the
+    padded widths, search times and recall@10 at nprobe 8 / 64 before and
+    after; ``remove_ids`` of every 10th row and ``merge_from`` of two 500k
+    halves of IVF-Flat, each bit for bit the index built from the same rows
+    directly; ``range_search`` of both rebalanced indexes at nprobe 8 at the
+    median 10th-NN distance; ``IVFBinaryIndex`` (IVF1024 on 200k rows, 1M
+    added with its corpus) at nprobe 8 / 64 and rerank 0 / 100, its
+    ``range_search`` and ``rebalance``. Launch counts of K1, K2, K4, K6 and
+    K7 read from that run; every rebalance, search and range held bit for
+    bit to the plain route on the card (the binary searches, plain PyTorch
+    everywhere, to the CPU on FLAT_CPU_QUERIES queries); CUDA-event times
+    and two profiler lines."""
+    import copy
+
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.convert import from_state, state_of
+
+    train = corpus[:N_IVF_TRAIN]
+    by_path, t, recall, widths, out, info, wall = {}, {}, {}, {}, {}, {}, {}
+
+    def counted(name, fn):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        by_path[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        return res
+
+    reset_counts()
+    idx = {"ivf-flat": counted("ivf-flat train", lambda: vq_tpu_torch.IVFFlatIndex.train(
+               train, NLIST, max_iters=10)),
+           "ivf-pq": counted("ivf-pq train", lambda: vq_tpu_torch.IVFPQIndex.train(
+               train, NLIST, M, K, max_iters=10))}
+    for n, i in idx.items():
+        counted(f"{n} add", lambda i=i: i.add(corpus))
+    pre = {n: copy.deepcopy(i) for n, i in idx.items()}  # the plain route's copies
+    before = {n: copy.deepcopy(i) for n, i in idx.items()}  # the timings' copies
+    coarse0 = idx["ivf-flat"].coarse.clone()
+    for phase in ("before", "after"):
+        for n, i in idx.items():
+            if phase == "after":
+                info[n] = counted(f"{n} rebalance", i.rebalance)
+            widths[(n, phase)] = _widths(i, queries)
+            for p in NPROBES:
+                out[(n, phase, p)] = counted(f"{n} {phase} nprobe={p}",
+                                             lambda i=i, p=p: i.search(queries, k=10, nprobe=p))
+    d10 = float(((queries - corpus[gt[:, 9]]) ** 2).sum(-1).median())
+    rng = {n: counted(f"{n} range", lambda i=i: i.range_search(queries, d10, nprobe=NPROBES[0]))
+           for n, i in idx.items()}
+
+    # remove_ids / merge_from on IVF-Flat against direct builds.
+    rem = vq_tpu_torch.IVFFlatIndex(coarse0)
+    counted("remove add", lambda: rem.add(corpus))
+    gone = torch.arange(0, N_CORPUS, 10, device=corpus.device)
+    n_gone = counted("ivf-flat remove_ids", lambda: rem.remove_ids(gone))
+    half = N_CORPUS // 2
+    merged, other = vq_tpu_torch.IVFFlatIndex(coarse0), vq_tpu_torch.IVFFlatIndex(coarse0)
+    counted("merge adds", lambda: (merged.add(corpus[:half]), other.add(corpus[half:])))
+    n_moved = counted("ivf-flat merge_from", lambda: merged.merge_from(other))
+    edited = {n: {p: counted(f"{n} search nprobe={p}", lambda i=i, p=p: i.search(queries, k=10, nprobe=p))
+                  for p in NPROBES} for n, i in (("removed", rem), ("merged", merged))}
+
+    # IVFBinaryIndex.
+    b = counted("ivf-binary train", lambda: vq_tpu_torch.IVFBinaryIndex.train(
+        train, NLIST, max_iters=10, keep_corpus=True))
+    counted("ivf-binary add", lambda: b.add(corpus))
+    b_pre = copy.deepcopy(b)
+    bout = {(p, r): counted(f"ivf-binary nprobe={p} rerank={r}",
+                            lambda p=p, r=r: b.search(queries, k=10, nprobe=p, rerank=r))
+            for p in NPROBES for r in (0, SQ_RERANK)}
+    ham10 = float(bout[(NPROBES[0], 0)][1][:, 9].median())
+    brng = counted("ivf-binary range", lambda: b.range_search(queries, ham10, nprobe=NPROBES[0]))
+    widths[("ivf-binary", "before")] = _widths(b, queries)
+    info["ivf-binary"] = counted("ivf-binary rebalance", b.rebalance)
+    widths[("ivf-binary", "after")] = _widths(b, queries)
+    bafter = counted("ivf-binary after nprobe=8", lambda: b.search(queries, k=10, nprobe=NPROBES[0]))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log("maint", f"launches in the maintenance path: {launches}; by call: {by_path}")
+    for name, need in (("ivf-flat rebalance", "assign_fused"), ("ivf-flat rebalance", "lloyd_accumulate_fused"),
+                       ("ivf-pq rebalance", "assign_fused"), ("ivf-pq rebalance", "lloyd_accumulate_fused"),
+                       ("ivf-pq rebalance", "pq_encode_fused"), ("ivf-binary rebalance", "assign_fused"),
+                       ("ivf-binary rebalance", "lloyd_accumulate_fused"), ("ivf-binary add", "assign_fused"),
+                       ("ivf-binary train", "lloyd_accumulate_fused"), ("ivf-flat range", "ivf_probe_matvec_fused"),
+                       ("ivf-pq range", "ivf_probe_adc_fused"), ("removed search nprobe=8", "ivf_probe_matvec_fused")):
+        assert by_path[name].get(need, 0) > 0, f"{name}: {need} was not launched: {by_path[name]}"
+    for n in idx:
+        for p in NPROBES:
+            kernel = "ivf_probe_matvec_fused" if n == "ivf-flat" else "ivf_probe_adc_fused"
+            assert by_path[f"{n} after nprobe={p}"].get(kernel) == 1, (n, p, by_path)
+    assert n_gone == len(gone) and n_moved == N_CORPUS - half, (n_gone, n_moved)
+
+    # The plain route on the same card: each rebalance from the same start,
+    # the searches and ranges, and the direct builds.
+    with plain_route():
+        for n in idx:
+            assert pre[n].rebalance() == info[n], n
+        want = {k: (idx if k[1] == "after" else before)[k[0]].search(queries, k=10, nprobe=k[2])
+                for k in out}
+        want_rng = {n: idx[n].range_search(queries, d10, nprobe=NPROBES[0]) for n in idx}
+        b_plain = copy.deepcopy(b_pre)
+        lists_p, _ = vq_tpu_torch.assign(corpus, b_pre.coarse)
+        assert b_plain.rebalance() == info["ivf-binary"]
+    direct = vq_tpu_torch.IVFFlatIndex(coarse0)
+    keep = torch.ones(N_CORPUS, dtype=torch.bool, device=corpus.device)
+    keep[gone] = False
+    direct.add(corpus[keep])
+    whole = vq_tpu_torch.IVFFlatIndex(coarse0)
+    whole.add(corpus[:half])
+    whole.add(corpus[half:])
+    for n in idx:
+        _same_pool(idx[n], pre[n], f"{n} rebalance against the plain route")
+    _same_pool(b, b_plain, "ivf-binary rebalance against the plain route")
+    flips, gap = _near_ties(corpus, b_pre.coarse, b_pre._flat_lists, lists_p)
+    assert flips == 0, f"ivf-binary: {flips} lists differ from the plain assign (gap {gap:.3g})"
+    for key, (ids, dist) in out.items():
+        name = f"{key[0]} {key[1]} rebalance nprobe={key[2]}"
+        _check_search(name, ids, dist)
+        _parity((ids, dist), want[key], name)
+        recall[name] = _recall(ids, gt)
+    for n in idx:
+        assert all(torch.equal(a, c) for a, c in zip(rng[n], want_rng[n])), f"{n} range differs"
+    for n, built in (("removed", direct), ("merged", whole)):
+        target = rem if n == "removed" else merged
+        assert torch.equal(target._flat_lists, built._flat_lists), f"{n}: lists differ"
+        assert torch.equal(target._pool.to_flat()["rows"], built._pool.to_flat()["rows"]), n
+        for p in NPROBES:
+            got, ref = edited[n][p], built.search(queries, k=10, nprobe=p)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (n, p)
+    _same_pool(merged, whole, "merge_from against the same two adds")  # chunk for chunk
+
+    # IVF-Binary: the card's Hamming searches against the CPU's.
+    b_cpu = from_state(*state_of(b_pre), device="cpu")
+    q8 = queries[:FLAT_CPU_QUERIES]
+    for (p, r), (ids, dist) in bout.items():
+        name = f"ivf-binary nprobe={p} rerank={r}"
+        assert tuple(ids.shape) == (N_QUERY, 10) and bool((ids >= 0).all()), name
+        recall[name] = _recall(ids, gt)
+        if r == 0:
+            cids, cd = b_cpu.search(q8.cpu(), k=10, nprobe=p)
+            assert torch.equal(ids[:FLAT_CPU_QUERIES].cpu(), cids) and torch.equal(
+                dist[:FLAT_CPU_QUERIES].cpu(), cd), f"{name}: differs from the CPU"
+    crng = b_cpu.range_search(q8.cpu(), ham10, nprobe=NPROBES[0])
+    assert all(torch.equal(a[:FLAT_CPU_QUERIES].cpu(), c) for a, c in zip(brng, crng)), "binary range"
+    recall["ivf-binary after rebalance nprobe=8"] = _recall(bafter[0], gt)
+    del b_cpu
+
+    for key, w in widths.items():
+        log("maint", f"{key[0]} {key[1]} rebalance: lists max {w['max']} / mean {w['mean']:.1f} = "
+            f"{w['max/mean']:.3f}, nlist {w['nlist']}, cap {w['cap']}, {w['chunks a pair']} chunks a "
+            f"probed pair ({w['live chunks a pair']:.2f} live at nprobe {NPROBES[-1]}), the probe's "
+            f"[P, nc * ch] f32 output (K6's / K7's for IVF-Flat / IVF-PQ) at nprobe {NPROBES[-1]}: "
+            f"{w['out bytes nprobe64']} bytes | {smi}")
+    for n, i in list(idx.items()) + [("ivf-binary", b)]:
+        log("maint", f"{n} rebalance: {info[n]} in {wall[f'{n} rebalance']:.1f} ms wall, launches "
+            f"{by_path[f'{n} rebalance']}; {i!r} | {smi}")
+    log("maint", f"remove_ids of every 10th row: {n_gone} removed in {wall['ivf-flat remove_ids']:.1f} ms; "
+        f"merge_from of the second half: {n_moved} moved in {wall['ivf-flat merge_from']:.1f} ms; both "
+        "equal, bit for bit, the index built from the same rows directly (lists, rows, searches at "
+        "nprobe 8 and 64; the merge chunk for chunk)")
+    log("maint", f"range_search at nprobe {NPROBES[0]}, radius {d10:.6g} (the median 10th-NN squared "
+        f"distance): " + ", ".join(f"{n} counts sum {int(r[2].sum())}, median {float(r[2].float().median()):g}, "
+                                   f"max {int(r[2].max())}" for n, r in rng.items())
+        + f"; ivf-binary at Hamming radius {ham10:g}: counts sum {int(brng[2].sum())}; every "
+        "rebalance, search and range equals the plain route, the binary searches the CPU's")
+    log("maint", "recall@10 " + ", ".join(f"{n}: {v:.4f}" for n, v in recall.items()))
+
+    # Times by CUDA events: searches before (on the copies) and after the
+    # rebalance, the ranges and the binary searches; the plain route beside
+    # the after-rebalance searches and the ranges.
+    del pre, b_plain, rem, direct, merged, whole
+    timed = {}
+    for n in idx:
+        for p in NPROBES:
+            for phase, i in (("before", before[n]), ("after", idx[n])):
+                timed[f"{n} {phase} rebalance nprobe={p}"] = (
+                    lambda i=i, p=p: i.search(queries, k=10, nprobe=p))
+        timed[f"{n} range nprobe={NPROBES[0]}"] = (lambda i=idx[n]: i.range_search(queries, d10, nprobe=NPROBES[0]))
+    for (p, r) in bout:
+        timed[f"ivf-binary nprobe={p} rerank={r}"] = (lambda p=p, r=r: b.search(queries, k=10, nprobe=p, rerank=r))
+    for name, fn in timed.items():
+        ms = cuda_ms(fn, 5)
+        pms = None
+        if "after" in name or "range" in name:
+            with plain_route():
+                pms = cuda_ms(fn, 1)
+        t[name] = (ms, pms)
+        rec = recall.get(name)
+        log("time", f"{name}: {ms:.4f} ms" + ("" if pms is None else f", plain route {pms:.4f} ms")
+            + ("" if rec is None else f"; recall@10 {rec:.4f}") + f" | {smi}")
+    copies = [copy.deepcopy(before["ivf-pq"]) for _ in range(4)]  # profile_line calls fn 2-4 times
+    profile_line(smi, "ivf-pq rebalance (default target)", lambda: copies.pop().rebalance())
+    profile_line(smi, f"ivf-binary search nprobe={NPROBES[0]}",
+                 lambda: b.search(queries, k=10, nprobe=NPROBES[0]), SORT_KERNELS)
+    return dict(launches=launches, by_path=by_path, recall=recall, widths=widths, t=t, info=info,
+                wall=wall)
+
+
 def eval_fields(key, t_eval, bounds, rows):
     """Extra fields of the K3 / K4 rows: their time, plain time and bound
     at the eval harness's shape."""
@@ -2440,6 +2682,7 @@ def main() -> None:
     del ev_checks
     k8_range = phase_flat_serving(smi, corpus, queries, main_res, rqres)
     mo = phase_mips_opq(smi, corpus, queries)
+    mt = phase_maintenance(smi, corpus, queries, main_res["gt"])
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
@@ -2463,6 +2706,16 @@ def main() -> None:
                 **mips_opq("adc_scan_topk_fused")}
     k7_paths = {"ivf_pq": launches["ivf_probe_adc_fused"], "ivf_rq": rl["ivf_probe_adc_fused"],
                 **mips_opq("ivf_probe_adc_fused")}
+    ml = mt["launches"]  # phase 16's run
+    k4_paths["maintenance"] = ml["pq_encode_fused[highest]"]
+    k7_paths["maintenance"] = ml["ivf_probe_adc_fused"]
+    fl = flat["launches"]
+    k1_paths = {"ivf_pq": launches["assign_fused"], "ivf_flat": fl["assign_fused"],
+                "rq": rl["assign_fused"], **mips_opq("assign_fused"), "maintenance": ml["assign_fused"]}
+    k2_paths = {"ivf_pq": launches["lloyd_accumulate_fused"], "ivf_flat": fl["lloyd_accumulate_fused"],
+                "rq": rl["lloyd_accumulate_fused"], **mips_opq("lloyd_accumulate_fused"),
+                "maintenance": ml["lloyd_accumulate_fused"]}
+    k6_paths = {"ivf_flat": fl["ivf_probe_matvec_fused"], "maintenance": ml["ivf_probe_matvec_fused"]}
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     e_m, e_k, e_s = PQ_EVAL
     e_ops = 2.0 * e_m * e_k * e_s
@@ -2497,18 +2750,19 @@ def main() -> None:
                             **eval_fields("K4_eval", t_eval, bounds, EVAL_ROWS)}),
         row("adc_scan_topk_fused", "adc_topk.cu", "802", sum(k5_paths.values()),
             res["k5_err"], "K5", t["K5"], {"launches_by_path": k5_paths}),
-        row("assign_fused", "assign.cu", "137", launches["assign_fused"], kres["k1_err"], "K1", t["K1"],
-            {"bf16_ms": t["K1_bf16"][0]}),
-        row("lloyd_accumulate_fused", "lloyd.cu", "1473", launches["lloyd_accumulate_fused"],
-            kres["k2_err"], "K2", t["K2"], {"rq_shape_ms": t["K2_rq_shape"][0]}),
+        row("assign_fused", "assign.cu", "137", sum(k1_paths.values()), kres["k1_err"], "K1", t["K1"],
+            {"bf16_ms": t["K1_bf16"][0], "launches_by_path": k1_paths}),
+        row("lloyd_accumulate_fused", "lloyd.cu", "1473", sum(k2_paths.values()),
+            kres["k2_err"], "K2", t["K2"], {"rq_shape_ms": t["K2_rq_shape"][0],
+                                            "launches_by_path": k2_paths}),
         row("ivf_probe_adc_fused", "ivf_probe.cu", "1189", sum(k7_paths.values()), 0.0,
             "K7", t["K7_nprobe8"], {"launches_by_path": k7_paths,
                 "also_replaces": tpu + "1147", "ms_nprobe64": t["K7_nprobe64"][0],
                 "plain_ms_nprobe64": t["K7_nprobe64"][1], "bound_ms_nprobe64": bounds["K7_nprobe64"][0],
                 "bound_by_nprobe64": bounds["K7_nprobe64"][1],
                 "launches_by_nprobe": ivf["k7_by_nprobe"]}),
-        row("ivf_probe_matvec_fused", "ivf_matvec.cu", "1356", launches["ivf_probe_matvec_fused"],
-            k6_err, "K6", t["K6_flat_f32_nprobe8"], {
+        row("ivf_probe_matvec_fused", "ivf_matvec.cu", "1356", sum(k6_paths.values()),
+            k6_err, "K6", t["K6_flat_f32_nprobe8"], {"launches_by_path": k6_paths,
                 "ms_by_case": {f"{n} nprobe={p}": t[f"K6_{n}_nprobe{p}"][0] for n, p in k6_cases},
                 "bound_ms_by_case": {f"{n} nprobe={p}": c[2][0] for (n, p), c in k6_cases.items()}}),
         row("pq_encode_fused[bf16_fast]", "pq_encode.cu", "404", pl["pq_encode_fused[bf16_fast]"],

@@ -29,6 +29,13 @@ and within 1e-4 (codebooks) / 1e-5 relative (loss) of the CPU's, whose
 fp32 products sum in another order; the card's anisotropic and OPQ
 codes equal the CPU's on >= 99.9% of the rows, every other row a
 float64 near tie of its loss (anisotropic) or score (OPQ, 1e-5).
+IVF maintenance: the chunk pool's mutations and a stubbed rebalance
+(K1, and K4 for IVF-PQ) give the CPU's centroids, lists and layout
+exactly, f32 norms within rtol 1e-6 (the card's reductions sum in their
+own order), searches at separated ranks within 1e-2; ``range_search``
+through K6 / K7 bit for bit against the plain route after a remove and
+a merge; ``IVFBinaryIndex`` Hamming searches and ranges equal to the
+CPU's, ties included, reranked values within 1e-3.
 """
 
 import numpy as np
@@ -1356,3 +1363,169 @@ def test_opq_on_the_card_equals_the_cpu(card):
     ids, d = opq.adc_search(x[:30] + 0.01, got, k=10)
     assert ck.adc_scan_topk_fused.launches == before + 1
     _separated_parity((ids, d), cpu.adc_search(x[:30].cpu() + 0.01, got.cpu(), k=10))
+
+
+def _pools_equal(a, b):
+    """Two chunk pools' layouts and payloads (``b`` on the CPU): exactly,
+    but for the f32 norms, whose sums the card orders its own way (rtol
+    1e-6)."""
+    assert (a.n_rows, a.nlist, a._tail, a._free) == (b.n_rows, b.nlist, b._tail, b._free)
+    assert np.array_equal(a.lens_h, b.lens_h) and np.array_equal(a._chains_h, b._chains_h)
+    assert torch.equal(a.slot_ids.cpu(), b.slot_ids)
+    assert torch.equal(a.pos[:a.n_rows].cpu(), b.pos[:b.n_rows])
+    assert torch.equal(a.chains_search().cpu(), b.chains_search())
+    for name in a.specs:
+        got, want = a.data[name].cpu(), b.data[name]
+        if got.dtype == torch.uint32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if name in ("sqn", "cross"):
+            assert bool(torch.isclose(got, want, rtol=1e-6, atol=1e-6).all()), name
+        else:
+            assert torch.equal(got, want), name
+
+
+def test_pool_mutations_on_the_card_equal_the_cpu(card):
+    """append, append(row_ids=), free_lists, relabel_lists and remove give
+    the same layout on the card as on the CPU (uint32 words included)."""
+    from vq_tpu_torch.ivf_pool import ChunkPool
+
+    rng = np.random.default_rng(5)
+    specs = {"codes": ((3,), torch.uint8), "words": ((2,), torch.uint32), "sqn": ((), torch.float32)}
+    pools = [ChunkPool(specs, 6, chunk_rows=8, device=d) for d in (card, "cpu")]
+    lists = np.zeros((0,), np.int32)
+
+    def append(new_lists, row_ids=None, pay=None):
+        nb = len(new_lists)
+        if pay is None:
+            pay = {"codes": torch.from_numpy(rng.integers(0, 256, (nb, 3)).astype(np.uint8)),
+                   "words": torch.from_numpy(rng.integers(0, 2 ** 32, (nb, 2), dtype=np.uint64)
+                                             .astype(np.uint32)),
+                   "sqn": torch.from_numpy(rng.random(nb, dtype=np.float32))}
+        for p in pools:
+            kw = {} if row_ids is None else {"row_ids": torch.from_numpy(row_ids).to(p.device)}
+            p.append(torch.from_numpy(new_lists).to(p.device),
+                     {k: v.to(p.device) for k, v in pay.items()}, **kw)
+        _pools_equal(*pools)
+
+    for nb in (40, 7, 90):
+        new = rng.integers(0, 6, nb).astype(np.int32)
+        append(new)
+        lists = np.r_[lists, new]
+    moved = np.where(np.isin(lists, [0, 4]))[0]
+    pay = {k: pools[1].gather_rows(k, torch.from_numpy(moved)) for k in specs}
+    for p in pools:
+        p.free_lists([0, 4])
+        p.relabel_lists(np.array([0, 1, 2, 3, -1, 4]), 6)
+    _pools_equal(*pools)
+    new = rng.integers(0, 6, moved.size).astype(np.int32)
+    append(new, row_ids=moved, pay=pay)
+    lists = np.where(lists == 5, 4, lists)
+    lists[moved] = new
+    removed = np.sort(rng.choice(lists.size, 30, replace=False))
+    for p in pools:
+        p.remove(removed, lists)
+    _pools_equal(*pools)
+    assert pools[0]._free and pools[0].n_rows == lists.size - 30
+
+
+def _ivf_pair(card, family, x, ref=None):
+    """The same IVF index on the card and on the CPU (numpy coarse and
+    codebooks drawn from the rows ``ref``, ``x`` by default), both filled
+    with ``x``."""
+    import vq_tpu_torch as t
+
+    rng = np.random.default_rng(6)
+    xs = (x if ref is None else ref).cpu().numpy()
+    coarse = xs[rng.choice(len(xs), 32, replace=False)]
+    lo, hi = xs.min(0) - coarse.max(0), xs.max(0) - coarse.min(0)
+    rq_cbs = np.stack([xs[rng.choice(len(xs), 64)] * 0.3 ** (s + 1) for s in range(3)])
+    pq_cb = rng.normal(0, 0.7, (4, 64, 8)).astype(np.float32)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        if family == "flat":
+            idx = t.IVFFlatIndex(coarse, device=dev)
+        elif family == "sq":
+            idx = t.IVFSQIndex(coarse, t.PerDimScalarQuantizer(lo, hi, device=dev), device=dev)
+        elif family == "rq":
+            idx = t.IVFRQIndex(coarse, t.ResidualQuantizer(codebooks=rq_cbs, device=dev))
+        else:  # "pq", "pq_dot"
+            idx = t.IVFPQIndex(coarse, t.ProductQuantizer(codebooks=pq_cb, device=dev),
+                               keep_corpus=True, metric="dot" if family == "pq_dot" else "l2")
+        idx.add(x.to(dev))
+        out.append(idx)
+    return out
+
+
+@pytest.mark.parametrize("family", ["flat", "pq"])
+def test_stubbed_rebalance_on_the_card_equals_the_cpu(card, family, monkeypatch):
+    """With the split's lloyd stubbed (first k rows), the rebalance on the
+    card (K1's reassignment, K4's re-encode for IVF-PQ) gives the CPU's
+    centroids, lists and pool layout, and searches that agree."""
+    import types
+
+    import vq_tpu_torch.ivf_flat as flat_mod
+
+    x, q = _flat_data(card)
+    skew = x[torch.randint(0, 2000, (20_000,), generator=torch.Generator(device=card).manual_seed(8),
+                           device=card)]
+    on_card, on_cpu = _ivf_pair(card, family, torch.cat([x, skew]))
+    monkeypatch.setattr(flat_mod, "lloyd", lambda v, k, **_: types.SimpleNamespace(centroids=v[:k]))
+    before = ck.assign_fused.launches, ck.pq_encode_fused.launches
+    info = on_card.rebalance(min_size=100)
+    assert ck.assign_fused.launches > before[0]
+    assert family != "pq" or ck.pq_encode_fused.launches > before[1]
+    assert info == on_cpu.rebalance(min_size=100) and info["split"] >= 1
+    assert torch.equal(on_card.coarse.cpu(), on_cpu.coarse)
+    assert torch.equal(on_card._flat_lists.cpu(), on_cpu._flat_lists)
+    _pools_equal(on_card._pool, on_cpu._pool)
+    _separated_parity(on_card.search(q, k=10, nprobe=6), on_cpu.search(q.cpu(), k=10, nprobe=6),
+                      atol=1e-2)
+
+
+@pytest.mark.parametrize("family", ["flat", "sq", "rq", "pq", "pq_dot"])
+def test_ivf_range_search_equals_plain_route(card, family, monkeypatch):
+    """range_search takes the search's probe: one K6 (IVF-Flat, IVF-SQ) or
+    K7 (IVF-RQ, IVF-PQ) launch a call, bit for bit the same result with the
+    kernel swapped for its plain version, after a remove and a merge."""
+    import vq_tpu_torch.ivf as ivf_mod
+    import vq_tpu_torch.ivf_flat as flat_mod
+
+    x, q = _flat_data(card)
+    idx, _ = _ivf_pair(card, family, x[:20_000], ref=x)
+    other, _ = _ivf_pair(card, family, x[20_000:], ref=x)
+    idx.remove_ids(torch.arange(0, 20_000, 9, device=card))
+    idx.merge_from(other)
+    kernel = "ivf_probe_matvec_fused" if family in ("flat", "sq") else "ivf_probe_adc_fused"
+    mod = ivf_mod if family.startswith("pq") else flat_mod
+    vals = idx.search(q, k=10, nprobe=6)[1][:, 9]
+    radius = float(vals.median())
+    before = getattr(ck, kernel).launches
+    got = [idx.range_search(q, radius, nprobe=p, max_results=m) for p, m in ((6, 64), (1, 4096))]
+    assert getattr(ck, kernel).launches == before + 2
+    with monkeypatch.context() as m:
+        m.setattr(mod, kernel, getattr(ck, kernel.replace("_fused", "_plain")))
+        want = [idx.range_search(q, radius, nprobe=p, max_results=m) for p, m in ((6, 64), (1, 4096))]
+    for g_, w_ in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g_, w_))
+    assert int(got[0][2].sum()) > 0
+
+
+def test_ivf_binary_on_the_card_equals_the_cpu(card):
+    """IVFBinaryIndex: Hamming searches (ties included) and range counts
+    equal the CPU's bit for bit; reranked values within fp32 tolerance."""
+    import vq_tpu_torch
+
+    x, q = _flat_data(card)
+    coarse = x[:: 1000][:30].cpu().numpy()
+    on_card = vq_tpu_torch.IVFBinaryIndex(coarse, keep_corpus=True, device=card)
+    on_cpu = vq_tpu_torch.IVFBinaryIndex(coarse, keep_corpus=True, device="cpu")
+    on_card.add(x)
+    on_cpu.add(x.cpu())
+    _pools_equal(on_card._pool, on_cpu._pool)
+    for kw in (dict(nprobe=4), dict(nprobe=30, k=50)):
+        got, want = on_card.search(q, **kw), on_cpu.search(q.cpu(), **kw)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    _separated_parity(on_card.search(q, k=5, nprobe=8, rerank=200),
+                      on_cpu.search(q.cpu(), k=5, nprobe=8, rerank=200))
+    got, want = on_card.range_search(q, 6.0, nprobe=8), on_cpu.range_search(q.cpu(), 6.0, nprobe=8)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

@@ -22,11 +22,13 @@ and the exact :func:`knn_graph` over it; score-aware quantization for
 maximum-inner-product search (:func:`lloyd_anisotropic`,
 :class:`AnisotropicProductQuantizer` with its ``mips_search``) and OPQ
 (:class:`OPQQuantizer`, a learned rotation before PQ); and the IVF
-ladder's IVF-Flat, IVF-SQ, IVF-PQ (L2, or dot with anisotropic codes)
-and IVF-RQ indexes: ``train`` (k-means with :func:`lloyd`; then
-per-dimension SQ ranges, PQ or RQ codebooks on the residuals), ``add``
-(coarse :func:`assign`, then the raw row or its SQ, PQ or RQ code) and
-probed ``search``. Their kernels — assign, Lloyd accumulate, PQ Lloyd
+ladder's IVF-Flat, IVF-SQ, IVF-PQ (L2, or dot with anisotropic codes),
+IVF-RQ and IVF-Binary indexes: ``train`` (k-means with :func:`lloyd`;
+then per-dimension SQ ranges, PQ or RQ codebooks on the residuals),
+``add`` (coarse :func:`assign`, then the raw row or its SQ, PQ, RQ or
+packed sign code), probed ``search`` and ``range_search``, and their
+maintenance on the chunk pool (``remove_ids``, ``merge_from``,
+``rebalance``). Their kernels — assign, Lloyd accumulate, PQ Lloyd
 accumulate, PQ encode (exact, bf16 and bf16x3), the ADC scan with
 per-tile top-k, the IVF probe matvec, the IVF ADC probe and the dense ADC
 table sum — are CUDA C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built
@@ -67,6 +69,7 @@ from vq_tpu_torch.errors import (
     VqError,
 )
 from vq_tpu_torch.ivf import IVFPQIndex
+from vq_tpu_torch.ivf_binary import IVFBinaryIndex
 from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
 from vq_tpu_torch.models.base import Quantizer, default_device
 from vq_tpu_torch.models.bq import (
@@ -163,6 +166,7 @@ __all__ = [
     "IVFFlatIndex",
     "IVFSQIndex",
     "IVFRQIndex",
+    "IVFBinaryIndex",
     "KMeansResult",
     "assign",
     "lloyd",

@@ -47,7 +47,11 @@ Kinds ported so far (config; arrays):
   ``keep_corpus``; ``packed`` uint32 words and, when kept, ``corpus``);
 * ``"ivfrq_index"`` — :class:`IVFRQIndex` (``metric``, ``by_residual``,
   ``beam``, ``max_list_size``; ``coarse``, ``codebooks``, ``codes``,
-  ``sqn``, ``cross`` and ``lists`` in id order).
+  ``sqn``, ``cross`` and ``lists`` in id order);
+* ``"ivfbinary_index"`` — :class:`IVFBinaryIndex` (``threshold``,
+  ``max_list_size``, ``keep_corpus``, ``dim``; ``coarse``, ``packed``
+  uint32 words, ``lists`` and ``corpus`` in id order, ``corpus`` with no
+  rows unless kept).
 
 A JAX index carries across as, e.g., ``from_state("ivfflat_index",
 config, {"coarse": ..., "rows": ..., "lists": ...})``: the port's index
@@ -95,6 +99,7 @@ def _pool_flat(idx, name: str, empty: np.ndarray) -> np.ndarray:
 def state_of(obj) -> State:
     """``(kind, config, arrays)`` of a port object, arrays as numpy."""
     from vq_tpu_torch.ivf import IVFPQIndex
+    from vq_tpu_torch.ivf_binary import IVFBinaryIndex
     from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
     from vq_tpu_torch.models.bq import BinaryQuantizer
     from vq_tpu_torch.models.opq import OPQQuantizer
@@ -158,6 +163,16 @@ def state_of(obj) -> State:
         return "rq_index", config, arrays
     if isinstance(obj, ResidualQuantizer):
         return "rq", {}, {"codebooks": _np(obj.codebooks)}
+    if isinstance(obj, IVFBinaryIndex):
+        config = {"threshold": obj.bq.threshold, "max_list_size": obj.max_list_size,
+                  "keep_corpus": obj.keep_corpus, "dim": obj.dim}
+        no_corpus = np.zeros((0, obj.dim), np.float32)
+        return "ivfbinary_index", config, {
+            "coarse": _np(obj.coarse),
+            "packed": _np(_pool_flat(obj, "codes", np.zeros((0, obj.code_words), np.uint32))),
+            "lists": _lists(obj),
+            "corpus": _np(_pool_flat(obj, "corpus", no_corpus)) if obj.keep_corpus else no_corpus,
+        }
     if isinstance(obj, IVFFlatIndex):
         rows = _pool_flat(obj, "rows", np.zeros((0, obj.dim), np.float32))
         if obj.store_dtype == "bfloat16" and rows.shape[0]:
@@ -301,6 +316,30 @@ def _ivfrq_from(config, arrays, device):
     return idx
 
 
+def _ivfbinary_from(config, arrays, device):
+    from vq_tpu_torch.ivf_binary import IVFBinaryIndex
+
+    idx = IVFBinaryIndex(
+        np.asarray(arrays["coarse"], np.float32), threshold=config["threshold"],
+        max_list_size=config.get("max_list_size"),
+        keep_corpus=bool(config.get("keep_corpus", False)), device=device,
+    )
+    packed = np.asarray(arrays["packed"])
+    if packed.shape[0]:
+        payloads = {"codes": torch.from_numpy(packed.astype(np.uint32)).to(device)}
+        if idx.keep_corpus:
+            corpus = np.asarray(arrays.get("corpus", np.zeros((0, idx.dim), np.float32)))
+            if corpus.shape[0] != packed.shape[0]:
+                # The JAX package's loader fails here with KeyError('corpus') (R4).
+                raise InvalidData(
+                    f"ivfbinary_index keeps a corpus but holds {corpus.shape[0]} corpus rows "
+                    f"for {packed.shape[0]} packed rows"
+                )
+            payloads["corpus"] = as_tensor(corpus.astype(np.float32), device)
+        idx._append(as_tensor(np.asarray(arrays["lists"], np.int32), device), payloads)
+    return idx
+
+
 def _flat_index_from(config, arrays, device):
     from vq_tpu_torch.search import _STORAGE, FlatIndex
 
@@ -441,6 +480,7 @@ _FROM_STATE = {
     "rq": lambda config, arrays, device: _rq_from(arrays, device),
     "rq_index": _rq_index_from,
     "ivfrq_index": _ivfrq_from,
+    "ivfbinary_index": _ivfbinary_from,
     "flat_index": _flat_index_from,
     "sq_index": _sq_index_from,
     "binary_index": _binary_index_from,

@@ -35,14 +35,30 @@ dot score as ``[q.c_list +] sum T``.
 Values are squared-L2 distances (ascending, inf pads) for
 ``metric="l2"`` and inner products (descending, -inf pads) for
 ``metric="dot"``; ids of -1 mean the probed lists held fewer than k
-rows. Not ported yet: ``range_search``, ``rebalance``, ``remove_ids``,
-``merge_from``, ``search_and_reconstruct`` and ``_search_core``.
+rows. ``range_search`` takes the same probe (K6 or K7) and keeps the
+best hits within the radius with their true count; ``_search_core``
+gives a search as ``(fn, arrays)``.
+
+Maintenance moves only the affected lists' chunks in the pool:
+
+* ``remove_ids`` — the rows go, the rest renumber by position, and only
+  the lists that held removed rows repack;
+* ``merge_from`` — another index with the same coarse centroids and
+  coding hands over its stored payloads as they are;
+* ``rebalance`` — lists longer than a target are split by k-means
+  (``lloyd``: K2, then K1) on a member subsample, short lists retire, and
+  every affected row is reassigned (K1) and, where its coding depends on
+  its list, re-encoded (IVF-SQ from its decoded row, IVF-RQ through the
+  greedy encode's K1). The host orchestration (:func:`_rebalance_pass`)
+  is the JAX package's, numpy included, so a split draws the same
+  member subsample in both packages.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from vq_tpu_torch.convert import from_state
@@ -59,6 +75,12 @@ from vq_tpu_torch.models.rq import ResidualQuantizer, rq_train
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer
 from vq_tpu_torch.ops.cuda_kernels import ivf_probe_adc_fused, ivf_probe_matvec_fused
 from vq_tpu_torch.ops.kmeans import assign, lloyd
+from vq_tpu_torch.search import (
+    _compact_rows,
+    _merge_check,
+    _removal_keep_mask,
+    _search_and_reconstruct,
+)
 from vq_tpu_torch.utils.serialize import _from_npz, save
 
 __all__ = ["IVFFlatIndex", "IVFSQIndex", "IVFRQIndex"]
@@ -90,22 +112,172 @@ def _pad_to_k(ids, dist, k: int):
     return ids, dist
 
 
-def _flat_topk(d, ids, k: int):
-    """Top-k ``(ids, values)`` over the flattened ``[Q, nprobe, rows]``
-    probe (smaller is better; dead slots already at inf)."""
-    nq = d.shape[0]
-    vals, pos = _smallest(d.reshape(nq, -1), k)
-    return torch.gather(ids.reshape(nq, -1), 1, pos), vals
+# Affected rows handled a block at a time during rebalance, so that the
+# transient f32 member block (~1 GB at d = 128) never doubles the corpus.
+_REBALANCE_BLOCK_ROWS = 2_097_152
+
+
+def _list_members(lists_np: np.ndarray, nlist: int):
+    """``members(l)``: the rows of list ``l`` in ascending order (one
+    stable sort, so a loop over lists is not a scan of all rows a list)."""
+    order = np.argsort(lists_np, kind="stable")
+    bounds = np.searchsorted(lists_np[order], np.arange(nlist + 1))
+    return lambda l: order[bounds[l]:bounds[l + 1]]
+
+
+def _rebalance_pass(lists_np: np.ndarray, coarse_np: np.ndarray, nlist: int, member_vectors, *,
+                    target_max, default_target: int, min_size: int, max_iters: int, seed: int):
+    """One split / retire / compact / reassign pass over the lists, shared
+    by every IVF index; host orchestration in numpy, as in the JAX
+    package (``vq_tpu.ivf_flat._rebalance_pass``).
+
+    Lists longer than ``target_max`` are split by k-means++ seeded
+    ``lloyd`` (seed ``seed + 7 * i`` for the i-th split) on a member
+    subsample drawn by ``np.random.default_rng(seed)``, part 0 taking the
+    list's slot and the rest appended; lists shorter than ``min_size``
+    (and, when ``min_size > 0``, empty ones) retire, and the ids compact.
+    Every affected row is then reassigned by ``assign`` (K1) against the
+    new centroids, in blocks of ``_REBALANCE_BLOCK_ROWS``.
+    ``member_vectors(sorted rows) -> [len, d]`` f32 reads the index as it
+    was before the pass. Returns None when nothing needs doing, else a
+    dict with ``split``, ``retired``, ``coarse_new``, ``lists``, the
+    affected ``rows`` (sorted) and their ``new_lists``, and ``remap_old``
+    (old list -> new list, -1 retired)."""
+    counts = np.bincount(lists_np, minlength=nlist)
+    target_max = int(default_target if target_max is None else target_max)
+    split_ids = np.where(counts > target_max)[0]
+    retire_ids = np.setdiff1d(np.where((counts < int(min_size)) & (counts > 0))[0], split_ids)
+    empty_retire = np.where(counts == 0)[0] if min_size > 0 else np.array([], int)
+    if not (split_ids.size or retire_ids.size or empty_retire.size):
+        return None
+
+    rng = np.random.default_rng(int(seed))
+    members = _list_members(lists_np, nlist)
+    coarse = coarse_np.copy()
+    keep = np.ones(nlist, bool)
+    keep[retire_ids] = False
+    keep[empty_retire] = False
+    extra_centroids = []
+    affected = [members(l) for l in split_ids]
+    for li, l in enumerate(split_ids):
+        rows = members(l)
+        parts = int(-(-rows.size // target_max))
+        sub_n = min(rows.size, max(target_max, 8 * parts))
+        sub = rows if rows.size <= sub_n else rng.choice(rows, sub_n, replace=False)
+        res = lloyd(member_vectors(np.sort(sub)), parts, max_iters=max_iters,
+                    seed=seed + 7 * li, init="kmeans++")
+        part_c = res.centroids.cpu().numpy()
+        coarse[l] = part_c[0]  # part 0 keeps the list's slot
+        if parts > 1:
+            extra_centroids.append(part_c[1:])
+    coarse_full = np.concatenate([coarse] + extra_centroids, axis=0) if extra_centroids else coarse
+    affected += [members(l) for l in retire_ids]
+
+    keep_full = np.ones(coarse_full.shape[0], bool)
+    keep_full[:nlist] = keep
+    remap = np.cumsum(keep_full) - 1  # old id -> new id
+    coarse_new = coarse_full[keep_full]
+    lists = remap[lists_np]
+
+    rows = new_lists = None
+    if affected:
+        rows = np.unique(np.concatenate(affected))
+        parts = []
+        for s in range(0, rows.size, _REBALANCE_BLOCK_ROWS):
+            xb = member_vectors(rows[s:s + _REBALANCE_BLOCK_ROWS])
+            nlb, _ = assign(xb, torch.as_tensor(coarse_new, device=xb.device))
+            parts.append(nlb.cpu().numpy())
+        new_lists = np.concatenate(parts)
+        lists[rows] = new_lists
+    return {
+        "split": int(split_ids.size),
+        "retired": int(retire_ids.size + empty_retire.size),
+        "coarse_new": coarse_new,
+        "lists": lists,
+        "rows": rows,
+        "new_lists": new_lists,
+        "remap_old": np.where(keep, remap[:nlist], -1).astype(np.int32),
+    }
+
+
+def _move_rows(pool: ChunkPool, out: dict, lists_np: np.ndarray, block_payloads) -> None:
+    """Apply a rebalance pass to the pool, moving only the affected lists'
+    chunks: ``block_payloads(rows, new_lists)`` gives each block's payloads
+    from the pool as it was (re-encoded where the coding depends on the
+    list); then the affected lists are freed, the lists relabelled, and
+    the blocks appended under their own ids."""
+    new_nlist = out["coarse_new"].shape[0]
+    if out["rows"] is None:
+        pool.relabel_lists(out["remap_old"], new_nlist)
+        return
+    rows_np, nl_np = out["rows"], out["new_lists"]
+    blocks = []
+    for s in range(0, rows_np.size, _REBALANCE_BLOCK_ROWS):
+        rb, nlb = rows_np[s:s + _REBALANCE_BLOCK_ROWS], nl_np[s:s + _REBALANCE_BLOCK_ROWS]
+        blocks.append((rb, nlb, block_payloads(rb, nlb)))
+    pool.free_lists(np.unique(lists_np[rows_np]))
+    pool.relabel_lists(out["remap_old"], new_nlist)
+    for rb, nlb, pb in blocks:
+        pool.append(nlb, pb, row_ids=rb)
+
+
+def _default_target(max_list_size, counts: np.ndarray) -> int:
+    """``rebalance``'s default ``target_max``: the list cap, else twice the
+    mean list size (at least 8)."""
+    return max_list_size or int(max(8, 2 * max(1.0, counts.mean())))
+
+
+def _rebalance_rounds(once, target_max, min_size: int, max_iters: int, seed: int,
+                      rounds: int) -> Tuple[int, int]:
+    """Up to ``rounds`` passes of ``once`` (``min_size`` only in the first),
+    until one splits and retires nothing -> ``(split, retired)`` summed."""
+    total_split = total_retired = 0
+    for r in range(max(1, int(rounds))):
+        info = once(target_max=target_max, min_size=min_size if r == 0 else 0,
+                    max_iters=max_iters, seed=seed + 1000 * r)
+        total_split += info["split"]
+        total_retired += info["retired"]
+        if info["split"] == 0 and info["retired"] == 0:
+            break
+    return total_split, total_retired
+
+
+def _range_hits(ids, d, radius: float, fetch: int, max_results: int, dot: bool):
+    """``range_search``'s result from one probe's ``(ids, values)`` (smaller
+    is better, dead slots at inf): a hit is ``value <= radius`` (``dot``
+    values are negated scores, so the radius is negated too) on a live
+    slot, so a NaN is never a hit. The best ``fetch`` hits in one stable
+    sort, padded to ``max_results`` with -1 / inf (-inf scores for dot),
+    and the true hit count of each query."""
+    r = torch.tensor(-radius if dot else radius, dtype=torch.float32, device=d.device)
+    hit = (d <= r) & (ids >= 0)
+    counts = hit.sum(1, dtype=torch.int32)
+    vals, pos = _smallest(torch.where(hit, d, float("inf")), fetch)
+    ids = torch.gather(torch.where(hit, ids, -1), 1, pos)
+    if ids.shape[1] < max_results:
+        pad = max_results - ids.shape[1]
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        vals = torch.nn.functional.pad(vals, (0, pad), value=float("inf"))
+    return ids, (-vals if dot else vals), counts
 
 
 class _IVFScanBase:
-    """What IVF-Flat and IVF-SQ share: chunk-pool storage, occupancy
-    stats and the probed search. A subclass names its payload
-    (``_payload``, beside the ``sqn`` norms) and scores the probed rows
-    (``_probe_distances``)."""
+    """What the IVF indexes over the chunk pool share: storage, occupancy
+    stats, the probed search and range search, and the lifecycle
+    (``remove_ids``, ``merge_from``, ``rebalance``). A subclass names its
+    payloads (``_payload_specs``; ``_scan_payloads``, the ones a search
+    reads), scores the probed rows (``_probe_distances``), and says how a
+    moved row is gathered (``_member_vectors``) and re-encoded against its
+    new list (``_reencode_rows``)."""
 
     _payload = ""
     _kind = ""
+    _scan_payloads: Tuple[str, ...] = ()
+    # Whether _reencode_rows needs the member vectors; rows whose coding
+    # does not depend on their list skip that gather during rebalance.
+    _reencode_needs_x = True
+    _merge_attrs: Tuple[str, ...] = ()
+    _merge_arrays: Tuple[Tuple[str, str], ...] = ()  # (label, dotted attribute)
 
     def __init__(self, coarse_centroids, *, metric: str, max_list_size: Optional[int],
                  chunk_rows: int = 256, device=None):
@@ -147,6 +319,7 @@ class _IVFScanBase:
     def _append(self, lists: torch.Tensor, payloads: dict) -> None:
         if self._pool is None:
             self._pool = self._new_pool()
+        lists = lists.to(device=self.device, dtype=torch.int32)
         self._pool.append(lists, payloads)
         self._flat_lists = (
             lists if self._flat_lists is None else torch.cat([self._flat_lists, lists])
@@ -186,21 +359,38 @@ class _IVFScanBase:
             raise DimensionMismatch(expected=self.dim, found=q.shape[1])
         return q
 
-    def _matvec(self, lhs, probe, chains_s) -> torch.Tensor:
+    # -- search ------------------------------------------------------------
+
+    def _buckets(self) -> dict:
+        """The search's view of the pool: the scanned payloads, ``ids``
+        (the slot map), ``chains`` (cut to the search width) and
+        ``coarse``."""
+        pool = self._pool
+        b = {name: pool.data[name] for name in self._scan_payloads}
+        b.update(ids=pool.slot_ids, chains=pool.chains_search(), coarse=self.coarse)
+        return b
+
+    def _matvec(self, lhs, probe, b, cap: int) -> torch.Tensor:
         """K6 over the probed chains: left vectors ``[Q, nprobe, d]`` (one
         a (query, list) pair) -> dots ``[Q, nprobe, rows]``."""
         nq, npr = probe.shape
-        pool = self._pool
         return ivf_probe_matvec_fused(
-            lhs.reshape(nq * npr, self.dim), chains_s[probe].reshape(nq * npr, -1),
-            pool.data[self._payload], cap=pool.cap,
+            lhs.reshape(nq * npr, self.dim), b["chains"][probe].reshape(nq * npr, -1),
+            b[self._payload], cap=cap,
         ).reshape(nq, npr, -1)
 
-    def _probe_distances(self, q, probe, qc, chains_s) -> torch.Tensor:
+    def _probe_distances(self, q, probe, qc, b, cap: int) -> torch.Tensor:
         raise NotImplementedError
 
-    def _sqn(self, probe, chains_s) -> torch.Tensor:
-        return take_list_payload(self._pool.data["sqn"], chains_s, probe)
+    def _probe(self, q, b, nprobe: int, cap: int):
+        """The probed rows of each query -> ``(ids [Q, nprobe * rows] i32,
+        values [Q, nprobe * rows])``, probe-rank major, smaller is better
+        (dot scores negated), dead slots -1 / inf."""
+        probe, qc = _coarse_probe(q, b["coarse"], nprobe, self.metric)
+        d = self._probe_distances(q, probe, qc, b, cap)
+        nq = q.shape[0]
+        ids = take_list_ids(b["ids"], b["chains"], probe, cap).reshape(nq, -1)
+        return ids, torch.where(ids >= 0, d.reshape(nq, -1), float("inf"))
 
     def search(self, queries, k: int = 10, *, nprobe: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k ``(ids [Q, k] i32, values [Q, k])`` over ``nprobe`` lists a
@@ -209,20 +399,134 @@ class _IVFScanBase:
         ``metric="dot"``; ids of -1 where the probed lists held fewer
         than k rows."""
         q = self._check_query(queries)
+        fn, arrays = self._search_core(int(k), nprobe=nprobe)
+        return fn(q, *arrays)
+
+    def _search_core(self, k: int, *, nprobe: int = 8):
+        """The search as ``(fn, arrays)``: ``fn(q, *arrays)`` with f32
+        queries ``q [Q, d]`` is :meth:`search` (the pool's arrays and the
+        coarse centroids are the arguments, sorted by name)."""
         if self._flat_lists is None:
             raise EmptyInput("index is empty — add() vectors first")
-        k = int(k)
-        pool = self._pool
-        chains_s = pool.chains_search()
+        b = self._buckets()
+        names = tuple(sorted(b))
+        k, cap = int(k), self._pool.cap
         nprobe = min(int(nprobe), self.nlist)
-        k_eff = min(k, nprobe * chains_s.shape[1] * pool.ch)
-        probe, qc = _coarse_probe(q, self.coarse, nprobe, self.metric)
-        d = self._probe_distances(q, probe, qc, chains_s)
-        ids = take_list_ids(pool.slot_ids, chains_s, probe, pool.cap)
-        ids, dist = _pad_to_k(*_flat_topk(torch.where(ids >= 0, d, float("inf")), ids, k_eff), k)
-        if self.metric == "dot":
-            dist = -dist  # back to descending scores; pads become -inf
-        return ids, dist
+        k_eff = min(k, nprobe * b["chains"].shape[1] * b["ids"].shape[1])
+        dot = self.metric == "dot"
+
+        def fn(q, *arrs):
+            ids, d = self._probe(q, dict(zip(names, arrs)), nprobe, cap)
+            vals, pos = _smallest(d, k_eff)
+            ids, dist = _pad_to_k(torch.gather(ids, 1, pos), vals, k)
+            return (ids, -dist) if dot else (ids, dist)  # dot: descending scores, -inf pads
+
+        return fn, tuple(b[n] for n in names)
+
+    def range_search(self, queries, radius: float, *, nprobe: int = 8,
+                     max_results: int = 1024) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Every stored row within ``radius`` of each query among the
+        probed lists (faiss's IVF contract: recall is bounded by the probe
+        set) -> ``(ids, values, counts)``: the best ``max_results`` hits
+        (-1 / inf pads, -inf scores for ``dot``) and the true number of
+        probed hits a query. A hit is ``value <= radius`` for L2 and
+        ``score >= radius`` for dot. The probe is the search's (K6 or K7)."""
+        if self._flat_lists is None:
+            raise EmptyInput("index is empty — add() vectors first")
+        if int(max_results) < 1:
+            raise InvalidParameter("max_results", "must be >= 1")
+        b = self._buckets()
+        q = self._check_query(queries)
+        nprobe = min(int(nprobe), self.nlist)
+        fetch = min(int(max_results), nprobe * b["chains"].shape[1] * b["ids"].shape[1])
+        ids, d = self._probe(q, b, nprobe, self._pool.cap)
+        return _range_hits(ids, d, float(radius), fetch, int(max_results), self.metric == "dot")
+
+    def search_and_reconstruct(self, queries, k: int = 10, **kw):
+        """Search plus the decoded vector of every hit -> ``(ids, values,
+        vectors [Q, k, d])``; padded -1 ids give zero rows."""
+        return _search_and_reconstruct(self, queries, k, **kw)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def remove_ids(self, ids) -> int:
+        """Remove stored vectors by position; the rest renumber
+        sequentially (faiss's ``remove_ids`` contract). Only the lists that
+        held removed rows repack their chunks. Returns the count removed."""
+        if self._flat_lists is None:
+            raise EmptyInput("index is empty")
+        mask = _removal_keep_mask(ids, self.ntotal, self.device)
+        removed = np.where(~mask.cpu().numpy())[0]
+        lists_np = self._flat_lists.cpu().numpy()
+        (self._flat_lists,) = _compact_rows(mask, self._flat_lists)
+        self._pool.remove(removed, lists_np)
+        return int(removed.size)
+
+    def merge_from(self, other) -> int:
+        """Move every vector of ``other`` into this index (faiss IVF
+        ``merge_from``): the same coarse centroids and coding, the stored
+        payloads copied and never re-encoded, ``other`` left empty.
+        Returns the count moved."""
+        _merge_check(self, other, attrs=("metric", *self._merge_attrs),
+                     arrays=(("coarse centroids", "coarse"), *self._merge_arrays))
+        moved = other.ntotal
+        if moved:
+            self._append(other._flat_lists, other._pool.to_flat())
+        other._flat_lists = None
+        other._pool = None
+        return moved
+
+    def _member_vectors(self, rows: np.ndarray) -> torch.Tensor:
+        """``[len(rows), d]`` f32 vectors of stored rows, for rebalance."""
+        raise NotImplementedError
+
+    def _reencode_rows(self, rows: np.ndarray, x, new_lists: np.ndarray, coarse_new: np.ndarray):
+        """Payloads of moved rows under their new lists (None: unchanged)."""
+        return None
+
+    def rebalance(self, *, target_max: Optional[int] = None, min_size: int = 0,
+                  max_iters: int = 8, seed: int = 0, rounds: int = 3) -> dict:
+        """Split overfull lists and retire underfull ones: a search reads
+        every probed list at the longest list's width, so skew taxes every
+        query. Each list longer than ``target_max`` (default:
+        ``max_list_size``, else twice the mean list size) is split by
+        k-means on a member subsample, lists shorter than ``min_size``
+        retire, and every affected row is reassigned to its nearest new
+        centroid (K1) and re-encoded against it where its coding depends
+        on the list (exact for raw rows; from the decoded rows otherwise,
+        adding at most the quantization error already there). Up to
+        ``rounds`` passes; ``min_size`` applies to the first. Returns
+        ``{"split", "retired", "new_nlist"}``."""
+        if self._flat_lists is None:
+            raise EmptyInput("index is empty — add() vectors first")
+        split, retired = _rebalance_rounds(self._rebalance_once, target_max, min_size,
+                                           max_iters, seed, rounds)
+        return {"split": split, "retired": retired, "new_nlist": self.nlist}
+
+    def _rebalance_once(self, *, target_max, min_size, max_iters, seed) -> dict:
+        lists_np = self._flat_lists.cpu().numpy()
+        counts = np.bincount(lists_np, minlength=self.nlist)
+        out = _rebalance_pass(
+            lists_np, self.coarse.cpu().numpy(), self.nlist, self._member_vectors,
+            target_max=target_max, default_target=_default_target(self.max_list_size, counts),
+            min_size=min_size, max_iters=max_iters, seed=seed,
+        )
+        if out is None:
+            return {"split": 0, "retired": 0, "new_nlist": self.nlist}
+        pool = self._pool
+
+        def block_payloads(rb, nlb):
+            x = self._member_vectors(rb) if self._reencode_needs_x else None
+            pb = self._reencode_rows(rb, x, nlb, out["coarse_new"]) or {}
+            for name in pool.specs:
+                if name not in pb:
+                    pb[name] = pool.gather_rows(name, rb)
+            return pb
+
+        _move_rows(pool, out, lists_np, block_payloads)
+        self.coarse = torch.as_tensor(out["coarse_new"], device=self.device).contiguous()
+        self._flat_lists = torch.as_tensor(out["lists"].astype(np.int32), device=self.device)
+        return {"split": out["split"], "retired": out["retired"], "new_nlist": self.nlist}
 
     def save(self, path: str) -> str:
         """Write the index as an ``.npz`` in the JAX package's format;
@@ -247,6 +551,9 @@ class IVFFlatIndex(_IVFScanBase):
 
     _payload = "rows"
     _kind = "ivfflat_index"
+    _scan_payloads = ("rows", "sqn")
+    _merge_attrs = ("store_dtype",)
+    _reencode_needs_x = False  # raw rows do not depend on their list
 
     def __init__(self, coarse_centroids, *, metric: str = "l2", store_dtype: str = "float32",
                  max_list_size: Optional[int] = None, chunk_rows: int = 256, device=None):
@@ -293,13 +600,17 @@ class IVFFlatIndex(_IVFScanBase):
             raise EmptyInput("index is empty")
         return self._pool.gather_rows("rows", as_tensor(ids, self.device)).to(torch.float32)
 
-    def _probe_distances(self, q, probe, qc, chains_s):
+    def _member_vectors(self, rows: np.ndarray) -> torch.Tensor:
+        return self._pool.gather_rows("rows", rows).to(torch.float32)
+
+    def _probe_distances(self, q, probe, qc, b, cap):
         nq, npr = probe.shape
-        qy = self._matvec(q[:, None, :].expand(nq, npr, self.dim), probe, chains_s)
+        qy = self._matvec(q[:, None, :].expand(nq, npr, self.dim), probe, b, cap)
         if self.metric == "dot":
             return -qy
         qn2 = (q * q).sum(-1)
-        return torch.clamp_min(qn2[:, None, None] - 2.0 * qy + self._sqn(probe, chains_s), 0.0)
+        sqn = take_list_payload(b["sqn"], b["chains"], probe)
+        return torch.clamp_min(qn2[:, None, None] - 2.0 * qy + sqn, 0.0)
 
     def __repr__(self) -> str:
         return (
@@ -316,6 +627,9 @@ class IVFSQIndex(_IVFScanBase):
 
     _payload = "codes"
     _kind = "ivfsq_index"
+    _scan_payloads = ("codes", "sqn")
+    _merge_attrs = ("by_residual",)
+    _merge_arrays = (("SQ lo", "sq.mins"), ("SQ hi", "sq.maxs"))
 
     def __init__(self, coarse_centroids, sq: PerDimScalarQuantizer, *, metric: str = "l2",
                  by_residual: bool = True, max_list_size: Optional[int] = None,
@@ -347,14 +661,33 @@ class IVFSQIndex(_IVFScanBase):
     def _payload_specs(self) -> dict:
         return {"codes": ((self.dim,), torch.uint8), "sqn": ((), torch.float32)}
 
+    def _encode_rows(self, x, lists, coarse) -> dict:
+        """SQ codes of the residuals from ``coarse[lists]`` (or of the rows)
+        and the decoded residuals' squared norms."""
+        enc_in = x - coarse[lists.to(torch.int64)] if self.by_residual else x
+        codes = self.sq.quantize(enc_in.to(torch.float32))
+        y = self.sq.dequantize(codes)
+        return {"codes": codes, "sqn": (y * y).sum(-1)}
+
     def add(self, vectors) -> None:
         """Coarse-assign (K1), SQ-encode the residual and append a batch."""
         x = self._batch(vectors)
         lists, _ = assign(x, self.coarse)
-        enc_in = x - self.coarse[lists.to(torch.int64)] if self.by_residual else x
-        codes = self.sq.quantize(enc_in.to(torch.float32))
-        y = self.sq.dequantize(codes)
-        self._append(lists, {"codes": codes, "sqn": (y * y).sum(-1)})
+        self._append(lists, self._encode_rows(x, lists, self.coarse))
+
+    def merge_from(self, other) -> int:
+        if isinstance(other, IVFSQIndex) and self.sq.levels != other.sq.levels:
+            raise InvalidData("cannot merge: SQ levels differ")
+        return super().merge_from(other)
+
+    def _member_vectors(self, rows: np.ndarray) -> torch.Tensor:
+        # From the codes and the list's centroid before the rebalance.
+        return self.reconstruct(rows)
+
+    def _reencode_rows(self, rows, x, new_lists, coarse_new):
+        dev = self.device
+        return self._encode_rows(x, torch.as_tensor(new_lists, device=dev),
+                                 torch.as_tensor(coarse_new, device=dev))
 
     def reconstruct(self, ids) -> torch.Tensor:
         """Decoded rows for ids (residual decode plus the centroid)."""
@@ -366,22 +699,23 @@ class IVFSQIndex(_IVFScanBase):
             y = y + self.coarse[self._flat_lists[pos].to(torch.int64)]
         return y
 
-    def _probe_distances(self, q, probe, qc, chains_s):
+    def _probe_distances(self, q, probe, qc, b, cap):
         nq, npr = probe.shape
         lo, step = self.sq.mins, self.sq.steps
         if self.metric == "dot":
             qs = (q * step)[:, None, :].expand(nq, npr, self.dim)
-            qy = (q @ lo)[:, None, None] + self._matvec(qs, probe, chains_s)
+            qy = (q @ lo)[:, None, None] + self._matvec(qs, probe, b, cap)
             if self.by_residual:
                 qy = qy + torch.gather(qc, 1, probe)[..., None]  # + q.c_list
             return -qy
         if self.by_residual:
-            qr = q[:, None, :] - self.coarse[probe]
+            qr = q[:, None, :] - b["coarse"][probe]
         else:
             qr = q[:, None, :].expand(nq, npr, self.dim)
-        qry = (qr @ lo)[..., None] + self._matvec(qr * step, probe, chains_s)
+        qry = (qr @ lo)[..., None] + self._matvec(qr * step, probe, b, cap)
         qrn2 = (qr * qr).sum(-1)
-        return torch.clamp_min(qrn2[..., None] - 2.0 * qry + self._sqn(probe, chains_s), 0.0)
+        sqn = take_list_payload(b["sqn"], b["chains"], probe)
+        return torch.clamp_min(qrn2[..., None] - 2.0 * qry + sqn, 0.0)
 
     def __repr__(self) -> str:
         return (
@@ -399,6 +733,9 @@ class IVFRQIndex(_IVFScanBase):
 
     _payload = "codes"
     _kind = "ivfrq_index"
+    _scan_payloads = ("codes", "sqn", "cross")
+    _merge_attrs = ("by_residual",)
+    _merge_arrays = (("RQ codebooks", "rq.codebooks"),)
 
     def __init__(self, coarse_centroids, rq: ResidualQuantizer, *, metric: str = "l2",
                  by_residual: bool = True, beam: int = 1, max_list_size: Optional[int] = None,
@@ -437,17 +774,31 @@ class IVFRQIndex(_IVFScanBase):
         return {"codes": ((self.rq.num_stages,), code_dt), "sqn": ((), torch.float32),
                 "cross": ((), torch.float32)}
 
+    def _encode_rows(self, x, lists, coarse) -> dict:
+        """RQ codes of the residuals from ``coarse[lists]`` (or of the rows;
+        K1 inside the greedy encode), ``||ŷ||^2`` and ``c_list.ŷ``."""
+        c = coarse[lists.to(torch.int64)]
+        codes = self.rq.encode(x - c if self.by_residual else x, beam=self.beam)
+        y = self.rq.decode(codes)
+        sqn = (y * y).sum(-1)
+        cross = (c * y).sum(-1) if self.by_residual else torch.zeros_like(sqn)
+        return {"codes": codes, "sqn": sqn, "cross": cross}
+
     def add(self, vectors) -> None:
         """Coarse-assign (K1), RQ-encode the residual and append a batch
         with ``||ŷ||^2`` and ``c_list.ŷ``."""
         x = self._batch(vectors).to(torch.float32)
         lists, _ = assign(x, self.coarse)
-        c = self.coarse[lists.to(torch.int64)]
-        codes = self.rq.encode(x - c if self.by_residual else x, beam=self.beam)
-        y = self.rq.decode(codes)
-        sqn = (y * y).sum(-1)
-        cross = (c * y).sum(-1) if self.by_residual else torch.zeros_like(sqn)
-        self._append(lists, {"codes": codes, "sqn": sqn, "cross": cross})
+        self._append(lists, self._encode_rows(x, lists, self.coarse))
+
+    def _member_vectors(self, rows: np.ndarray) -> torch.Tensor:
+        # From the codes and the list's centroid before the rebalance.
+        return self.reconstruct(rows)
+
+    def _reencode_rows(self, rows, x, new_lists, coarse_new):
+        dev = self.device
+        return self._encode_rows(x, torch.as_tensor(new_lists, device=dev),
+                                 torch.as_tensor(coarse_new, device=dev))
 
     def reconstruct(self, ids) -> torch.Tensor:
         """Decoded rows for ids (additive decode plus the centroid)."""
@@ -459,26 +810,27 @@ class IVFRQIndex(_IVFScanBase):
             y = y + self.coarse[self._flat_lists[pos].to(torch.int64)]
         return y
 
-    def _probe_distances(self, q, probe, qc, chains_s):
+    def _probe_distances(self, q, probe, qc, b, cap):
         nq, npr = probe.shape
-        pool = self._pool
         cbs = self.rq.codebooks
         tables = torch.einsum("qd,skd->qsk", q, cbs)  # [Q, S, k], probe-independent
         tab_rep = tables[:, None].expand(nq, npr, *tables.shape[1:]).reshape(nq * npr, *tables.shape[1:])
         tsum = ivf_probe_adc_fused(
-            tab_rep, chains_s[probe].reshape(nq * npr, -1), pool.data["codes"], cap=pool.cap,
+            tab_rep, b["chains"][probe].reshape(nq * npr, -1), b["codes"], cap=cap,
         ).reshape(nq, npr, -1)
         qc_sel = torch.gather(qc, 1, probe)  # [Q, np]
         if self.metric == "dot":
             return -(tsum + qc_sel[..., None]) if self.by_residual else -tsum
         qn2 = (q * q).sum(-1)
         if self.by_residual:
-            cc = (self.coarse * self.coarse).sum(-1)
+            coarse = b["coarse"]
+            cc = (coarse * coarse).sum(-1)
             qrn2 = (qn2[:, None] - 2.0 * qc_sel + cc[probe])[..., None]
         else:
             qrn2 = qn2[:, None, None]
-        cross = take_list_payload(pool.data["cross"], chains_s, probe)
-        return torch.clamp_min(qrn2 - 2.0 * (tsum - cross) + self._sqn(probe, chains_s), 0.0)
+        cross = take_list_payload(b["cross"], b["chains"], probe)
+        sqn = take_list_payload(b["sqn"], b["chains"], probe)
+        return torch.clamp_min(qrn2 - 2.0 * (tsum - cross) + sqn, 0.0)
 
     def __repr__(self) -> str:
         return (

@@ -11,15 +11,24 @@ list is its chain's chunks (:func:`take_list_ids`,
 :func:`take_list_payload`, and K7, which walks the chains itself).
 
 Row ids are positional add order: ``pos [n]`` maps an id to its pool
-slot and ``slot_ids [n_chunks, CH]`` maps slots back (-1 = empty).
+slot and ``slot_ids [n_chunks, CH]`` maps slots back (-1 = empty). Both
+renumber on removal (the faiss ``remove_ids`` contract).
 
 The chains and list lengths are kept on the host (numpy) and uploaded
 when a batch or a search needs them. Chunk allocation is vectorised, and
 hands out the same ids in the same order as the JAX package's loop
-(lists in ascending order, recycled ids popped off the free list
-first), so chains, ``slot_ids`` and ``pos`` equal the JAX pool's.
-Freeing, relabelling and removal (``free_lists``, ``relabel_lists``,
-``remove``) are not ported yet; nothing here fills the free list.
+(lists in ascending order, recycled ids popped off the end of the free
+list first), so after any sequence of appends, frees, relabels and
+removals the chains, ``slot_ids``, ``pos`` and the free list equal the
+JAX pool's.
+
+Rebalance and removal move only the affected lists' chunks:
+:meth:`ChunkPool.free_lists` returns a list's chunks to the free list,
+:meth:`ChunkPool.relabel_lists` renumbers the lists, and
+:meth:`ChunkPool.append` with ``row_ids`` puts rows back under the ids
+they had. Every mutation drops the cached device chains and bumps
+:attr:`ChunkPool.version`, the counter that caches of the search view key
+on.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vq_tpu_torch.errors import InvalidParameter
 from vq_tpu_torch.models.base import resolve_device
 
 __all__ = ["ChunkPool", "bucket_stats", "take_list_ids", "take_list_payload"]
@@ -40,6 +50,18 @@ def _cdiv(a, b):
 
 def _round8(x: int) -> int:
     return max(8, _cdiv(int(x), 8) * 8)
+
+
+def _int_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for uint32 words (which PyTorch can copy but not
+    scatter or gather everywhere) the same memory viewed as int32."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    if dtype == torch.uint32:
+        return torch.zeros(shape, dtype=torch.int32, device=device).view(torch.uint32)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def take_list_ids(slot_ids, chains_s, pl, cap: int) -> torch.Tensor:
@@ -64,7 +86,7 @@ def take_list_payload(data, chains_s, pl) -> torch.Tensor:
     slots carry whatever the chunk holds: mask with :func:`take_list_ids`)."""
     ch = data.shape[1]
     ct = chains_s[pl.to(torch.int64)]
-    rows = data[ct.clamp_min(0).to(torch.int64)]
+    rows = _int_view(data)[ct.clamp_min(0).to(torch.int64)].view(data.dtype)
     return rows.reshape(ct.shape[:-1] + (ct.shape[-1] * ch,) + tuple(data.shape[2:]))
 
 
@@ -120,6 +142,11 @@ class ChunkPool:
         self.data: Dict[str, torch.Tensor] = {}
         self.slot_ids: Optional[torch.Tensor] = None
         self.pos: Optional[torch.Tensor] = None
+        self.version = 0  # bumped by every mutation
+
+    def _mutated(self) -> None:
+        self._chains_dev = None
+        self.version += 1
 
     # -- capacity ----------------------------------------------------------
 
@@ -162,9 +189,9 @@ class ChunkPool:
     def _grow_pool(self, want_chunks: int) -> None:
         want = max(int(want_chunks), 2 * max(self._n_chunks, 4))
         for name, (tail, dt) in self.specs.items():
-            new = torch.zeros((want, self.ch) + tail, dtype=dt, device=self.device)
+            new = _zeros((want, self.ch) + tail, dt, self.device)
             if name in self.data and self._n_chunks:
-                new[: self._n_chunks] = self.data[name]
+                _int_view(new)[: self._n_chunks] = _int_view(self.data[name])
             self.data[name] = new
         new_ids = torch.full((want, self.ch), -1, dtype=torch.int32, device=self.device)
         if self.slot_ids is not None and self._n_chunks:
@@ -191,11 +218,13 @@ class ChunkPool:
 
     # -- mutation ----------------------------------------------------------
 
-    def append(self, lists, payloads: Dict[str, torch.Tensor]) -> None:
+    def append(self, lists, payloads: Dict[str, torch.Tensor], row_ids=None) -> None:
         """Scatter a batch into the pool in place: ``lists [nb]`` list ids,
-        ``payloads`` name -> ``[nb, *tail]``; the rows get the next ``nb``
-        ids. Row j of the batch goes to in-list position ``lens[l] +
-        rank``, its rank among the batch's rows of list l in batch order."""
+        ``payloads`` name -> ``[nb, *tail]``. The rows get the next ``nb``
+        ids, or the given ``row_ids [nb]`` (then ``n_rows`` stays as it
+        is: rebalance and removal put rows back under their ids). Row j of
+        the batch goes to in-list position ``lens[l] + rank``, its rank
+        among the batch's rows of list l in batch order."""
         lists = torch.as_tensor(lists, device=self.device).to(torch.int64)
         nb = int(lists.shape[0])
         if nb == 0:
@@ -221,7 +250,7 @@ class ChunkPool:
         start = np.repeat(np.cumsum(reps) - reps, reps)
         cp = np.repeat(_cdiv(lens[grow], self.ch), reps) + np.arange(total) - start
         self._chains_h[li, cp] = self._alloc_chunks(total)
-        self._chains_dev = None
+        self._mutated()
 
         dev = self.device
         sl, order = torch.sort(lists, stable=True)
@@ -231,26 +260,103 @@ class ChunkPool:
         chains = torch.as_tensor(self._chains_h, device=dev).to(torch.int64)
         dest = chains[sl, pil // self.ch] * self.ch + pil % self.ch  # flat slot
         for name, (tail, dt) in self.specs.items():
-            flat = self.data[name].view((-1,) + tail)
-            flat[dest] = torch.as_tensor(payloads[name], device=dev)[order].to(dt)
-        row_ids = torch.arange(self.n_rows, self.n_rows + nb, device=dev)[order]
+            flat = _int_view(self.data[name].view((-1,) + tail))
+            flat[dest] = _int_view(torch.as_tensor(payloads[name], device=dev).to(dt))[order]
+        if row_ids is None:
+            row_ids = torch.arange(self.n_rows, self.n_rows + nb, device=dev)[order]
+            self.n_rows += nb
+        else:
+            row_ids = torch.as_tensor(row_ids, device=dev).to(torch.int64)[order]
         self.slot_ids.view(-1)[dest] = row_ids.to(torch.int32)
         self.pos[row_ids] = dest.to(torch.int32)
-        self.n_rows += nb
         self.lens_h = lens + counts
 
     def gather_rows(self, name: str, ids) -> torch.Tensor:
         """Payload rows for global ids (any order)."""
         ids = torch.as_tensor(ids, device=self.device).to(torch.int64)
         data = self.data[name]
-        flat = data.view((-1,) + tuple(data.shape[2:]))
-        return flat[self.pos[ids].to(torch.int64)]
+        flat = _int_view(data.view((-1,) + tuple(data.shape[2:])))
+        return flat[self.pos[ids].to(torch.int64)].view(data.dtype)
 
     def to_flat(self, names=None) -> Dict[str, torch.Tensor]:
         """Payloads in id order ``[n, *tail]``."""
         names = list(self.specs) if names is None else list(names)
         ids = torch.arange(self.n_rows, device=self.device)
         return {n: self.gather_rows(n, ids) for n in names}
+
+    def free_lists(self, list_ids) -> None:
+        """Drop every chunk of the given lists (gather their rows first):
+        the chunks' slots go to -1 and the chunks onto the free list, in
+        chain order, list by list."""
+        list_ids = np.asarray(list_ids, np.int64).reshape(-1)
+        _, first = np.unique(list_ids, return_index=True)
+        list_ids = list_ids[np.sort(first)]
+        chains = self._chains_h[list_ids]
+        freed = chains[chains >= 0]
+        self._chains_h[list_ids] = -1
+        self.lens_h[list_ids] = 0
+        self._mutated()
+        if not freed.size:
+            return
+        self.slot_ids[torch.as_tensor(freed, device=self.device).to(torch.int64)] = -1
+        self._free.extend(int(c) for c in freed)
+
+    def relabel_lists(self, remap, new_nlist: int) -> None:
+        """Renumber the lists (rebalance's retire-compaction): old list
+        ``l`` becomes ``remap[l]``; ``remap[l] = -1`` retires a list,
+        which must be empty by then (:meth:`free_lists`)."""
+        remap = np.asarray(remap, np.int64)
+        kept = remap >= 0
+        if bool((self.lens_h[~kept] > 0).any()):
+            raise InvalidParameter("remap", "a retired list still holds rows: free it first")
+        new_chains = np.full((int(new_nlist), self._chains_h.shape[1]), -1, np.int32)
+        new_lens = np.zeros(int(new_nlist), np.int64)
+        new_chains[remap[kept]] = self._chains_h[kept]
+        new_lens[remap[kept]] = self.lens_h[kept]
+        self._chains_h, self.lens_h = new_chains, new_lens
+        self.nlist = int(new_nlist)
+        self._mutated()
+
+    def remove(self, removed_sorted, lists_np) -> None:
+        """Remove rows by id (``removed_sorted``: sorted, unique); the rest
+        renumber positionally. ``lists_np`` holds every row's list before
+        the removal. Only the lists that held removed rows repack: their
+        survivors are gathered, the lists freed, and the survivors
+        appended again in ascending id order under their new ids."""
+        removed = np.asarray(removed_sorted, np.int64)
+        if removed.size == 0:
+            return
+        lists_np = np.asarray(lists_np)
+        aff_lists = np.unique(lists_np[removed])
+        keep = np.ones(self.n_rows, bool)
+        keep[removed] = False
+        aff_rows = np.where(np.isin(lists_np, aff_lists) & keep)[0]
+        new_ids = aff_rows - np.searchsorted(removed, aff_rows)
+        payloads = {n: self.gather_rows(n, aff_rows) for n in self.specs}
+        n_new = self.n_rows - int(removed.size)
+        self._renumber(torch.as_tensor(removed, device=self.device), n_new)
+        self.n_rows = n_new
+        self.free_lists(aff_lists)
+        self.append(lists_np[aff_rows], payloads, row_ids=new_ids)
+
+    def _renumber(self, removed: torch.Tensor, n_new: int) -> None:
+        """On the pool's device: every surviving slot id drops by the number
+        of removed ids below it, removed ids' slots go to -1, and ``pos``
+        is rebuilt from the renumbered slots (``[n_new]``)."""
+        r = removed.shape[0]
+        ids = self.slot_ids.to(torch.int64)
+        safe = ids.clamp_min(0)
+        shift = torch.searchsorted(removed, safe, side="left")
+        hit = removed[shift.clamp_max(r - 1)] == safe
+        valid = (ids >= 0) & ~((shift < r) & hit)
+        new = torch.where(valid, ids - shift, -1)
+        self.slot_ids = new.to(torch.int32)
+        flat = new.reshape(-1)
+        tgt = torch.where(flat >= 0, flat, n_new)  # dead slots land past the end
+        pos = torch.zeros((n_new + 1,), dtype=torch.int32, device=self.device)
+        pos[tgt] = torch.arange(flat.shape[0], dtype=torch.int32, device=self.device)
+        self.pos = pos[:n_new]
+        self._mutated()
 
     def stats(self) -> dict:
         """Occupancy and memory diagnostics."""

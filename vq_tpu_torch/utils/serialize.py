@@ -6,7 +6,8 @@ the kinds ``"pq"``, ``"pq_aniso"``, ``"opq"``, ``"sq"``, ``"sq_perdim"``,
 ``"rq"``, ``"bq"``, ``"tsvq"`` (:func:`save` /
 :func:`load`), ``"flat_index"``, ``"pq_index"``, ``"sq_index"``,
 ``"binary_index"``, ``"rq_index"``, ``"ivfpq_index"``,
-``"ivfflat_index"``, ``"ivfsq_index"`` and ``"ivfrq_index"`` (each index's
+``"ivfflat_index"``, ``"ivfsq_index"``, ``"ivfrq_index"`` and
+``"ivfbinary_index"`` (each index's
 ``save`` / ``load``); the layouts are listed in
 :mod:`vq_tpu_torch.convert`."""
 
