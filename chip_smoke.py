@@ -163,6 +163,19 @@ Phases, one line each (any failure exits non-zero with no result line):
    bits twice; recall@10; CUDA-event times beside the plain route and a
    ``torch.profiler`` line for the refine, the 1M encode,
    ``mips_search``, the dot IVF searches and ``opq_train``.
+16. maintenance — IVF-Flat and IVF-PQ at IVF1024 rebalanced, edited by
+   ``remove_ids`` / ``merge_from`` and ranged, and ``IVFBinaryIndex``
+   (:func:`phase_maintenance`).
+17. the layer around the indexes — ``Kmeans`` (k 1024, 20 iterations, 2
+   restarts on a 262,144-row sample of the 1M rows), the faiss
+   ``PCA64,IVF1024,PQ8`` as a ``TransformedIndex``, ``RefineIndex`` with
+   the flat, SQ8 and residual PQ 8x256 refiners over IVF1024 / PQ 8x256,
+   ``itq_train`` ahead of a 64-bit ``BinaryIndex``, ``BatchPipeline`` /
+   ``pipelined_search`` over IVF-Flat (K6), a refine index (K7) and the
+   ``PQIndex`` (K5) on 8 batches of 128 further queries of the mixture,
+   ``load_index`` round trips, and a stale pipeline raising after
+   ``rebalance()``: launch counts of K1-K7 from that run, every result held
+   to the plain route bit for bit (:func:`phase_transforms_refine_serving`).
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -247,6 +260,13 @@ KNN_ROWS, KNN_K, KNN_BATCH, KNN_SAMPLE = 100_000, 10, 1024, 256
 # refine rounds) and OPQ at the width of docs/performance.md:35.
 ANISO_THRESHOLD, ANISO_REFINE = 0.2, 5
 OPQ_ROWS, OPQ_ITERS, OPQ_PQ_ITERS = 200_000, 6, 3
+# Phase 17, the layer around the indexes: Kmeans (faiss's defaults but
+# k, niter and nredo: 256 points a centroid, so a 262,144-row sample),
+# PCA64 ahead of IVF1024 / PQ 8x256 (the faiss spec "PCA64,IVF1024,PQ8"),
+# RefineIndex at k_factor 4 over IVF1024 / PQ 8x256, ITQ to 64 bits, and
+# pipelined serving of 8 batches of 128 queries.
+KM_K, KM_ITERS, KM_REDO, PCA_OUT, ITQ_BITS, K_FACTOR = 1024, 20, 2, 64, 64, 4
+N_PIPE_QUERIES, PIPE_BATCH = 1024, 128
 SORT_KERNELS = ("Sort", "sort")  # the stable sorts of the top-k merges, by kernel name
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
@@ -448,7 +468,8 @@ def recording(mod_name: str, name: str):
 
 
 def make_data(device):
-    """Seeded Gaussian mixture on the card -> (corpus, queries, generator).
+    """Seeded Gaussian mixture on the card -> (corpus, queries, generator,
+    phase 17's ``N_PIPE_QUERIES`` queries).
 
     Each component's covariance is low-rank (rank LATENT) plus a small
     isotropic part, as embeddings tend to be; with isotropic components
@@ -464,7 +485,14 @@ def make_data(device):
     pts = (centres[lab]
            + torch.randn(n, LATENT, generator=g, device=device) @ basis
            + 0.1 * torch.randn(n, DIM, generator=g, device=device))
-    return pts[:N_CORPUS].contiguous(), pts[N_CORPUS:].contiguous(), g
+    # Phase 17's query batches: the same mixture, drawn from a generator of
+    # their own so that the draws of every earlier phase stay as they were.
+    gp = torch.Generator(device=device).manual_seed(SEED + 1)
+    lab = torch.randint(0, N_CLUSTERS, (N_PIPE_QUERIES,), generator=gp, device=device)
+    pipe = (centres[lab]
+            + torch.randn(N_PIPE_QUERIES, LATENT, generator=gp, device=device) @ basis
+            + 0.1 * torch.randn(N_PIPE_QUERIES, DIM, generator=gp, device=device))
+    return pts[:N_CORPUS].contiguous(), pts[N_CORPUS:].contiguous(), g, pipe.contiguous()
 
 
 def phase_device():
@@ -2576,6 +2604,306 @@ def phase_maintenance(smi, corpus, queries, gt):
                 wall=wall)
 
 
+def _bin_error(v, r):
+    """ITQ's binarization error a row, ``||sign(vR) - vR||^2 / n``."""
+    import torch
+
+    z = v @ r
+    return float(((torch.where(z >= 0, 1.0, -1.0) - z) ** 2).sum() / v.shape[0])
+
+
+def _transformed(train):
+    """The faiss spec ``PCA64,IVF1024,PQ8``: PCA fitted on the training
+    rows, then IVF-PQ trained on their projection."""
+    import vq_tpu_torch
+
+    pca = vq_tpu_torch.PCATransform(DIM, PCA_OUT).fit(train)
+    base = vq_tpu_torch.IVFPQIndex.train(pca.apply(train), NLIST, M, K, max_iters=10)
+    return vq_tpu_torch.TransformedIndex([pca], base)
+
+
+def phase_transforms_refine_serving(smi, corpus, queries, pipe_q, gt, main, ivf, flat):
+    """Phase 17, the layer around the indexes, through the public entry
+    points on the phase-4 mixture: ``Kmeans`` (k 1024, 20 iterations, 2
+    restarts, a 262,144-row sample: K2, then K1) with ``assign`` of the 1M
+    rows against ``ops.kmeans.assign`` and ``index.search(x, 1)``; the
+    faiss ``PCA64,IVF1024,PQ8`` as a ``TransformedIndex`` (train 200k, add
+    1M, nprobe 8 / 64: K1-K4, K7); ``RefineIndex`` over phase 6's
+    IVF1024 / PQ 8x256 with the ``"flat"`` f32, ``"sq8"`` and residual PQ
+    8x256 refiners (``train_pq``: K1, K4, K3) at k_factor 4, nprobe 8 /
+    64; ``itq_train`` to 64 bits ahead of a ``BinaryIndex`` beside a
+    random rotation's; ``BatchPipeline`` / ``pipelined_search`` of 8
+    batches of 128 queries over phase 7's IVF-Flat (K6), the sq8 refine
+    index (K7) and phase 4's ``PQIndex`` (K5) against the per-batch loop,
+    and a stale pipeline after ``rebalance()``; ``load_index`` (and
+    ``Kmeans.load``) round trips of every new kind under ``build/``.
+    Launch counts read from the run; training, codes and searches held bit
+    for bit to the plain route on the card; recall@10 against the exact
+    ground truth; CUDA-event times and profiler lines."""
+    import os
+    import shutil
+
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.ops.kmeans import assign as kmeans_assign
+
+    train = corpus[:N_IVF_TRAIN]
+    by_path, wall, t, recall = {}, {}, {}, {}
+
+    def counted(name, fn):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        by_path[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        return res
+
+    reset_counts()
+    # Kmeans, and its first restart alone (what the plain route replays).
+    km = vq_tpu_torch.Kmeans(DIM, KM_K, niter=KM_ITERS, nredo=KM_REDO, seed=SEED)
+    counted("kmeans train", lambda: km.train(corpus))
+    km0 = vq_tpu_torch.Kmeans(DIM, KM_K, niter=KM_ITERS, nredo=1, seed=SEED)
+    km0.train(corpus)
+    dists, labels = counted("kmeans assign", lambda: km.assign(corpus))
+    cent = km.index
+    nn = counted("kmeans index search", lambda: torch.cat(
+        [cent.search(corpus[c:c + 131_072], 1)[0][:, 0] for c in range(0, N_CORPUS, 131_072)]))
+
+    # PCA64,IVF1024,PQ8.
+    tr = counted("pca64 train", lambda: _transformed(train))
+    counted("pca64 add", lambda: tr.add(corpus))
+    tr_out = {p: counted(f"pca64 nprobe={p}", lambda p=p: tr.search(queries, k=10, nprobe=p))
+              for p in NPROBES}
+
+    # RefineIndex over phase 6's trained IVF1024 / PQ 8x256.
+    base_ivf = ivf["index"]
+
+    def fresh_base():
+        return vq_tpu_torch.IVFPQIndex(base_ivf.coarse, base_ivf.pq)
+
+    refs = {"flat": vq_tpu_torch.RefineIndex(fresh_base(), "flat"),
+            "sq8": vq_tpu_torch.RefineIndex(fresh_base(), "sq8"),
+            "pq": counted("refine train_pq", lambda: vq_tpu_torch.RefineIndex.train_pq(
+                fresh_base(), train, M, K, max_iters=10, seed=SEED))}
+    for n, r in refs.items():
+        counted(f"refine {n} add", lambda r=r: r.add(corpus))
+    ref_out = {(n, p): counted(f"refine {n} nprobe={p}", lambda r=r, p=p: r.search(
+        queries, k=10, k_factor=K_FACTOR, nprobe=p)) for n, r in refs.items() for p in NPROBES}
+
+    # ITQ to 64 bits against a random rotation, each ahead of a BinaryIndex.
+    chain = counted("itq train", lambda: vq_tpu_torch.itq_train(corpus, ITQ_BITS, seed=SEED))
+    binaries = {"itq": vq_tpu_torch.TransformedIndex(chain, vq_tpu_torch.BinaryIndex(ITQ_BITS)),
+                "random rotation": vq_tpu_torch.TransformedIndex(
+                    [vq_tpu_torch.RotationTransform.random(DIM, seed=SEED, d_out=ITQ_BITS,
+                                                           device=corpus.device)],
+                    vq_tpu_torch.BinaryIndex(ITQ_BITS))}
+    bin_out = {}
+    for n, b in binaries.items():
+        counted(f"{n} binary add", lambda b=b: b.add(corpus))
+        bin_out[n] = counted(f"{n} binary search", lambda b=b: b.search(queries, k=10))
+
+    # Pipelines: 8 batches of 128 queries, against the per-batch loop.
+    qs = pipe_q.reshape(-1, PIPE_BATCH, DIM)
+    served = {"ivf-flat": (flat["indexes"]["flat_f32"], dict(nprobe=NPROBES[0])),
+              "refine sq8": (refs["sq8"], dict(nprobe=NPROBES[0], k_factor=K_FACTOR)),
+              "pq": (main["index"], {})}
+    pipes, pipe_out, loop_out, flat_out = {}, {}, {}, {}
+    for n, (idx, kw) in served.items():
+        pipes[n] = vq_tpu_torch.BatchPipeline(idx, k=10, **kw)
+        pipe_out[n] = counted(f"pipeline {n}", lambda n=n: pipes[n].search(qs))
+        loop_out[n] = counted(f"loop {n}", lambda idx=idx, kw=kw: [
+            idx.search(qs[b], 10, **kw) for b in range(qs.shape[0])])
+        flat_out[n] = counted(f"pipelined_search {n}", lambda idx=idx, n=n: vq_tpu_torch.pipelined_search(
+            idx, pipe_q, k=10, batch=PIPE_BATCH, pipeline=pipes[n]))
+
+    # Round trips of every new kind through load_index (Kmeans.load).
+    idm = vq_tpu_torch.IdMapIndex(vq_tpu_torch.PQIndex(main["pq"]))
+    off = 10 ** 12
+    counted("idmap add", lambda: idm.add_with_ids(corpus, torch.arange(N_CORPUS) + off))
+    idm_out = counted("idmap search", lambda: idm.search(queries, k=10))
+    log("layer", f"launches by call: {by_path}")
+    need = [("kmeans train", "lloyd_accumulate_fused"), ("kmeans train", "assign_fused"),
+            ("kmeans assign", "assign_fused"), ("pca64 train", "assign_fused"),
+            ("pca64 train", "lloyd_accumulate_fused"), ("pca64 train", "pq_lloyd_accumulate_fused"),
+            ("pca64 add", "assign_fused"), ("pca64 add", "pq_encode_fused"),
+            ("refine train_pq", "assign_fused"), ("refine train_pq", "pq_encode_fused"),
+            ("refine train_pq", "pq_lloyd_accumulate_fused"), ("refine flat add", "assign_fused"),
+            ("refine flat add", "pq_encode_fused"), ("idmap add", "pq_encode_fused")]
+    for name, kernel in need:
+        assert by_path[name].get(kernel, 0) > 0, f"{name}: {kernel} was not launched: {by_path[name]}"
+    assert by_path["refine pq add"].get("pq_encode_fused", 0) >= 2, by_path["refine pq add"]
+    for p in NPROBES:
+        assert by_path[f"pca64 nprobe={p}"].get("ivf_probe_adc_fused") == 1, by_path
+        for n in refs:
+            assert by_path[f"refine {n} nprobe={p}"].get("ivf_probe_adc_fused") == 1, (n, p, by_path)
+    nb = qs.shape[0]
+    for n, kernel in (("ivf-flat", "ivf_probe_matvec_fused"), ("refine sq8", "ivf_probe_adc_fused"),
+                      ("pq", "adc_scan_topk_fused")):
+        assert by_path[f"pipeline {n}"].get(kernel) == nb, (n, by_path[f"pipeline {n}"])
+    assert by_path["idmap search"].get("adc_scan_topk_fused") == 1, by_path["idmap search"]
+
+    # Checks on the card.
+    lab2, d2 = kmeans_assign(corpus, km.centroids)
+    assert torch.equal(lab2, labels) and torch.equal(d2, dists), "Kmeans.assign differs from assign"
+    flips, gap = _near_ties(corpus, km.centroids, nn, labels)
+    assert km0.obj == km.all_objs[0], (km0.obj, km.all_objs)
+    assert km.obj == min(km.all_objs) and len(km.all_objs) == KM_REDO
+    assert km.result.assignments.shape[0] == KM_K * 256, km.result.assignments.shape
+    for p, (ids, dist) in tr_out.items():
+        _check_search(f"pca64 nprobe={p}", ids, dist)
+        recall[f"PCA64,IVF1024,PQ8 nprobe={p}"] = _recall(ids, gt)
+    for (n, p), (ids, dist) in ref_out.items():
+        _check_search(f"refine {n} nprobe={p}", ids, dist)
+        recall[f"refine {n} nprobe={p}"] = _recall(ids, gt)
+    for p in NPROBES:
+        recall[f"base IVF1024,PQ8 nprobe={p}"] = ivf["recall"][(p, 0)]
+    for n, (ids, dist) in bin_out.items():
+        recall[f"{n} binary {ITQ_BITS} bits"] = _recall(ids, gt)
+    pca, rot = chain
+    v = pca.apply(corpus)
+    r0 = vq_tpu_torch.RotationTransform.random(ITQ_BITS, seed=SEED, device=corpus.device).matrix
+    err_itq, err_r0 = _bin_error(v, rot.matrix), _bin_error(v, r0)
+    assert err_itq < err_r0, (err_itq, err_r0)
+    assert torch.allclose(rot.matrix.T @ rot.matrix, torch.eye(ITQ_BITS, device=corpus.device),
+                          atol=1e-4)
+    for n in served:
+        ids, vals = pipe_out[n]
+        li = torch.stack([o[0] for o in loop_out[n]])
+        lv = torch.stack([o[1] for o in loop_out[n]])
+        assert torch.equal(ids, li) and torch.equal(vals, lv), f"pipeline {n} differs from the loop"
+        assert torch.equal(flat_out[n][0], ids.reshape(-1, 10)), f"pipelined_search {n}"
+    pos = main["index"].search(queries, k=10)[0]
+    assert torch.equal(idm_out[0], torch.where(pos >= 0, pos.long() + off, -1)), "idmap ids"
+
+    # The plain route on the same card.
+    with plain_route():
+        km_p = vq_tpu_torch.Kmeans(DIM, KM_K, niter=KM_ITERS, nredo=1, seed=SEED)
+        km_p.train(corpus)
+        tr_p = _transformed(train)
+        tr_p.add(corpus)
+        want_tr = {p: tr.search(queries, k=10, nprobe=p) for p in NPROBES}
+        base_p = fresh_base()
+        base_p.add(corpus)
+        ref_p = vq_tpu_torch.RefineIndex.train_pq(fresh_base(), train, M, K, max_iters=10,
+                                                  seed=SEED)
+        res_codes_p = ref_p.refine_pq.encode(
+            corpus - base_p.reconstruct(torch.arange(N_CORPUS, device=corpus.device)))
+        want_ref = {key: refs[key[0]].search(queries, k=10, k_factor=K_FACTOR, nprobe=key[1])
+                    for key in ref_out}
+        want_pipe = {n: pipes[n].search(qs) for n in served}
+    assert km_p.obj == km0.obj and torch.equal(km_p.centroids, km0.centroids), "Kmeans plain route"
+    assert torch.equal(tr_p.transforms[0]._components, tr.transforms[0]._components), "PCA"
+    _same_pool(tr.base, tr_p.base, "PCA64,IVF1024,PQ8 against the plain route")
+    assert torch.equal(tr_p.base.pq.codebooks, tr.base.pq.codebooks), "PCA64 PQ codebooks"
+    for p in NPROBES:
+        _parity(tr_out[p], want_tr[p], f"pca64 nprobe={p}")
+    for n, r in refs.items():
+        _same_pool(r.base, base_p, f"refine {n} base against the plain route")
+    assert torch.equal(ref_p.refine_pq.codebooks, refs["pq"].refine_pq.codebooks), "train_pq"
+    assert torch.equal(res_codes_p, refs["pq"]._codes), "residual refine codes"
+    for key, got in ref_out.items():
+        _parity(got, want_ref[key], f"refine {key[0]} nprobe={key[1]}")
+    for n in served:
+        _parity((pipe_out[n][0].reshape(-1, 10), pipe_out[n][1].reshape(-1, 10)),
+                (want_pipe[n][0].reshape(-1, 10), want_pipe[n][1].reshape(-1, 10)), f"pipeline {n}")
+    del km_p, tr_p, base_p, ref_p, res_codes_p
+
+    # load_index / Kmeans.load round trips, under build/.
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_phase17")
+    os.makedirs(ckdir, exist_ok=True)
+    try:
+        back = vq_tpu_torch.Kmeans.load(km.save(os.path.join(ckdir, "kmeans")))
+        assert torch.equal(back.centroids, km.centroids) and back.all_objs == km.all_objs
+        for n, idx, kw in (("transformed", tr, dict(nprobe=NPROBES[0])),
+                           ("refine", refs["pq"], dict(nprobe=NPROBES[0], k_factor=K_FACTOR)),
+                           ("idmap", idm, {})):
+            loaded = vq_tpu_torch.load_index(idx.save(os.path.join(ckdir, n)))
+            assert type(loaded) is type(idx), n
+            got, want = loaded.search(queries, 10, **kw), idx.search(queries, 10, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"{n} round trip"
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    log("layer", f"Kmeans(k={KM_K}, niter={KM_ITERS}, nredo={KM_REDO}) on a {KM_K * 256}-row "
+        f"sample of 1M: objective by restart {km.all_objs}, kept {km.obj!r}, train "
+        f"{wall['kmeans train']:.1f} ms wall; assign of 1M {wall['kmeans assign']:.1f} ms equals "
+        f"ops.kmeans.assign; index.search(x, 1) of 1M equals the labels but {flips} float64 near "
+        f"ties (max gap {gap:.3g}); restart 0 equals the plain route bit for bit | {smi}")
+    log("layer", f"PCA64,IVF1024,PQ8 ({tr!r}): train {wall['pca64 train']:.1f} ms, add 1M "
+        f"{wall['pca64 add']:.1f} ms wall; PCA, lists, codes and searches equal the plain route")
+    log("layer", "RefineIndex over IVF1024,PQ8 (phase 6's trained parts), k_factor "
+        f"{K_FACTOR}: train_pq {wall['refine train_pq']:.1f} ms, adds "
+        + ", ".join(f"{n} {wall[f'refine {n} add']:.1f} ms" for n in refs)
+        + " wall; bases, residual codebooks and codes, and searches equal the plain route")
+    log("layer", f"ITQ to {ITQ_BITS} bits on 1M rows: {wall['itq train']:.1f} ms wall, binarization "
+        f"error a row {err_itq:.6g} against its start rotation's {err_r0:.6g}; binary searches "
+        + ", ".join(f"{n} {wall[f'{n} binary search']:.1f} ms" for n in binaries))
+    log("layer", "pipelines over 8 batches of 128 queries equal the per-batch loop and "
+        "pipelined_search bit for bit, and the plain route; idmap ids are the PQ search's plus "
+        f"{off}; load_index round trips of transformed_index, refine_index and idmap_index and "
+        "Kmeans.load search the same bits")
+    log("layer", "recall@10 " + ", ".join(f"{n}: {v:.4f}" for n, v in recall.items()))
+
+    # Times by CUDA events.
+    _, t["kmeans train"] = cuda_once(lambda: vq_tpu_torch.Kmeans(
+        DIM, KM_K, niter=KM_ITERS, nredo=KM_REDO, seed=SEED).train(corpus))
+    log("time", f"Kmeans(k={KM_K}, niter={KM_ITERS}, nredo={KM_REDO}) train: "
+        f"{t['kmeans train']:.4f} ms | {smi}")
+    timed = {f"PCA64,IVF1024,PQ8 nprobe={p}": (lambda p=p: tr.search(queries, k=10, nprobe=p))
+             for p in NPROBES}
+    timed.update({f"refine {n} nprobe={p}": (lambda r=r, p=p: r.search(
+        queries, k=10, k_factor=K_FACTOR, nprobe=p)) for n, r in refs.items() for p in NPROBES})
+    timed.update({f"{n} binary search": (lambda b=b: b.search(queries, k=10))
+                  for n, b in binaries.items()})
+    for name, fn in timed.items():
+        t[name] = cuda_ms(fn, 5)
+        rec = recall.get(name) or recall.get(name.replace("search", f"{ITQ_BITS} bits"))
+        log("time", f"{name}: {t[name]:.4f} ms" + ("" if rec is None else f"; recall@10 {rec:.4f}")
+            + f" | {smi}")
+    nq = pipe_q.shape[0]
+    for n, (idx, kw) in served.items():
+        ms_pipe = cuda_ms(lambda n=n: pipes[n].search(qs), 5)
+        ms_loop = cuda_ms(lambda idx=idx, kw=kw: [idx.search(qs[b], 10, **kw) for b in range(nb)], 5)
+        t[f"pipeline {n}"], t[f"loop {n}"] = ms_pipe, ms_loop
+        log("time", f"{n}: pipeline of {nb} x {PIPE_BATCH} queries {ms_pipe:.4f} ms "
+            f"({nq / ms_pipe * 1e3:.0f} QPS), per-batch loop {ms_loop:.4f} ms "
+            f"({nq / ms_loop * 1e3:.0f} QPS) | {smi}")
+        profile_line(smi, f"pipeline {n} ({nb} x {PIPE_BATCH} queries)", lambda n=n: pipes[n].search(qs),
+                     SORT_KERNELS)
+        profile_line(smi, f"per-batch loop {n} ({nb} x {PIPE_BATCH} queries)",
+                     lambda idx=idx, kw=kw: [idx.search(qs[b], 10, **kw) for b in range(nb)],
+                     SORT_KERNELS)
+    profile_line(smi, f"Kmeans(k={KM_K}) train", lambda: vq_tpu_torch.Kmeans(
+        DIM, KM_K, niter=KM_ITERS, nredo=KM_REDO, seed=SEED).train(corpus))
+    profile_line(smi, f"refine flat search nprobe={NPROBES[0]}", lambda: refs["flat"].search(
+        queries, k=10, k_factor=K_FACTOR, nprobe=NPROBES[0]), SORT_KERNELS)
+    profile_line(smi, f"itq_train to {ITQ_BITS} bits, 1M rows",
+                 lambda: vq_tpu_torch.itq_train(corpus, ITQ_BITS, seed=SEED))
+
+    # A stale pipeline after rebalance() (phase 7's IVF-Flat, used by no later phase).
+    stale = pipes["ivf-flat"]
+    info = counted("ivf-flat rebalance", served["ivf-flat"][0].rebalance)
+    try:
+        stale.search(qs)
+    except vq_tpu_torch.InvalidData:
+        log("layer", f"after rebalance() ({info}) the IVF-Flat pipeline raised InvalidData, as "
+            "it must: the pool changed in place")
+    else:
+        raise AssertionError("a stale pipeline served after rebalance()")
+    # The path's launches: the counted calls above, not the comparisons'.
+    launches = {}
+    for calls in by_path.values():
+        for kernel, n in calls.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    log("layer", f"launches in phase 17: {launches}")
+    return dict(launches=launches, by_path=by_path, recall=recall, t=t, wall=wall,
+                objs=km.all_objs, bin_error=(err_itq, err_r0))
+
+
 def eval_fields(key, t_eval, bounds, rows):
     """Extra fields of the K3 / K4 rows: their time, plain time and bound
     at the eval harness's shape."""
@@ -2650,7 +2978,7 @@ def main() -> None:
 
     smi = phase_device()
     build_s = phase_build()
-    corpus, queries, g = make_data("cuda")
+    corpus, queries, g, pipe_q = make_data("cuda")
     log("data", f"Gaussian mixture on the card: corpus {tuple(corpus.shape)}, "
         f"queries {tuple(queries.shape)}, {N_CLUSTERS} clusters of rank-{LATENT} "
         f"covariance, seed {SEED}")
@@ -2683,6 +3011,9 @@ def main() -> None:
     k8_range = phase_flat_serving(smi, corpus, queries, main_res, rqres)
     mo = phase_mips_opq(smi, corpus, queries)
     mt = phase_maintenance(smi, corpus, queries, main_res["gt"])
+    torch.cuda.empty_cache()
+    lr = phase_transforms_refine_serving(smi, corpus, queries, pipe_q, main_res["gt"], main_res,
+                                         ivf, flat)
     log("time", f"kernel build {build_s:.2f} s | {smi}")
 
     launches = dict(main_res["launches"])
@@ -2716,6 +3047,13 @@ def main() -> None:
                 "rq": rl["lloyd_accumulate_fused"], **mips_opq("lloyd_accumulate_fused"),
                 "maintenance": ml["lloyd_accumulate_fused"]}
     k6_paths = {"ivf_flat": fl["ivf_probe_matvec_fused"], "maintenance": ml["ivf_probe_matvec_fused"]}
+    ll = lr["launches"]  # phase 17's run
+    layer = "transforms_refine_serving"
+    for paths, kernel in ((k1_paths, "assign_fused"), (k2_paths, "lloyd_accumulate_fused"),
+                          (k3_paths, "pq_lloyd_accumulate_fused"),
+                          (k4_paths, "pq_encode_fused[highest]"), (k5_paths, "adc_scan_topk_fused"),
+                          (k6_paths, "ivf_probe_matvec_fused"), (k7_paths, "ivf_probe_adc_fused")):
+        paths[layer] = ll.get(kernel, 0)
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     e_m, e_k, e_s = PQ_EVAL
     e_ops = 2.0 * e_m * e_k * e_s

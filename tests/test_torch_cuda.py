@@ -36,6 +36,14 @@ own order), searches at separated ranks within 1e-2; ``range_search``
 through K6 / K7 bit for bit against the plain route after a remove and
 a merge; ``IVFBinaryIndex`` Hamming searches and ranges equal to the
 CPU's, ties included, reranked values within 1e-3.
+The layer around the indexes: warm-started ``Kmeans`` centroids within
+1e-4 of the CPU's, labels equal; PCA mean within 1e-5, eigenvalues within
+1e-4 of the largest, components within 1e-4 up to sign, ``apply`` /
+``reverse`` from one state within 1e-5, ITQ's rotation from one start
+within 1e-4; ``RefineIndex`` codes exact (residual PQ on >= 99.9% of
+the rows) and searches at separated ranks within 1e-3 (1e-2 residual);
+``BatchPipeline`` bit for bit one search a batch, and stale after a
+rebalance; checkpoints of the new kinds searched the same bits.
 """
 
 import numpy as np
@@ -1529,3 +1537,175 @@ def test_ivf_binary_on_the_card_equals_the_cpu(card):
                       on_cpu.search(q.cpu(), k=5, nprobe=8, rerank=200))
     got, want = on_card.range_search(q, 6.0, nprobe=8), on_cpu.range_search(q.cpu(), 6.0, nprobe=8)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# Kmeans, the transforms, RefineIndex, load_index / IdMapIndex and
+# BatchPipeline on the card: each equal to the same entry point on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _gapped(card, n=20_000, d=32):
+    """Rows with a well-gapped spectrum (variances 16 * 0.7^j, j < 12,
+    then a 1e-4 floor) along a random basis, so PCA's components are
+    determined up to sign."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, _ = torch.linalg.qr(torch.randn(d, d, generator=g, dtype=torch.float64))
+    sd = torch.cat([4 * 0.7 ** (torch.arange(12, dtype=torch.float64) / 2),
+                    torch.full((d - 12,), 1e-2, dtype=torch.float64)])
+    z = torch.randn(n, d, generator=g, dtype=torch.float64) * sd
+    return (z @ q.T + 2.0).to(torch.float32).to(card)
+
+
+def test_kmeans_on_the_card_equals_the_cpu(card):
+    """Warm-started Kmeans (K2 an iteration, K1 at the end): centroids
+    within 1e-4, the objective within 1e-5 relative, labels equal (the
+    blobs' distances are far apart); a seeded run the same bits twice."""
+    import vq_tpu_torch
+
+    x, _ = _flat_data(card)
+    init = x[:64].clone()
+    kw = dict(niter=6, max_points_per_centroid=0)
+    on_card, on_cpu = vq_tpu_torch.Kmeans(32, 64, **kw), vq_tpu_torch.Kmeans(32, 64, **kw)
+    before = ck.lloyd_accumulate_fused.launches, ck.assign_fused.launches
+    obj = on_card.train(x, init_centroids=init)
+    assert ck.lloyd_accumulate_fused.launches > before[0] and ck.assign_fused.launches > before[1]
+    assert obj == pytest.approx(on_cpu.train(x.cpu(), init_centroids=init.cpu()), rel=1e-5)
+    assert torch.allclose(on_card.centroids.cpu(), on_cpu.centroids, rtol=1e-4, atol=1e-4)
+    _, lab = on_card.assign(x)
+    _, want = on_cpu.assign(x.cpu())
+    assert lab.device == x.device and torch.equal(lab.cpu(), want)
+    ids, _ = on_card.index.search(x[:100], 1)
+    assert torch.equal(ids[:, 0], lab[:100])
+    a = vq_tpu_torch.Kmeans(32, 64, niter=5, nredo=2, seed=4, max_points_per_centroid=100)
+    b = vq_tpu_torch.Kmeans(32, 64, niter=5, nredo=2, seed=4, max_points_per_centroid=100)
+    assert a.train(x) == b.train(x) and torch.equal(a.centroids, b.centroids)
+
+
+def test_transforms_on_the_card_equal_the_cpu(card):
+    """PCA fitted on the card: mean within 1e-5, eigenvalues within 1e-4
+    of the largest, components within 1e-4 up to sign (cuSOLVER and
+    LAPACK choose their own signs); apply / reverse from one state within
+    1e-5; ITQ's alternation from one start within 1e-4; a seeded rotation
+    orthonormal."""
+    import vq_tpu_torch
+    import vq_tpu_torch.transforms as ttr
+    from vq_tpu_torch.convert import from_state, state_of
+
+    x = _gapped(card)
+    on_card = vq_tpu_torch.PCATransform(32, 10).fit(x)
+    on_cpu = vq_tpu_torch.PCATransform(32, 10).fit(x.cpu())
+    assert torch.allclose(on_card._mean.cpu(), on_cpu._mean, rtol=1e-5, atol=1e-5)
+    w = on_cpu.explained_variance
+    assert torch.allclose(on_card.explained_variance.cpu(), w, rtol=0, atol=1e-4 * float(w[0]))
+    cc, cw = on_card._components.cpu(), on_cpu._components
+    signs = torch.sign((cc * cw).sum(0))
+    assert torch.allclose(cc * signs, cw, rtol=0, atol=1e-4)
+    carried = from_state(*state_of(on_cpu), device=card)
+    y = carried.apply(x[:500])
+    assert y.device == x.device
+    assert torch.allclose(y.cpu(), on_cpu.apply(x[:500].cpu()), rtol=1e-5, atol=1e-5)
+    assert torch.allclose(carried.reverse(y).cpu(), on_cpu.reverse(y.cpu()), rtol=1e-5, atol=1e-5)
+    v = on_cpu.apply(x[:4000].cpu())
+    r0 = vq_tpu_torch.RotationTransform.random(10, seed=1, device="cpu").matrix
+    got = ttr._itq_rotation(v.to(card), r0.to(card), 50)
+    assert torch.allclose(got.cpu(), ttr._itq_rotation(v, r0, 50), rtol=0, atol=1e-4)
+    r = vq_tpu_torch.RotationTransform.random(32, seed=2, device=card).matrix
+    assert r.device == x.device
+    assert torch.allclose(r.T @ r, torch.eye(32, device=card), atol=1e-5)
+    chain = vq_tpu_torch.itq_train(x, 16, seed=1)
+    assert all(t.device == x.device for t in chain)
+
+
+def _refine_pair(card, refiner, x, xs):
+    """The same RefineIndex over an IVF-PQ base on the card and on the CPU
+    (numpy coarse and codebooks drawn from ``xs``), both filled with ``x``."""
+    import vq_tpu_torch as t
+
+    rng = np.random.default_rng(8)
+    coarse = xs[rng.choice(len(xs), 32, replace=False)]
+    pq_cb = rng.normal(0, 0.7, (4, 64, 8)).astype(np.float32)
+    ref_cb = rng.normal(0, 0.2, (8, 32, 4)).astype(np.float32)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        base = t.IVFPQIndex(coarse, t.ProductQuantizer(codebooks=pq_cb, device=dev))
+        r = t.ProductQuantizer(codebooks=ref_cb, device=dev) if refiner == "pq" else refiner
+        idx = t.RefineIndex(base, r)
+        idx.add(x.to(dev))
+        out.append(idx)
+    return out
+
+
+@pytest.mark.parametrize("refiner", ["flat", "sq8", "pq"])
+def test_refine_index_on_the_card_equals_the_cpu(card, refiner):
+    """RefineIndex over IVF-PQ (K1 / K4 on add, K7 on search): flat and
+    SQ8 codes exact, residual PQ codes on >= 99.9% of the rows; searches
+    equal the CPU's at separated ranks (values within 1e-3); the card's
+    search equal, bit for bit, to its own _search_core."""
+    x, q = _flat_data(card)
+    on_card, on_cpu = _refine_pair(card, refiner, x, x.cpu().numpy())
+    got, want = on_card._codes.cpu(), on_cpu._codes
+    if refiner == "pq":
+        assert (got == want).all(-1).float().mean() >= 0.999
+    else:
+        assert torch.equal(got, want)
+    before = ck.ivf_probe_adc_fused.launches
+    res = on_card.search(q, k=10, k_factor=4, nprobe=6)
+    assert ck.ivf_probe_adc_fused.launches == before + 1
+    _separated_parity(res, on_cpu.search(q.cpu(), k=10, k_factor=4, nprobe=6),
+                      atol=1e-2 if refiner == "pq" else 1e-3)
+    fn, arrays = on_card._search_core(10, k_factor=4, nprobe=6)
+    again = fn(q, *arrays)
+    assert torch.equal(again[0], res[0]) and torch.equal(again[1], res[1])
+
+
+def test_pipeline_on_the_card_equals_per_batch_and_goes_stale(card):
+    """BatchPipeline over IVF-Flat (K6) and a refine index (K7): each
+    batch bit for bit one search; a stale pipeline raises after
+    rebalance()."""
+    import vq_tpu_torch as t
+
+    x, q = _flat_data(card)
+    xs = x.cpu().numpy()
+    ivf = t.IVFFlatIndex(xs[np.random.default_rng(9).choice(len(xs), 32, replace=False)],
+                         device=card)
+    ivf.add(x)
+    ref, _ = _refine_pair(card, "sq8", x, xs)
+    qs = torch.stack([q, q + 0.01, q - 0.01])
+    for idx, kw in ((ivf, dict(nprobe=6)), (ref, dict(nprobe=6, k_factor=4))):
+        ids, vals = t.BatchPipeline(idx, k=10, **kw).search(qs)
+        assert ids.device == x.device
+        for b in range(3):
+            want = idx.search(qs[b], 10, **kw)
+            assert torch.equal(ids[b], want[0]) and torch.equal(vals[b], want[1])
+        flat_ids, _ = t.pipelined_search(idx, qs.reshape(-1, 32), k=10, batch=40, **kw)
+        assert torch.equal(flat_ids.reshape(3, 40, 10), ids)
+    pipe = t.BatchPipeline(ivf, k=10, nprobe=6)
+    assert ivf.rebalance(target_max=600)["split"] > 0
+    with pytest.raises(t.InvalidData):
+        pipe.search(qs)
+
+
+def test_new_kinds_round_trip_on_the_card(card, tmp_path):
+    """load_index of a TransformedIndex, RefineIndex and IdMapIndex saved
+    on the card, and Kmeans.load: the same search (or centroids) on the
+    card, bit for bit."""
+    import vq_tpu_torch as t
+
+    x, q = _flat_data(card)
+    xs = x.cpu().numpy()
+    tr = t.TransformedIndex([t.PCATransform(32, 16).fit(x)], t.FlatIndex(16, device=card))
+    tr.add(x)
+    ref, _ = _refine_pair(card, "flat", x, xs)
+    idm = t.IdMapIndex(t.FlatIndex(32, device=card))
+    idm.add_with_ids(x, np.arange(len(xs), dtype=np.int64) + 2**35)
+    for name, idx, kw in (("tr", tr, {}), ("ref", ref, dict(nprobe=6)), ("idm", idm, {})):
+        back = t.load_index(idx.save(str(tmp_path / name)), device=card)
+        got, want = back.search(q, 10, **kw), idx.search(q, 10, **kw)
+        assert got[0].device == x.device
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+    assert int(idm.search(q[:1], 1)[0][0, 0]) == 2**35  # q[0] is near row 0
+    km = t.Kmeans(32, 16, niter=3, seed=1)
+    km.train(x)
+    back = t.Kmeans.load(km.save(str(tmp_path / "km")), device=card)
+    assert torch.equal(back.centroids, km.centroids)

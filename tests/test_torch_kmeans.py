@@ -22,6 +22,11 @@ Tolerances:
   rounding of ||x||^2, far larger than the distance itself);
 * seeded ``lloyd``, whose random streams differ by design (torch cannot
   replay threefry): inertia within 5%.
+
+The weighted tests assert that every cluster's weight sum is at least 1,
+where the reference's ``max(Σw, 1)`` divisor is the port's ``Σw``; below
+1 the two split (``ROADMAP.md``, R6), as
+``test_lloyd_light_cluster_divides_by_its_weight_R6`` shows.
 """
 
 import jax.numpy as jnp
@@ -266,6 +271,14 @@ def _clusters(seed, n=1200, k=8, d=6, spread=0.3):
     return x.astype(np.float32), init.astype(np.float32)
 
 
+def assert_no_light_cluster(assignments, weights, k):
+    """Every cluster's weight sum >= 1, where the reference's
+    ``max(Σw, 1)`` clamp (R6) is a no-op, so a weighted parity test
+    compares like with like."""
+    sums = np.bincount(np.asarray(assignments), weights=weights, minlength=k)
+    assert (sums >= 1.0).all(), sums
+
+
 @pytest.mark.parametrize("option", ["plain", "spherical", "weighted", "weighted_spherical"])
 def test_lloyd_warm_start_matches_jax(option):
     x, init = _clusters(40)
@@ -278,6 +291,8 @@ def test_lloyd_warm_start_matches_jax(option):
         kw["weights"] = np.random.default_rng(41).uniform(0.5, 2.0, x.shape[0]).astype(np.float32)
     want = jkm.lloyd(x, 8, max_iters=10, init_centroids=init, use_pallas=False, **kw)
     got = tkm.lloyd(x, 8, max_iters=10, init_centroids=init, **kw)
+    if "weights" in kw:
+        assert_no_light_cluster(want.assignments, kw["weights"], 8)
     np.testing.assert_array_equal(got.assignments.numpy(), np.asarray(want.assignments))
     np.testing.assert_allclose(got.centroids.numpy(), np.asarray(want.centroids), rtol=1e-5, atol=1e-5)
     # Each distance is ||x||^2 + (||c||^2 - 2 x.c): its fp32 error scales
@@ -299,8 +314,32 @@ def test_lloyd_seeded_inertia_matches_jax(init, weighted):
         kw["weights"] = np.random.default_rng(43).uniform(0.5, 2.0, x.shape[0]).astype(np.float32)
     want = jkm.lloyd(x, 16, max_iters=20, seed=3, init=init, use_pallas=False, **kw)
     got = tkm.lloyd(x, 16, max_iters=20, seed=3, init=init, **kw)
+    if weighted:
+        assert_no_light_cluster(want.assignments, kw["weights"], 16)
+        assert_no_light_cluster(got.assignments.numpy(), kw["weights"], 16)
     assert got.centroids.shape == (16, 8) and got.assignments.shape == (1500,)
     assert abs(float(got.inertia) - float(want.inertia)) <= 0.05 * float(want.inertia)
+
+
+def test_lloyd_light_cluster_divides_by_its_weight_R6():
+    """R6: the reference divides the weighted sums by ``max(Σw, 1)``, so a
+    cluster whose weights sum below 1 is pulled toward the origin; the
+    port divides by ``Σw``. Rows 1..10 at weight 0.05 each (Σw = 0.5):
+    the reference's centroid is Σ w·x = 2.75, the port's the weighted mean
+    5.5, the reference's own sums over its own Σw."""
+    x = np.arange(1, 11, dtype=np.float32)[:, None]
+    w = np.full(10, 0.05, np.float32)
+    init = np.zeros((1, 1), np.float32)
+    want = jkm.lloyd(x, 1, max_iters=5, init_centroids=init, weights=w, use_pallas=False)
+    got = tkm.lloyd(x, 1, max_iters=5, init_centroids=init, weights=w)
+    sums, counts, _ = jkm._accumulate_dispatch(jnp.asarray(x), jnp.asarray(init), 16, False,
+                                               jnp.asarray(w))
+    assert float(counts[0]) == pytest.approx(0.5)
+    assert float(want.centroids[0, 0]) == pytest.approx(2.75, rel=1e-6)  # the clamp
+    assert float(got.centroids[0, 0]) == pytest.approx(5.5, rel=1e-6)
+    assert float(got.centroids[0, 0]) == pytest.approx(float(sums[0, 0]) / float(counts[0]),
+                                                       rel=1e-6)
+    np.testing.assert_array_equal(got.assignments.numpy(), np.asarray(want.assignments))
 
 
 def test_lloyd_seeded_is_deterministic():

@@ -28,7 +28,16 @@ then per-dimension SQ ranges, PQ or RQ codebooks on the residuals),
 ``add`` (coarse :func:`assign`, then the raw row or its SQ, PQ, RQ or
 packed sign code), probed ``search`` and ``range_search``, and their
 maintenance on the chunk pool (``remove_ids``, ``merge_from``,
-``rebalance``). Their kernels — assign, Lloyd accumulate, PQ Lloyd
+``rebalance``); the layer users put around those indexes —
+the faiss-style :class:`Kmeans` trainer, the vector transforms
+(:class:`PCATransform`, :class:`RotationTransform` with
+:func:`itq_train`, :class:`NormalizeTransform`,
+:class:`CenteringTransform`) ahead of any index in a
+:class:`TransformedIndex`, :class:`RefineIndex` (exact re-ranking from a
+flat, SQ8 or residual PQ code), :class:`IdMapIndex` and
+:func:`load_index`, and multi-batch serving (:class:`BatchPipeline`,
+:func:`pipelined_search`), which run the kernels below under new
+callers. Their kernels — assign, Lloyd accumulate, PQ Lloyd
 accumulate, PQ encode (exact, bf16 and bf16x3), the ADC scan with
 per-tile top-k, the IVF probe matvec, the IVF ADC probe and the dense ADC
 table sum — are CUDA C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built
@@ -68,6 +77,8 @@ from vq_tpu_torch.errors import (
     InvalidParameter,
     VqError,
 )
+from vq_tpu_torch.clustering import Kmeans
+from vq_tpu_torch.factory import IdMapIndex, load_index
 from vq_tpu_torch.ivf import IVFPQIndex
 from vq_tpu_torch.ivf_binary import IVFBinaryIndex
 from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
@@ -107,7 +118,18 @@ from vq_tpu_torch.ops.kmeans_anisotropic import (
 )
 from vq_tpu_torch.ops.knn import knn_graph
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
+from vq_tpu_torch.refine import RefineIndex
 from vq_tpu_torch.search import BinaryIndex, FlatIndex, PQIndex, RQIndex, SQIndex
+from vq_tpu_torch.serving import BatchPipeline, pipelined_search
+from vq_tpu_torch.transforms import (
+    CenteringTransform,
+    NormalizeTransform,
+    PCATransform,
+    RotationTransform,
+    TransformedIndex,
+    VectorTransform,
+    itq_train,
+)
 from vq_tpu_torch.utils.serialize import load, save
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -174,6 +196,19 @@ __all__ = [
     "lloyd_anisotropic",
     "anisotropic_assign",
     "anisotropic_eta",
+    "Kmeans",
+    "VectorTransform",
+    "PCATransform",
+    "RotationTransform",
+    "NormalizeTransform",
+    "CenteringTransform",
+    "TransformedIndex",
+    "itq_train",
+    "RefineIndex",
+    "IdMapIndex",
+    "load_index",
+    "BatchPipeline",
+    "pipelined_search",
     "default_device",
     "save",
     "load",

@@ -51,7 +51,26 @@ Kinds ported so far (config; arrays):
 * ``"ivfbinary_index"`` — :class:`IVFBinaryIndex` (``threshold``,
   ``max_list_size``, ``keep_corpus``, ``dim``; ``coarse``, ``packed``
   uint32 words, ``lists`` and ``corpus`` in id order, ``corpus`` with no
-  rows unless kept).
+  rows unless kept);
+* ``"kmeans_harness"`` — :class:`Kmeans` (``d``, ``k``, ``niter``,
+  ``nredo``, ``seed``, ``spherical``, ``init``,
+  ``max_points_per_centroid``, ``obj``, ``all_objs``; ``centroids`` when
+  trained);
+* the vector transforms, as a ``transformed_index`` holds them:
+  ``"center"`` — :class:`CenteringTransform` (``dim``; ``mean``),
+  ``"l2norm"`` — :class:`NormalizeTransform` (``dim``; none),
+  ``"rotation"`` — :class:`RotationTransform` (none; ``matrix``) and
+  ``"pca"`` — :class:`PCATransform` (``d_in``, ``d_out``, ``whiten``,
+  ``eps``; ``mean``, ``components``, ``eigvals``);
+* the wrappers, whose base index is a checkpoint of its own (named by
+  ``base_file`` in the saved config, passed to :func:`from_state` as
+  ``base``): ``"transformed_index"`` — :class:`TransformedIndex`
+  (``transforms``, a list of ``{"kind", "config"}``; transform ``i``'s
+  arrays as ``t<i>_<name>``), ``"refine_index"`` — :class:`RefineIndex`
+  (``kind``, ``metric``, ``store_dtype`` and, for ``sq8``, ``levels``
+  and ``sq_fitted``; ``codes``, bf16 as their uint16 bits, ``sq_mins``
+  / ``sq_maxs`` or ``refine_codebooks``) and ``"idmap_index"`` —
+  :class:`IdMapIndex` (none; ``ids`` int64).
 
 A JAX index carries across as, e.g., ``from_state("ivfflat_index",
 config, {"coarse": ..., "rows": ..., "lists": ...})``: the port's index
@@ -97,7 +116,12 @@ def _pool_flat(idx, name: str, empty: np.ndarray) -> np.ndarray:
 
 
 def state_of(obj) -> State:
-    """``(kind, config, arrays)`` of a port object, arrays as numpy."""
+    """``(kind, config, arrays)`` of a port object, arrays as numpy (a
+    wrapper's without its base)."""
+    from vq_tpu_torch.clustering import Kmeans, _kmeans_state
+    from vq_tpu_torch.factory import IdMapIndex
+    from vq_tpu_torch.refine import RefineIndex, _refine_state
+    from vq_tpu_torch.transforms import TransformedIndex, VectorTransform, _transformed_state
     from vq_tpu_torch.ivf import IVFPQIndex
     from vq_tpu_torch.ivf_binary import IVFBinaryIndex
     from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
@@ -110,6 +134,16 @@ def state_of(obj) -> State:
     from vq_tpu_torch.models.tsvq import TSVQ
     from vq_tpu_torch.search import BinaryIndex, FlatIndex, PQIndex, RQIndex, SQIndex
 
+    if isinstance(obj, Kmeans):
+        return ("kmeans_harness",) + _kmeans_state(obj)
+    if isinstance(obj, VectorTransform):
+        return obj._state()
+    if isinstance(obj, TransformedIndex):
+        return ("transformed_index",) + _transformed_state(obj)
+    if isinstance(obj, RefineIndex):
+        return ("refine_index",) + _refine_state(obj)
+    if isinstance(obj, IdMapIndex):
+        return "idmap_index", {}, {"ids": np.asarray(obj._ids, np.int64)}
     if isinstance(obj, FlatIndex):
         return "flat_index", {"dim": obj.dim, "metric": obj.metric, "storage": obj.storage}, {
             "rows": _np(obj._rows) if obj._rows is not None else np.zeros((0, obj.dim), np.float32),
@@ -465,7 +499,51 @@ def _tsvq_from(config, arrays, device):
     return TSVQ(distance=config["distance"], tree=tree)
 
 
+def _kmeans_from(config, arrays, device):
+    from vq_tpu_torch.clustering import _kmeans_from
+
+    return _kmeans_from(config, arrays, device)
+
+
+def _transform_from(kind):
+    def build(config, arrays, device):
+        from vq_tpu_torch.transforms import VectorTransform
+
+        return VectorTransform._from_state(kind, config, arrays, device)
+
+    return build
+
+
+def _transformed_from(config, arrays, device, base):
+    from vq_tpu_torch.transforms import _transformed_from
+
+    return _transformed_from(config, arrays, device, base)
+
+
+def _refine_from(config, arrays, device, base):
+    from vq_tpu_torch.refine import _refine_from
+
+    return _refine_from(config, arrays, device, base)
+
+
+def _idmap_from(config, arrays, device, base):
+    from vq_tpu_torch.factory import IdMapIndex
+
+    idx = IdMapIndex(base)
+    idx._set_ids(np.asarray(arrays["ids"], np.int64))
+    return idx
+
+
+# Kinds whose base index is a checkpoint of its own.
+_WRAPPERS = {
+    "transformed_index": _transformed_from,
+    "refine_index": _refine_from,
+    "idmap_index": _idmap_from,
+}
+
 _FROM_STATE = {
+    "kmeans_harness": _kmeans_from,
+    **{kind: _transform_from(kind) for kind in ("center", "l2norm", "rotation", "pca")},
     "bq": _bq_from,
     "tsvq": _tsvq_from,
     "pq": lambda config, arrays, device: _pq_from(arrays, config["distance"], device),
@@ -488,8 +566,13 @@ _FROM_STATE = {
 
 
 def from_state(kind: str, config: Dict[str, Any], arrays: Dict[str, Any],
-               device=None):
-    """Rebuild a port object from ``(kind, config, arrays)`` on ``device``."""
+               device=None, base=None):
+    """Rebuild a port object from ``(kind, config, arrays)`` on ``device``;
+    a wrapper kind takes its loaded base index as ``base``."""
+    if kind in _WRAPPERS:
+        if base is None:
+            raise InvalidData(f"a {kind} checkpoint needs its base index")
+        return _WRAPPERS[kind](config, arrays, resolve_device(device), base)
     if kind not in _FROM_STATE:
         raise InvalidData(f"unknown checkpoint kind {kind!r}")
     return _FROM_STATE[kind](config, arrays, resolve_device(device))

@@ -231,7 +231,8 @@ def lloyd(
     warm-starts instead and overrides ``init``. ``spherical=True``
     projects the centroids onto the unit sphere after every update.
     ``weights [n]`` (non-negative, at least k positive) make the updates
-    Σ w·x / Σ w and the inertia Σ w·d²; assignment is unchanged.
+    Σ w·x / Σ w (also where Σ w < 1, unlike the JAX package: R6) and the
+    inertia Σ w·d²; assignment is unchanged.
 
     >>> import numpy as np
     >>> pts = np.array([[0.], [0.1], [10.], [10.1]], np.float32)
@@ -273,7 +274,10 @@ def lloyd(
         else:
             ridx = _draw(cw, torch.rand(k, generator=g, device=dev) * cw[-1])
         nonempty = counts > 0
-        means = sums / counts.clamp_min(1.0)[:, None]
+        # Σ w·x / Σ w wherever Σ w > 0: the JAX package divides by max(Σ w, 1),
+        # which pulls a cluster whose weights sum below 1 toward the origin
+        # (ROADMAP.md, R6). Unweighted counts are whole rows, so unchanged.
+        means = sums / torch.where(nonempty, counts, 1.0)[:, None]
         new_c = torch.where(nonempty[:, None], means, data[ridx])
         if spherical:
             new_c = _normalize_rows(new_c)
@@ -323,7 +327,7 @@ def _pq_lloyd_fused(
     while any(c and i < max_iters for c, i in zip(changed, it)):
         sums, counts, _ = pq_lloyd_accumulate_fused(x, cb)
         nonempty = counts > 0
-        means = sums / counts.clamp_min(1.0)[..., None]
+        means = sums / torch.where(nonempty, counts, 1.0)[..., None]
         ridx = torch.zeros((m, k), dtype=torch.int64, device=dev)
         for i in range(m):
             if changed[i]:  # a frozen lane's stream does not advance

@@ -50,7 +50,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from vq_tpu_torch.convert import from_state
 from vq_tpu_torch.errors import (
     DimensionMismatch,
     EmptyInput,
@@ -71,7 +70,7 @@ from vq_tpu_torch.models.sq import PerDimScalarQuantizer
 from vq_tpu_torch.ops.cuda_kernels import adc_scan_topk_fused
 from vq_tpu_torch.ops.distance import COSINE_NORM_EPS, _PAIRWISE, Metric
 from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
-from vq_tpu_torch.utils.serialize import _from_npz, save
+from vq_tpu_torch.utils.serialize import load, save
 
 __all__ = ["FlatIndex", "PQIndex", "BinaryIndex", "SQIndex", "RQIndex"]
 
@@ -426,10 +425,7 @@ class FlatIndex:
 
 
 def _load(path: str, kind: str, device):
-    got, config, arrays = _from_npz(path)
-    if got != kind:
-        raise InvalidData(f"expected a {kind} checkpoint, got {got!r}")
-    return from_state(got, config, arrays, device=device)
+    return load(path, device, expect=kind)
 
 
 # ---------------------------------------------------------------------------
