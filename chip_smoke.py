@@ -176,6 +176,17 @@ Phases, one line each (any failure exits non-zero with no result line):
    ``load_index`` round trips, and a stale pipeline raising after
    ``rebalance()``: launch counts of K1-K7 from that run, every result held
    to the plain route bit for bit (:func:`phase_transforms_refine_serving`).
+18. the last single-device modules — ``GraphIndex.build`` of the 1M rows
+   at its defaults (IVF-assisted candidates: K1, K2, K6; each stage by CUDA
+   events, the regime warning if it fires), ``search(k=10)`` at beam 16 /
+   32 / 64 against the CPU's search of the same graph, the same build at
+   50k rows on the plain route bit for bit and K6 on the sweep's
+   operands, ``add`` / ``remove_ids`` of 10k rows; ``lloyd_stepped`` (k
+   1024, 200k rows, 20 iterations) resumed from its checkpoint at 10 bit
+   for bit; ``lloyd_minibatch`` (K2) and ``pq_minibatch_update`` (K3)
+   over one epoch of the 1M rows, against the plain route; seven
+   ``index_factory`` pipelines and ``tune`` over two
+   (:func:`phase_last_modules`).
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -267,6 +278,29 @@ OPQ_ROWS, OPQ_ITERS, OPQ_PQ_ITERS = 200_000, 6, 3
 # pipelined serving of 8 batches of 128 queries.
 KM_K, KM_ITERS, KM_REDO, PCA_OUT, ITQ_BITS, K_FACTOR = 1024, 20, 2, 64, 64, 4
 N_PIPE_QUERIES, PIPE_BATCH = 1024, 128
+# Phase 18, the last single-device modules. GraphIndex over the 1M rows at
+# its defaults (degree 32, alpha 1.2, exact_threshold 200,000: the
+# IVF-assisted candidates), searched at three beams and against the CPU
+# for GRAPH_CPU_QUERIES queries; its build on the plain route at
+# GRAPH_PLAIN_ROWS rows above GRAPH_PLAIN_THRESHOLD; an add and a remove of
+# GRAPH_EDIT rows. lloyd_stepped at k 1024 on the 200k training rows for
+# KS_ITERS iterations, resumed from a checkpoint at KS_CHECKPOINT;
+# lloyd_minibatch and pq_minibatch_update (k 1024; 8x256x16) over one
+# epoch of the 1M rows in batches of MB_BATCH; index_factory pipelines
+# (trained on the 200k rows, 1M added; HNSW32 builds over the 1M rows,
+# since adding 1M rows to a graph is 1M beam searches); tune to
+# TUNE_TARGET over two of them.
+GRAPH_DEGREE, GRAPH_EXACT_THRESHOLD = 32, 200_000  # GraphIndex.build's defaults
+GRAPH_BEAMS, GRAPH_CPU_QUERIES = (16, 32, 64), 8
+GRAPH_PLAIN_ROWS, GRAPH_PLAIN_THRESHOLD, GRAPH_EDIT = 50_000, 20_000, 10_000
+KS_ITERS, KS_CHECKPOINT, MB_K, MB_BATCH = 20, 10, 1024, 8192
+FACTORY_SPECS = ("IVF1024,Flat", "IVF1024,PQ8", "OPQ8,PQ8", "HNSW32", "LSH64", "BIVF1024",
+                 "IVF1024,PQ8,RFlat")
+FACTORY_PLAIN = ("IVF1024,PQ8,RFlat",)  # also built on the plain route (K1-K4, K7)
+TUNE_SPECS, TUNE_TARGET = ("IVF1024,Flat", "HNSW32"), 0.95
+# tune's grid for the IVF index: the default less nprobe = nlist, a full
+# scan whose [128, 1M x width] sort this phase need not hold.
+TUNE_IVF_GRID = {"nprobe": [1, 2, 4, 8, 16, 32, 64, 128]}
 SORT_KERNELS = ("Sort", "sort")  # the stable sorts of the top-k merges, by kernel name
 # The H100's published peaks (SXM, 700 W): HBM bytes/s, fp32 on the CUDA
 # cores and bf16 on the tensor cores, FLOP/s.
@@ -291,6 +325,9 @@ K7_STAGES = (("keys", "pair_key_kernel"),) + K6_STAGES[:-1] + (("sums", "ivf_pro
 KERNEL_CALLERS = (
     ("vq_tpu_torch.ops.kmeans", ("assign_fused", "lloyd_accumulate_fused",
                                  "pq_lloyd_accumulate_fused")),
+    ("vq_tpu_torch.ops.kmeans_stepped", ("assign_fused", "lloyd_accumulate_fused")),
+    ("vq_tpu_torch.ops.kmeans_stream", ("assign_fused", "lloyd_accumulate_fused",
+                                        "pq_lloyd_accumulate_fused")),
     ("vq_tpu_torch.models.pq", ("pq_encode_fused", "adc_scan_topk_fused", "adc_lookup_fused")),
     ("vq_tpu_torch.models.rq", ("assign_fused",)),
     ("vq_tpu_torch.search", ("adc_scan_topk_fused",)),
@@ -950,7 +987,9 @@ def phase_k2_stages(smi, corpus, kres):
             for _ in range(reps):
                 ck.lloyd_accumulate_fused(x2, c)
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        # (the vq_tpu_torch.* spans of utils.metrics.trace are ranges, not kernels)
+        evts = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("vq_tpu_torch.")]
         stages = stage_times(evts, calls=reps)
         total = sum(e.self_device_time_total for e in evts) / 1e3 / reps
         log("profile", f"K2 {tag}, device ms a call by stage: " + ", ".join(
@@ -994,7 +1033,9 @@ def phase_k3_stages(smi, corpus, res):
             for _ in range(reps):
                 ck.pq_lloyd_accumulate_fused(x, cb)
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        # (the vq_tpu_torch.* spans of utils.metrics.trace are ranges, not kernels)
+        evts = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("vq_tpu_torch.")]
         stages = stage_times(evts, K3_STAGES, reps)
         total = sum(e.self_device_time_total for e in evts) / 1e3 / reps
         log("profile", f"K3 {n} x {DIM} vs {M}x{K}x{s}, device ms a call by launch: " + ", ".join(
@@ -1152,7 +1193,9 @@ def phase_flat_timings(smi, queries, flat, k6_cases):
             for _ in range(reps):
                 ck.ivf_probe_matvec_fused(*args, **kw)
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        # (the vq_tpu_torch.* spans of utils.metrics.trace are ranges, not kernels)
+        evts = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("vq_tpu_torch.")]
         stages = stage_times(evts, K6_STAGES, reps)
         kernels = [e.time_range for e in prof.events() if e.device_type == cuda]
         busy = sum(e.self_device_time_total for e in evts) / 1e3 / reps
@@ -1600,8 +1643,9 @@ def profile_paths(smi, corpus, queries, main, prec, rqres, ivfpq, flat):
         profile_line(smi, name, fn)
 
 
-def profile_line(smi, name, fn, sort_keys=()):
-    """One call of ``fn`` once warm, then once under ``torch.profiler`` (up
+def profile_line(smi, name, fn, sort_keys=(), warm=True):
+    """One call of ``fn`` once warm (``warm=False``: no warm-up call), then
+    once under ``torch.profiler`` (up
     to three times, where it recorded no device activity): one
     ``[profile]`` line of wall time, device time, busy share, the three
     kernels that took most of it, K2's sums stage, K7's launches by stage
@@ -1611,7 +1655,8 @@ def profile_line(smi, name, fn, sort_keys=()):
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(3):  # the profiler now and then records no device activity: again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1619,7 +1664,9 @@ def profile_line(smi, name, fn, sort_keys=()):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        # (the vq_tpu_torch.* spans of utils.metrics.trace are ranges, not kernels)
+        evts = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("vq_tpu_torch.")]
         if evts:
             break
     dev = sum(e.self_device_time_total for e in evts) / 1e3
@@ -1961,7 +2008,9 @@ def phase_eval_timings(smi, checks):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = _eval_rows(mod, argv)
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages() if e.device_type == cuda]
+        # (the vq_tpu_torch.* spans of utils.metrics.trace are ranges, not kernels)
+        evts = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("vq_tpu_torch.")]
         dev = sum(e.self_device_time_total for e in evts) / 1e3
         top = sorted(evts, key=lambda e: -e.self_device_time_total)[:3]
         log("profile", f"eval_{name} main() {EVAL_ROWS} x {EVAL_DIM} --recall: wall {wall * 1e3:.1f} ms, "
@@ -2622,6 +2671,26 @@ def _transformed(train):
     return vq_tpu_torch.TransformedIndex([pca], base)
 
 
+def _counter(by_path, wall):
+    """``counted(name, fn)``: ``fn()``, its host wall (to a synchronize)
+    into ``wall[name]`` and the kernel launches it made into
+    ``by_path[name]``."""
+    import torch
+
+    def counted(name, fn):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        by_path[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        return res
+
+    return counted
+
+
 def phase_transforms_refine_serving(smi, corpus, queries, pipe_q, gt, main, ivf, flat):
     """Phase 17, the layer around the indexes, through the public entry
     points on the phase-4 mixture: ``Kmeans`` (k 1024, 20 iterations, 2
@@ -2650,18 +2719,7 @@ def phase_transforms_refine_serving(smi, corpus, queries, pipe_q, gt, main, ivf,
 
     train = corpus[:N_IVF_TRAIN]
     by_path, wall, t, recall = {}, {}, {}, {}
-
-    def counted(name, fn):
-        before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        wall[name] = (time.perf_counter() - t0) * 1e3
-        after = read_counts()
-        by_path[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
-        return res
-
+    counted = _counter(by_path, wall)
     reset_counts()
     # Kmeans, and its first restart alone (what the plain route replays).
     km = vq_tpu_torch.Kmeans(DIM, KM_K, niter=KM_ITERS, nredo=KM_REDO, seed=SEED)
@@ -2904,6 +2962,301 @@ def phase_transforms_refine_serving(smi, corpus, queries, pipe_q, gt, main, ivf,
                 objs=km.all_objs, bin_error=(err_itq, err_r0))
 
 
+def _graph_phase(smi, corpus, queries, gt, counted, recall, t):
+    """Phase 18's graph: the 1M build (stages by CUDA events), searches,
+    the CPU check, the plain-route build, add and remove."""
+    import warnings
+
+    import torch
+
+    import vq_tpu_torch
+    import vq_tpu_torch.graph as graph_mod
+    from vq_tpu_torch.convert import from_state, state_of
+    from vq_tpu_torch.ops import cuda_kernels as ck
+
+    dev = corpus.device
+    stages = {}
+
+    def staged(name, fn):
+        def run(*a, **kw):
+            out, ms = cuda_once(lambda: fn(*a, **kw))
+            stages[name] = stages.get(name, 0.0) + ms
+            return out
+        return run
+
+    saved = {n: getattr(graph_mod, n) for n in ("_candidates", "_prune_all", "_reverse_edges")}
+    for n, fn in saved.items():
+        setattr(graph_mod, n, staged(n.strip("_"), fn))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            g = counted("graph build", lambda: vq_tpu_torch.GraphIndex.build(
+                corpus, degree=GRAPH_DEGREE, exact_threshold=GRAPH_EXACT_THRESHOLD))
+    finally:
+        for n, fn in saved.items():
+            setattr(graph_mod, n, fn)
+    assert tuple(g.graph.shape) == (N_CORPUS, 2 * GRAPH_DEGREE)
+    assert g.sample.shape[0] == min(4096, N_CORPUS)
+    assert bool(((g.graph >= -1) & (g.graph < N_CORPUS)).all())
+    rows = torch.arange(N_CORPUS, device=dev)[:, None]
+    assert not bool((g.graph[:, :GRAPH_DEGREE] == rows).any()), "a self loop among the forward edges"
+    warned = [str(w.message) for w in caught if "cluster concentration" in str(w.message)]
+    log("graph", f"GraphIndex.build of {N_CORPUS} x {DIM} (degree {GRAPH_DEGREE}, alpha 1.2, "
+        f"exact_threshold {GRAPH_EXACT_THRESHOLD}: IVF-assisted candidates): {t['wall']['graph build']:.1f} ms host wall; stages by CUDA events "
+        + ", ".join(f"{n} {ms:.1f} ms" for n, ms in stages.items())
+        + f"; regime warning: {warned[0] if warned else 'none'} | {smi}")
+    out = {}
+    for beam in GRAPH_BEAMS:
+        out[beam] = counted(f"graph search beam={beam}",
+                            lambda beam=beam: g.search(queries, k=10, beam=beam))
+        _check_search(f"graph search beam={beam}", *out[beam])
+        recall[f"graph beam={beam}"] = _recall(out[beam][0], gt)
+        t[f"graph beam={beam}"] = cuda_ms(lambda beam=beam: g.search(queries, k=10, beam=beam), 3)
+    log("graph", "search k=10 of 128 queries: " + ", ".join(
+        f"beam {b} recall@10 {recall[f'graph beam={b}']:.4f} in {t[f'graph beam={b}']:.3f} ms"
+        for b in GRAPH_BEAMS) + f" (CUDA events) | {smi}")
+
+    # The same graph searched on the CPU.
+    kind, config, arrays = state_of(g)
+    cpu = from_state(kind, config, arrays, device="cpu")
+    qn = queries[:GRAPH_CPU_QUERIES]
+    beam = GRAPH_BEAMS[-1]
+    held = _apart_parity((out[beam][0][:GRAPH_CPU_QUERIES], out[beam][1][:GRAPH_CPU_QUERIES]),
+                         cpu.search(qn.cpu(), k=10, beam=beam), FLAT_ATOL["squared_euclidean"],
+                         "graph search against the CPU")
+    del cpu, arrays
+    log("graph", f"search k=10 at beam {beam} on the card equals the same graph searched on the "
+        f"CPU for {GRAPH_CPU_QUERIES} queries ({held} ranks held by id, values within "
+        f"{FLAT_ATOL['squared_euclidean']})")
+
+    # The plain route: a build above its exact_threshold, kernel and plain.
+    sub = corpus[:GRAPH_PLAIN_ROWS]
+    with recording("vq_tpu_torch.ivf_flat", "ivf_probe_matvec_fused") as k6_calls:
+        g_k = vq_tpu_torch.GraphIndex.build(sub, exact_threshold=GRAPH_PLAIN_THRESHOLD)
+    with plain_route():
+        g_p, plain_ms = cuda_once(lambda: vq_tpu_torch.GraphIndex.build(
+            sub, exact_threshold=GRAPH_PLAIN_THRESHOLD))
+    profile_line(smi, f"GraphIndex.build {GRAPH_PLAIN_ROWS} x {DIM} (IVF-assisted, "
+                 f"exact_threshold {GRAPH_PLAIN_THRESHOLD})", lambda: vq_tpu_torch.GraphIndex.build(
+                     sub, exact_threshold=GRAPH_PLAIN_THRESHOLD), SORT_KERNELS, warm=False)
+    for name in ("graph", "entry", "sample"):
+        assert torch.equal(getattr(g_k, name), getattr(g_p, name)), f"the plain route's {name} differs"
+    assert torch.equal(g_k._rows, g_p._rows)
+    k6_batches = k6_calls[:3]
+    for args, kw in k6_batches:
+        assert torch.equal(ck.ivf_probe_matvec_fused(*args, **kw), ck.ivf_probe_matvec_plain(*args, **kw))
+    log("graph", f"GraphIndex.build of {GRAPH_PLAIN_ROWS} rows (exact_threshold "
+        f"{GRAPH_PLAIN_THRESHOLD}) on the plain route ({plain_ms:.1f} ms) equals the kernel route's "
+        f"adjacency, entries and sample bit for bit; K6 equals its plain version on the operands of "
+        f"{len(k6_batches)} of the sweep's {len(k6_calls)} batches")
+    del g_k, g_p, k6_calls, k6_batches
+
+    # add, then remove_ids, of GRAPH_EDIT rows, recall after each.
+    gn = torch.Generator(device=dev).manual_seed(SEED + 2)
+    new = (corpus[torch.randint(0, N_CORPUS, (GRAPH_EDIT,), generator=gn, device=dev)]
+           + 0.1 * torch.randn(GRAPH_EDIT, DIM, generator=gn, device=dev))
+    counted("graph add", lambda: g.add(new))
+    union = torch.cat([corpus, new])
+    ids, dist = g.search(queries, k=10, beam=beam)
+    recall["graph after add"] = _recall(ids, _ground_truth(union, queries))
+    drop = torch.arange(0, N_CORPUS, N_CORPUS // GRAPH_EDIT, device=dev)
+    assert counted("graph remove_ids", lambda: g.remove_ids(drop)) == GRAPH_EDIT
+    keep = torch.ones(union.shape[0], dtype=torch.bool, device=dev)
+    keep[drop] = False
+    assert g.ntotal == N_CORPUS and torch.equal(g.reconstruct(torch.arange(4, device=dev)),
+                                                union[keep][:4])
+    ids, dist = g.search(queries, k=10, beam=beam)
+    _check_search("graph search after remove_ids", ids, dist)
+    recall["graph after remove"] = _recall(ids, _ground_truth(union[keep], queries))
+    log("graph", f"add of {GRAPH_EDIT} rows {t['wall']['graph add']:.1f} ms, remove_ids of "
+        f"{GRAPH_EDIT} {t['wall']['graph remove_ids']:.1f} ms host wall | {smi}")
+    return g
+
+
+def _log_tune(smi, spec, best, front):
+    log("tune", f"{spec}: tune(target_recall={TUNE_TARGET}) -> {best.params}, recall "
+        f"{best.recall:.4f}, {best.time_ms:.3f} ms a batch, {best.qps:.0f} QPS; the Pareto frontier "
+        "of the points it measured " + ", ".join(
+            f"{p.params} {p.recall:.4f} @ {p.time_ms:.3f} ms" for p in front)
+        + f" (host clock to the ids' copy) | {smi}")
+
+
+def phase_last_modules(smi, corpus, queries, gt, main):
+    """Phase 18, the last single-device modules, through the public entry
+    points on the phase-4 mixture: ``GraphIndex`` (:func:`_graph_phase`),
+    ``lloyd_stepped`` with a checkpoint and a resume, ``lloyd_minibatch``
+    and ``pq_minibatch_update`` over one epoch, ``index_factory``
+    pipelines and ``tune``. Launches read from the run by call and by path
+    (``graph``, ``kmeans_stream``, ``factory``); the mini-batch steps, the
+    graph build and two factory pipelines held to the plain route bit for
+    bit; recall@10 against the exact ground truth; CUDA-event times and
+    ``[profile]`` lines."""
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch.ops.kmeans import kmeans_plusplus_init_device
+    from vq_tpu_torch.ops.kmeans_stream import pq_minibatch_update
+    from vq_tpu_torch.utils.metrics import MetricsLogger
+    from vq_tpu_torch.utils.serialize import load_kmeans_state
+
+    by_path, wall, recall = {}, {}, {}
+    t = {"wall": wall}
+    counted = _counter(by_path, wall)
+    reset_counts()
+    g = _graph_phase(smi, corpus, queries, gt, counted, recall, t)
+    profile_line(smi, "GraphIndex.search 128 q over 1M, k=10, beam=64",
+                 lambda: g.search(queries, k=10, beam=64), SORT_KERNELS)
+    del g
+    torch.cuda.empty_cache()
+
+    # lloyd_stepped: 20 iterations, and 10 + a resume from the checkpoint at 10.
+    train = corpus[:N_IVF_TRAIN]
+    ck_dir = os.path.join("build", "chip_smoke_phase18")
+    os.makedirs(ck_dir, exist_ok=True)
+    ckp = os.path.join(ck_dir, "lloyd.npz")
+    events = []
+    full = counted("lloyd_stepped", lambda: vq_tpu_torch.lloyd_stepped(
+        train, MB_K, max_iters=KS_ITERS, seed=SEED, logger=MetricsLogger(events.append)))
+    counted("lloyd_stepped to the checkpoint", lambda: vq_tpu_torch.lloyd_stepped(
+        train, MB_K, max_iters=KS_CHECKPOINT, seed=SEED, checkpoint_path=ckp,
+        checkpoint_every=KS_CHECKPOINT))
+    assert load_kmeans_state(ckp).iteration == KS_CHECKPOINT
+    resumed = counted("lloyd_stepped resumed", lambda: vq_tpu_torch.lloyd_stepped(
+        train, MB_K, max_iters=KS_ITERS, seed=SEED, resume_from=ckp))
+    shutil.rmtree(ck_dir)
+    assert int(full.iterations) == int(resumed.iterations) == len(events)
+    assert torch.equal(full.centroids, resumed.centroids), "the resumed run differs"
+    assert by_path["lloyd_stepped"]["lloyd_accumulate_fused"] == int(full.iterations)
+    log("kmeans", f"lloyd_stepped k {MB_K} on {N_IVF_TRAIN} rows: {int(full.iterations)} "
+        f"iterations in {wall['lloyd_stepped']:.1f} ms (inertia {events[0]['inertia']:.6g} -> "
+        f"{float(full.inertia):.6g}, the last step's largest move {events[-1]['max_movement']:.4g}); "
+        f"resumed from the checkpoint at {KS_CHECKPOINT}: the same centroids bit for bit | {smi}")
+
+    # lloyd_minibatch and pq_minibatch_update over one epoch, against the plain route.
+    init = kmeans_plusplus_init_device(corpus, MB_K, seed=SEED)
+    steps = math.ceil(N_CORPUS / MB_BATCH)
+
+    def minibatch():
+        return vq_tpu_torch.lloyd_minibatch(corpus, MB_K, batch_size=MB_BATCH, seed=SEED, init=init)
+
+    order = torch.from_numpy(np.random.default_rng(SEED).permutation(N_CORPUS)).to(corpus.device)
+
+    def pq_epoch():
+        cb = main["pq"].codebooks.clone()
+        counts = torch.zeros(M, K, device=corpus.device)
+        inertia = torch.zeros(M, device=corpus.device)
+        for lo in range(0, N_CORPUS, MB_BATCH):
+            cb, counts, part = pq_minibatch_update(cb, counts, corpus[order[lo:lo + MB_BATCH]])
+            inertia = inertia + part
+        return cb, counts, inertia
+
+    mb = counted("lloyd_minibatch", minibatch)
+    pq_out = counted("pq_minibatch_update epoch", pq_epoch)
+    assert by_path["lloyd_minibatch"]["lloyd_accumulate_fused"] == steps, by_path["lloyd_minibatch"]
+    assert by_path["pq_minibatch_update epoch"]["pq_lloyd_accumulate_fused"] == steps
+    full_l = vq_tpu_torch.lloyd(corpus, MB_K, max_iters=10, seed=SEED, init_centroids=init)
+    with plain_route():
+        mb_p, pq_p = minibatch(), pq_epoch()
+    for a, b in zip((mb.centroids, mb.assignments, mb.inertia) + pq_out,
+                    (mb_p.centroids, mb_p.assignments, mb_p.inertia) + pq_p):
+        assert torch.equal(a, b), "a mini-batch step differs from the plain route"
+    t["lloyd_minibatch"] = wall["lloyd_minibatch"]
+    log("kmeans", f"lloyd_minibatch k {MB_K}, batch {MB_BATCH}, one epoch of {N_CORPUS}: "
+        f"{steps} K2 launches, {wall['lloyd_minibatch']:.1f} ms host wall, inertia "
+        f"{float(mb.inertia):.6g} against lloyd's {float(full_l.inertia):.6g} ({int(full_l.iterations)} "
+        f"iterations from the same k-means++ seeds); pq_minibatch_update {M}x{K}x{DIM // M} over the "
+        f"same batches: {steps} K3 launches, {wall['pq_minibatch_update epoch']:.1f} ms, inertia by "
+        f"subspace summed over the epoch {float(pq_out[2].sum()):.6g}; both equal the plain route "
+        f"bit for bit | {smi}")
+    profile_line(smi, f"lloyd_minibatch k {MB_K}, batch {MB_BATCH}, one epoch of 1M", minibatch)
+    del mb, mb_p, pq_out, pq_p, full_l
+    torch.cuda.empty_cache()
+
+    # index_factory pipelines: train 200k, add 1M (HNSW32 builds over the 1M rows).
+    fac, fac_out = {}, {}
+    kws = {"IVF": {"nprobe": NPROBES[0]}, "BIVF": {"nprobe": NPROBES[0]}, "HNSW": {"beam": 64}}
+
+    def kw_of(spec):
+        return next((v for key, v in kws.items() if spec.startswith(key)), {})
+
+    def build(spec):
+        f = vq_tpu_torch.index_factory(DIM, spec)
+        if spec.startswith("HNSW"):
+            f.train(corpus)
+            return f
+        if not f.is_trained:
+            f.train(train)
+        f.add(corpus)
+        return f
+
+    for spec in FACTORY_SPECS:
+        fac[spec] = counted(f"factory {spec} build", lambda spec=spec: build(spec))
+        kw = kw_of(spec)
+        fac_out[spec] = counted(f"factory {spec} search",
+                                lambda spec=spec, kw=kw: fac[spec].search(queries, 10, **kw))
+        _check_search(f"factory {spec}", *fac_out[spec])
+        recall[f"factory {spec}"] = _recall(fac_out[spec][0], gt)
+        t[f"factory {spec}"] = cuda_ms(lambda spec=spec, kw=kw: fac[spec].search(queries, 10, **kw), 3)
+    for spec in FACTORY_PLAIN:
+        with plain_route():
+            f_p = build(spec)
+            got = f_p.search(queries, 10, **kw_of(spec))
+        assert torch.equal(got[0], fac_out[spec][0]) and torch.equal(got[1], fac_out[spec][1]), spec
+        del f_p
+    log("factory", "index_factory on the card, recall@10 / search ms (CUDA events) / build ms "
+        "(host wall): " + "; ".join(
+            f"{s} {recall[f'factory {s}']:.4f} / {t[f'factory {s}']:.3f} / "
+            f"{wall[f'factory {s} build']:.0f}" for s in FACTORY_SPECS)
+        + f"; {', '.join(FACTORY_PLAIN)} equal the plain route bit for bit | {smi}")
+    profile_line(smi, f"index_factory {FACTORY_SPECS[-1]} search 128 q, nprobe {NPROBES[0]}",
+                 lambda: fac[FACTORY_SPECS[-1]].search(queries, 10, nprobe=NPROBES[0]), SORT_KERNELS)
+
+    # tune over two of them.
+    gt_np = gt.cpu().numpy()
+    tune_mod = importlib.import_module("vq_tpu_torch.tune")
+    sweep, swept = tune_mod.sweep, []  # the points tune chose from
+    tune_mod.sweep = lambda *a, **kw: swept.append(sweep(*a, **kw)) or swept[-1]
+    try:
+        for spec in TUNE_SPECS:
+            grid = TUNE_IVF_GRID if spec.startswith("IVF") else None
+            best = counted(f"factory tune {spec}", lambda spec=spec, grid=grid: vq_tpu_torch.tune(
+                fac[spec], queries, gt_np, target_recall=TUNE_TARGET, grid=grid))
+            _log_tune(smi, spec, best, vq_tpu_torch.pareto(swept[-1]))
+    finally:
+        tune_mod.sweep = sweep
+    del fac, fac_out
+    torch.cuda.empty_cache()
+
+
+    log("last", "recall@10 " + ", ".join(f"{n}: {v:.4f}" for n, v in recall.items()))
+    log("last", f"launches by call: {by_path}")
+    need = [("graph build", k) for k in ("assign_fused", "lloyd_accumulate_fused",
+                                         "ivf_probe_matvec_fused")]
+    ivf_flat, ivf_pq, opq, refine = (FACTORY_SPECS[i] for i in (0, 1, 2, -1))
+    need += [(f"factory {ivf_flat} search", "ivf_probe_matvec_fused"),
+             (f"factory {ivf_pq} search", "ivf_probe_adc_fused"),
+             (f"factory {opq} search", "adc_scan_topk_fused"),
+             (f"factory {refine} build", "pq_encode_fused")]
+    for name, kernel in need:
+        assert by_path[name].get(kernel, 0) > 0, f"{name}: {kernel} was not launched: {by_path[name]}"
+    groups = {"graph": ("graph",), "kmeans_stream": ("lloyd_", "pq_minibatch"),
+              "factory": ("factory",)}
+    paths = {}
+    for path, prefixes in groups.items():
+        paths[path] = {}
+        for name, calls in by_path.items():
+            if name.startswith(prefixes):
+                for kernel, n in calls.items():
+                    paths[path][kernel] = paths[path].get(kernel, 0) + n
+    log("last", f"launches in phase 18 by path: {paths}")
+    return dict(paths=paths, by_path=by_path, recall=recall, t=t)
+
+
 def eval_fields(key, t_eval, bounds, rows):
     """Extra fields of the K3 / K4 rows: their time, plain time and bound
     at the eval harness's shape."""
@@ -2976,45 +3329,60 @@ def kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres):
 def main() -> None:
     import torch
 
-    smi = phase_device()
-    build_s = phase_build()
-    corpus, queries, g, pipe_q = make_data("cuda")
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("phase_device", phase_device)
+    build_s = timed("phase_build", phase_build)
+    corpus, queries, g, pipe_q = timed("make_data", make_data, "cuda")
     log("data", f"Gaussian mixture on the card: corpus {tuple(corpus.shape)}, "
         f"queries {tuple(queries.shape)}, {N_CLUSTERS} clusters of rank-{LATENT} "
         f"covariance, seed {SEED}")
-    res = phase_kernels(corpus, queries, g)
-    lowp_gap = phase_lowp_kernels(corpus, res)
-    kres = phase_ivf_kernels(corpus, g)
-    main_res = phase_main_path(corpus, queries)
-    ivf = phase_ivf_path(corpus, queries, main_res["gt"])
-    k7_cases = phase_k7(queries, ivf)
-    t = phase_timings(smi, corpus, queries, res, main_res)
-    t.update(phase_ivf_timings(smi, corpus, queries, kres, ivf, k7_cases))
-    phase_k2_stages(smi, corpus, kres)
-    k3_stages = phase_k3_stages(smi, corpus, res)
-    flat = phase_flat_path(corpus, queries, main_res["gt"])
-    k6_cases, k6_err = phase_k6(flat)
-    t.update(phase_flat_timings(smi, queries, flat, k6_cases))
-    prec = phase_precision(corpus, queries, main_res)
-    rqres = phase_rq_path(corpus, queries, main_res["gt"])
-    t_new, k8 = phase_new_timings(smi, corpus, queries, res, prec, rqres)
-    profile_paths(smi, corpus, queries, main_res, prec, rqres, ivf, flat)
-    bd = make_bench_data("cuda")
-    b_err = phase_bench_kernels(bd, corpus, kres)
-    bl = phase_bench_path()
-    t_bench = phase_bench_timings(smi, bd)
+    res = timed("phase_kernels", phase_kernels, corpus, queries, g)
+    lowp_gap = timed("phase_lowp_kernels", phase_lowp_kernels, corpus, res)
+    kres = timed("phase_ivf_kernels", phase_ivf_kernels, corpus, g)
+    main_res = timed("phase_main_path", phase_main_path, corpus, queries)
+    ivf = timed("phase_ivf_path", phase_ivf_path, corpus, queries, main_res["gt"])
+    k7_cases = timed("phase_k7", phase_k7, queries, ivf)
+    t = timed("phase_timings", phase_timings, smi, corpus, queries, res, main_res)
+    t.update(timed("phase_ivf_timings", phase_ivf_timings, smi, corpus, queries, kres, ivf,
+                   k7_cases))
+    timed("phase_k2_stages", phase_k2_stages, smi, corpus, kres)
+    k3_stages = timed("phase_k3_stages", phase_k3_stages, smi, corpus, res)
+    flat = timed("phase_flat_path", phase_flat_path, corpus, queries, main_res["gt"])
+    k6_cases, k6_err = timed("phase_k6", phase_k6, flat)
+    t.update(timed("phase_flat_timings", phase_flat_timings, smi, queries, flat, k6_cases))
+    prec = timed("phase_precision", phase_precision, corpus, queries, main_res)
+    rqres = timed("phase_rq_path", phase_rq_path, corpus, queries, main_res["gt"])
+    t_new, k8 = timed("phase_new_timings", phase_new_timings, smi, corpus, queries, res, prec, rqres)
+    timed("profile_paths", profile_paths, smi, corpus, queries, main_res, prec, rqres, ivf, flat)
+    bd = timed("make_bench_data", make_bench_data, "cuda")
+    b_err = timed("phase_bench_kernels", phase_bench_kernels, bd, corpus, kres)
+    bl = timed("phase_bench_path", phase_bench_path)
+    t_bench = timed("phase_bench_timings", phase_bench_timings, smi, bd)
     del bd
-    ev = phase_eval_path(smi)
-    ev_checks = phase_eval_checks(smi, ev)
-    t_eval = phase_eval_timings(smi, ev_checks)
+    ev = timed("phase_eval_path", phase_eval_path, smi)
+    ev_checks = timed("phase_eval_checks", phase_eval_checks, smi, ev)
+    t_eval = timed("phase_eval_timings", phase_eval_timings, smi, ev_checks)
     del ev_checks
-    k8_range = phase_flat_serving(smi, corpus, queries, main_res, rqres)
-    mo = phase_mips_opq(smi, corpus, queries)
-    mt = phase_maintenance(smi, corpus, queries, main_res["gt"])
+    k8_range = timed("phase_flat_serving", phase_flat_serving, smi, corpus, queries, main_res, rqres)
+    mo = timed("phase_mips_opq", phase_mips_opq, smi, corpus, queries)
+    mt = timed("phase_maintenance", phase_maintenance, smi, corpus, queries, main_res["gt"])
     torch.cuda.empty_cache()
-    lr = phase_transforms_refine_serving(smi, corpus, queries, pipe_q, main_res["gt"], main_res,
-                                         ivf, flat)
+    lr = timed("phase_transforms_refine_serving", phase_transforms_refine_serving, smi, corpus,
+               queries, pipe_q, main_res["gt"], main_res, ivf, flat)
+    ll = lr["launches"]  # phase 17's run
+    del lr
+    torch.cuda.empty_cache()
+    last = timed("phase_last_modules", phase_last_modules, smi, corpus, queries, main_res["gt"],
+                 main_res)
     log("time", f"kernel build {build_s:.2f} s | {smi}")
+    log("time", "each phase's host wall: " + ", ".join(f"{n} {v:.1f} s" for n, v in walls.items()))
 
     launches = dict(main_res["launches"])
     for name in ("assign_fused", "lloyd_accumulate_fused", "ivf_probe_adc_fused"):
@@ -3047,13 +3415,18 @@ def main() -> None:
                 "rq": rl["lloyd_accumulate_fused"], **mips_opq("lloyd_accumulate_fused"),
                 "maintenance": ml["lloyd_accumulate_fused"]}
     k6_paths = {"ivf_flat": fl["ivf_probe_matvec_fused"], "maintenance": ml["ivf_probe_matvec_fused"]}
-    ll = lr["launches"]  # phase 17's run
     layer = "transforms_refine_serving"
+    k8_paths = {"precision": pl["adc_lookup_fused"], "rq": rl["adc_lookup_fused"], "range": k8_range}
     for paths, kernel in ((k1_paths, "assign_fused"), (k2_paths, "lloyd_accumulate_fused"),
                           (k3_paths, "pq_lloyd_accumulate_fused"),
                           (k4_paths, "pq_encode_fused[highest]"), (k5_paths, "adc_scan_topk_fused"),
-                          (k6_paths, "ivf_probe_matvec_fused"), (k7_paths, "ivf_probe_adc_fused")):
-        paths[layer] = ll.get(kernel, 0)
+                          (k6_paths, "ivf_probe_matvec_fused"), (k7_paths, "ivf_probe_adc_fused"),
+                          (k8_paths, "adc_lookup_fused")):
+        if kernel != "adc_lookup_fused":
+            paths[layer] = ll.get(kernel, 0)
+        for path, counts in last["paths"].items():  # phase 18's paths
+            if counts.get(kernel):
+                paths[path] = counts[kernel]
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     e_m, e_k, e_s = PQ_EVAL
     e_ops = 2.0 * e_m * e_k * e_s
@@ -3108,11 +3481,9 @@ def main() -> None:
             {"bf16_x_ms": t_new["K4_bf16_bf16in"][0]}),
         row("pq_encode_fused[bf16x3]", "pq_encode.cu", "420", pl["pq_encode_fused[bf16x3]"],
             lowp_gap["bf16x3"], "K4_bf16x3", t_new["K4_bf16x3"]),
-        row("adc_lookup_fused", "adc_lookup.cu", "727",
-            pl["adc_lookup_fused"] + rl["adc_lookup_fused"] + k8_range,
+        row("adc_lookup_fused", "adc_lookup.cu", "727", sum(k8_paths.values()),
             0.0, "K8", t_new["K8"], {
-                "launches_by_path": {"precision": pl["adc_lookup_fused"], "rq": rl["adc_lookup_fused"],
-                                     "range": k8_range},
+                "launches_by_path": k8_paths,
                 "ms_rq_chunk": t_new["K8_rq_chunk"][0], "plain_ms_rq_chunk": t_new["K8_rq_chunk"][1],
                 "library_ms_rq_chunk": t_new["K8_rq_chunk"][2],
                 "bound_ms_rq_chunk": bounds["K8_rq_chunk"][0], "bound_by_rq_chunk": bounds["K8_rq_chunk"][1],

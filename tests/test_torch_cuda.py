@@ -44,6 +44,12 @@ within 1e-4; ``RefineIndex`` codes exact (residual PQ on >= 99.9% of
 the rows) and searches at separated ranks within 1e-3 (1e-2 residual);
 ``BatchPipeline`` bit for bit one search a batch, and stale after a
 rebalance; checkpoints of the new kinds searched the same bits.
+The last single-device modules: ``GraphIndex`` on small-integer rows
+(exact in fp32 in any order), its IVF-assisted build bit for bit against
+the plain route and its searches, ``add`` and ``remove_ids`` against the
+CPU's; ``lloyd_stepped``, ``lloyd_minibatch`` and ``pq_minibatch_update``
+bit for bit against the plain route, and a resumed ``lloyd_stepped``
+against the uninterrupted run.
 """
 
 import numpy as np
@@ -1709,3 +1715,99 @@ def test_new_kinds_round_trip_on_the_card(card, tmp_path):
     km.train(x)
     back = t.Kmeans.load(km.save(str(tmp_path / "km")), device=card)
     assert torch.equal(back.centroids, km.centroids)
+
+
+def _int_rows(card, n, d=16, seed=5):
+    """Small-integer rows in 12 clusters: every fp32 product and sum is
+    exact, so the card and the CPU compute the same bits."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    centres = torch.randint(-12, 13, (12, d), generator=g, device=card)
+    lab = torch.randint(0, 12, (n,), generator=g, device=card)
+    return (centres[lab] + torch.randint(-3, 4, (n, d), generator=g, device=card)).float()
+
+
+def _graph_on(idx, device):
+    from vq_tpu_torch.convert import from_state, state_of
+
+    kind, config, arrays = state_of(idx)
+    return from_state(kind, config, arrays, device=device)
+
+
+def test_graph_on_the_card_equals_the_cpu(card, monkeypatch):
+    """``GraphIndex`` on integer rows: the IVF-assisted build on the card
+    (K1, K2, K6 launched) equals the same build with every kernel swapped
+    for its plain version bit for bit; searched on the card and, carried
+    over, on the CPU, the same ids and distances; ``add`` and
+    ``remove_ids`` give the CPU's adjacency (the routing sample that
+    ``add`` extends is drawn on each device's own generator)."""
+    import vq_tpu_torch
+    import vq_tpu_torch.ivf_flat as ivf_mod
+    import vq_tpu_torch.ops.kmeans as km_mod
+
+    x = _int_rows(card, 6000)
+    q = _int_rows(card, 64, seed=6)
+    before = (ck.assign_fused.launches, ck.lloyd_accumulate_fused.launches,
+              ck.ivf_probe_matvec_fused.launches)
+    g = vq_tpu_torch.GraphIndex.build(x[:5000], degree=8, exact_threshold=2000, seed=2)
+    after = (ck.assign_fused.launches, ck.lloyd_accumulate_fused.launches,
+             ck.ivf_probe_matvec_fused.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    with monkeypatch.context() as m:
+        for mod in (km_mod, ivf_mod):
+            for name in ("assign_fused", "lloyd_accumulate_fused", "ivf_probe_matvec_fused"):
+                if hasattr(mod, name):
+                    m.setattr(mod, name, getattr(ck, name.replace("_fused", "_plain")))
+        plain = vq_tpu_torch.GraphIndex.build(x[:5000], degree=8, exact_threshold=2000, seed=2)
+    for name in ("graph", "entry", "sample"):
+        assert torch.equal(getattr(g, name), getattr(plain, name)), name
+    cpu = _graph_on(g, "cpu")
+    for beam in (16, 64):
+        gi, gd = g.search(q, 10, beam=beam)
+        ci, cd = cpu.search(q.cpu(), 10, beam=beam)
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gd.cpu(), cd)
+    g.add(x[5000:5300])
+    cpu.add(x[5000:5300].cpu())
+    assert torch.equal(g.graph.cpu(), cpu.graph)
+    # The routing sample takes new ids by a generator on each device's own
+    # stream; carry the card's over before comparing further.
+    assert g.sample.shape == cpu.sample.shape
+    cpu.sample = g.sample.cpu()
+    drop = np.arange(0, 5300, 13)
+    assert g.remove_ids(drop) == cpu.remove_ids(drop) == drop.size
+    assert torch.equal(g.graph.cpu(), cpu.graph) and torch.equal(g.entry.cpu(), cpu.entry)
+    assert torch.equal(g.search(q, 10)[0].cpu(), cpu.search(q.cpu(), 10)[0])
+
+
+def test_kmeans_steps_on_the_card_equal_the_plain_route(card, monkeypatch, tmp_path):
+    """``lloyd_stepped`` (K2 an iteration, K1 at the end),
+    ``minibatch_update`` / ``lloyd_minibatch`` (K2 a batch) and
+    ``pq_minibatch_update`` (K3) bit for bit against the same calls with
+    the kernels swapped for their plain versions; a resumed
+    ``lloyd_stepped`` ends at the uninterrupted run's centroids."""
+    import vq_tpu_torch.ops.kmeans_stepped as ks
+    import vq_tpu_torch.ops.kmeans_stream as kst
+
+    x, _ = _flat_data(card)
+    ck_path = str(tmp_path / "km")
+    runs = {}
+    for route in ("kernel", "plain"):
+        with monkeypatch.context() as m:
+            if route == "plain":
+                for mod in (ks, kst):
+                    for name in ("assign_fused", "lloyd_accumulate_fused",
+                                 "pq_lloyd_accumulate_fused"):
+                        if hasattr(mod, name):
+                            m.setattr(mod, name, getattr(ck, name.replace("_fused", "_plain")))
+            st = ks.lloyd_stepped(x, 64, max_iters=6, seed=1, eps=0.0,
+                                  checkpoint_path=ck_path + route, checkpoint_every=4)
+            mb = kst.lloyd_minibatch(x, 64, batch_size=4096, seed=1, init=x[:64])
+            cb = x[:256].reshape(256, 4, 8).permute(1, 0, 2).contiguous()
+            pq = kst.pq_minibatch_update(cb, torch.ones(4, 256, device=card), x[:8192])
+            runs[route] = (st.centroids, st.assignments, mb.centroids, mb.assignments, *pq)
+    for a, b in zip(runs["kernel"], runs["plain"]):
+        assert torch.equal(a, b)
+    before = ck.lloyd_accumulate_fused.launches
+    resumed = ks.lloyd_stepped(x, 64, max_iters=6, seed=1, eps=0.0,
+                               resume_from=ck_path + "kernel")
+    assert ck.lloyd_accumulate_fused.launches == before + 2  # iterations 5 and 6
+    assert torch.equal(resumed.centroids, runs["kernel"][0])

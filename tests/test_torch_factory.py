@@ -7,8 +7,19 @@ Every index kind the port has is written by the JAX package and read by
 has the same type name, ``ntotal`` and search — values within rtol 1e-5
 / atol 1e-4, ids equal at every rank whose value is apart from its row's
 others by more than that (``assert_probe_parity``); Hamming counts and
-the ``IdMapIndex`` user ids exactly. ``graph_index`` raises
-``InvalidData``: ``GraphIndex`` is not in the port yet.
+the ``IdMapIndex`` user ids exactly; ``graph_index`` too, since
+``GraphIndex`` is ported.
+
+``index_factory`` (the second half): every spec of the grammar builds
+the same pipeline (index, transform and refiner types, nested the same
+way) in both packages, or raises the same error class for the same
+parameter. Then each built pipeline is filled and searched by its
+family's tier: a pipeline with nothing to fit (``Flat``, ``SQfp16`` /
+``SQbf16``, ``BFlat``, ``IDMap,Flat``, ``L2norm,Flat``) by
+``assert_probe_parity`` (its search equals the JAX package's); one that
+trains from a seed (every other), whose streams differ by design
+(``torch.Generator`` against threefry), by recall@5 against the exact
+neighbours, within 0.15 of the JAX pipeline's.
 """
 
 import numpy as np
@@ -128,10 +139,16 @@ def test_load_index_device_and_wrappers(jax_indexes):
     assert isinstance(idx.base, FlatIndex)
 
 
-def test_graph_index_not_yet_ported(tmp_path):
-    p = _to_npz(str(tmp_path / "g"), "graph_index", {}, {})
-    with pytest.raises(InvalidData, match="GraphIndex"):
-        load_index(p)
+def test_graph_index_not_yet_ported(data, tmp_path):
+    """Earlier slices refused ``graph_index`` checkpoints; since
+    ``GraphIndex`` is ported, one the JAX package wrote loads as one."""
+    x, q = data
+    j = vq_tpu.GraphIndex.build(x, degree=4, seed=1)
+    got = load_index(j.save(str(tmp_path / "g")))
+    assert type(got).__name__ == "GraphIndex" and got.ntotal == j.ntotal
+    _same_search(_search(got, q, "graph_index"), _search(j, q, "graph_index"), "graph_index")
+    with pytest.raises(KeyError):  # a graph_index checkpoint with no arrays
+        load_index(_to_npz(str(tmp_path / "empty"), "graph_index", {}, {}))
 
 
 def test_not_an_index(tmp_path, data):
@@ -275,3 +292,238 @@ class TestIdMapIndex:
         idx.add(data[0][:10])
         with pytest.raises(InvalidParameter):
             vq_tpu_torch.BatchPipeline(idx, k=2)
+
+
+# ---------------------------------------------------------------------------
+# index_factory.
+# ---------------------------------------------------------------------------
+
+_SPECS = ["Flat", "SQfp16", "SQbf16", "SQ8", "SQ4", "PQ4", "PQ8x4", "RQ2x4", "BFlat", "LSH8",
+          "BIVF8", "HNSW8", "IVF8,Flat", "IVF8,SQ8", "IVF8,PQ4", "IVF8,PQ4+4", "IVF8,RQ2x4",
+          "PCA4,SQ8", "PCAW4,Flat", "L2norm,Flat", "RR,Flat", "OPQ4,PQ4", "ITQ4,BFlat",
+          "ITQ,BFlat", "IDMap,Flat", "IDMap,PCA4,IVF8,PQ4", "IVF8,PQ4,RFlat",
+          "IVF8,Flat,RFlat16", "IVF8,PQ4,RSQ8", "PQ4,RFlat", "BFlat,RFlat"]
+# Specs with nothing to fit: the two packages hold the same rows and search alike.
+_EXACT = ("Flat", "SQfp16", "SQbf16", "BFlat", "IDMap,Flat", "L2norm,Flat")
+_SEARCH_KW = {"IVF": {"nprobe": 4}, "HNSW": {"beam": 32}}
+
+
+def _shape(idx):
+    """The pipeline's nested type names (and a refine index's kind)."""
+    name = type(idx).__name__
+    if name == "IdMapIndex":
+        return (name, _shape(idx.base))
+    if name == "RefineIndex":
+        return (name, idx.kind, _shape(idx.base))
+    if name == "TransformedIndex":
+        return (name, tuple(type(t).__name__ for t in idx.transforms), _shape(idx.base))
+    return name
+
+
+def _kw(spec):
+    head = spec.split(",")[-1] if spec.startswith("IDMap") else spec
+    for key, kw in _SEARCH_KW.items():
+        if key in spec and (key != "IVF" or not head.startswith("BIVF")):
+            return dict(kw)
+    return {"nprobe": 4} if "BIVF" in spec else {}
+
+
+@pytest.fixture(scope="module")
+def built(data):
+    """``{spec: (JAX FactoryIndex, the port's)}``, trained and filled."""
+    x, _ = data
+    out = {}
+    for spec in _SPECS:
+        pair = (vq_tpu.index_factory(D, spec), vq_tpu_torch.index_factory(D, spec))
+        for f in pair:
+            if not f.is_trained:
+                f.train(x, max_iters=3)
+            if spec.startswith("IDMap"):
+                f.add_with_ids(x, np.arange(x.shape[0], dtype=np.int64) + 10**10)
+            elif not spec.startswith("HNSW"):  # the graph is built filled
+                f.add(x)
+        out[spec] = pair
+    return out
+
+
+@pytest.mark.parametrize("spec", _SPECS)
+def test_factory_builds_the_same_pipeline(built, spec):
+    j, t = built[spec]
+    assert _shape(t.index) == _shape(j.index)
+    assert t.ntotal == j.ntotal and t.is_trained and t.metric == j.metric
+    assert repr(t) == repr(j)
+
+
+@pytest.mark.parametrize("spec", _SPECS)
+def test_factory_search_by_family_tier(data, built, spec):
+    x, _ = data
+    q = x[::6][:64] + np.random.default_rng(4).normal(0, 0.05, (64, D)).astype(np.float32)
+    j, t = built[spec]
+    kw = _kw(spec)
+    ti, tv = t.search(q, 5, **kw)
+    ji, jv = j.search(q, 5, **kw)
+    assert tuple(ti.shape) == np.asarray(ji).shape == (q.shape[0], 5)
+    if spec in _EXACT:
+        kind = "binary_index" if "BFlat" in spec else ("idmap_index" if "IDMap" in spec else "")
+        _same_search((ti, tv), (np.asarray(ji), np.asarray(jv)), kind)
+        return
+    ids = ti.numpy() - (10**10 if spec.startswith("IDMap") else 0)
+    jids = np.asarray(ji) - (10**10 if spec.startswith("IDMap") else 0)
+    d = ((q[:, None] - x[None]) ** 2).sum(-1)
+    gt = np.argsort(d, 1, kind="stable")[:, :5]
+
+    def rec(i):
+        return np.mean([len(set(a) & set(b)) / 5 for a, b in zip(i.tolist(), gt.tolist())])
+
+    assert rec(ids) >= rec(jids) - 0.15
+
+
+_BAD_SPECS = ["", "PQ8,Flat", "IVF16", "IVF16,BFlat", "Nope", "PQ8x9", "IVF2x,Flat",
+              "IVF16,PQ4+x", "HNSW8,RSQ8", "RQ2x9", "LSH16", "IVF8,Flat,Flat", "PQ4,RFlat,RFlat"]
+
+
+@pytest.mark.parametrize("spec", _BAD_SPECS)
+def test_bad_specs_raise_alike(spec):
+    with pytest.raises(vq_tpu.errors.InvalidParameter) as je:
+        vq_tpu.index_factory(D, spec)
+    with pytest.raises(InvalidParameter) as te:
+        vq_tpu_torch.index_factory(D, spec)
+    assert te.value.parameter == je.value.parameter
+
+
+@pytest.mark.parametrize("spec,metric", [("IVF8,Flat", "cosine"), ("PQ4", "dot"),
+                                         ("HNSW8", "dot"), ("BIVF8", "dot"),
+                                         ("IVF8,SQ8", "manhattan")])
+def test_metric_rejections_alike(data, spec, metric):
+    x, _ = data
+    with pytest.raises(vq_tpu.errors.InvalidParameter) as je:
+        vq_tpu.index_factory(D, spec, metric=metric).train(x)
+    with pytest.raises(InvalidParameter) as te:
+        vq_tpu_torch.index_factory(D, spec, metric=metric).train(x)
+    assert te.value.parameter == je.value.parameter == "metric"
+
+
+class TestIndexFactory:
+    def test_flat_needs_no_training(self, data):
+        x, _ = data
+        idx = vq_tpu_torch.index_factory(D, "Flat")
+        assert idx.is_trained
+        idx.add(x)
+        assert int(idx.search(x[3:4], k=1)[0][0, 0]) == 3
+
+    def test_untrained_raises(self, data):
+        idx = vq_tpu_torch.index_factory(D, "PQ4")
+        assert not idx.is_trained and idx.ntotal == 0
+        with pytest.raises(InvalidData, match="untrained"):
+            idx.add(data[0])
+
+    def test_train_checks_shape(self, data):
+        from vq_tpu_torch.errors import DimensionMismatch
+
+        f = vq_tpu_torch.index_factory(D, "PQ4")
+        with pytest.raises(DimensionMismatch):
+            f.train(data[0][:, :4])
+        with pytest.raises(InvalidParameter):
+            f.train(np.zeros((0, D), np.float32))
+
+    def test_metric_aliases(self, data):
+        x, _ = data
+        for alias, name in (("l2", "squared_euclidean"), ("ip", "dot"),
+                            ("inner_product", "dot"), ("IP", "dot")):
+            assert vq_tpu_torch.index_factory(D, "Flat", metric=alias).metric == name
+        f = vq_tpu_torch.index_factory(D, "Flat", metric="ip")
+        f.add(x)
+        assert (torch.diff(f.search(x[:2], k=3)[1], dim=1) <= 1e-5).all()
+
+    def test_opq_reuses_codebooks(self, data):
+        x, _ = data
+        f = vq_tpu_torch.index_factory(D, "OPQ4,PQ4").train(x, max_iters=3)
+        rot = f.index.transforms[0]
+        from vq_tpu_torch.models.opq import opq_train
+
+        _, cbs = opq_train(x, 4, 256, seed=42)
+        assert torch.equal(f.index.base.pq.codebooks, cbs)
+        assert rot.d_out == D
+
+    def test_save_via_factory_then_generic_load(self, data, tmp_path):
+        x, q = data
+        f = vq_tpu_torch.index_factory(D, "PCA4,PQ2x4").train(x, max_iters=3)
+        f.add(x[:200])
+        back = load_index(f.save(str(tmp_path / "fact.npz")))
+        assert torch.equal(f.search(q, k=2)[0], back.search(q, k=2)[0])
+        assert type(vq_tpu.load_index(str(tmp_path / "fact.npz"))).__name__ == "TransformedIndex"
+
+    def test_delegation(self, data):
+        x, q = data
+        f = vq_tpu_torch.index_factory(D, "IVF8,Flat").train(x, max_iters=3)
+        f.add(x)
+        ids, vals, rec = f.search_and_reconstruct(q, 3, nprobe=8)
+        assert tuple(rec.shape) == (q.shape[0], 3, D)
+        _, _, counts = f.range_search(q, 1e9, nprobe=8, max_results=500)
+        assert (counts == x.shape[0]).all()
+        assert f.remove_ids([0, 1]) == 2 and f.ntotal == x.shape[0] - 2
+        other = vq_tpu_torch.index_factory(D, "IVF8,Flat")
+        other._built = type(f.index)(f.index.coarse)
+        other.add(x[:10])
+        assert f.merge_from(other) == 10
+        fn, arrays = f._search_core(3, nprobe=8)
+        assert torch.equal(fn(torch.from_numpy(q), *arrays)[0], f.search(q, 3, nprobe=8)[0])
+        with pytest.raises(InvalidData, match="IDMap"):
+            f.add_with_ids(x[:2], [1, 2])
+
+    def test_factory_idmap_spec(self, data):
+        x, _ = data
+        f = vq_tpu_torch.index_factory(D, "IDMap,Flat")
+        f.add_with_ids(x[:50], np.arange(50, dtype=np.int64) + 10_000)
+        assert int(f.search(x[7:8], k=1)[0][0, 0]) == 10_007
+
+
+class TestLSH:
+    def test_factory_lsh_builds_and_searches(self):
+        r = np.random.default_rng(91)
+        centers = r.normal(0, 3.0, (8, 48)).astype(np.float32)
+        corpus = (centers[r.integers(0, 8, 2000)] + r.normal(0, 0.4, (2000, 48))).astype(np.float32)
+        f = vq_tpu_torch.index_factory(48, "LSH48")
+        assert f.is_trained
+        f.add(corpus)
+        ids = f.search(corpus[:16], k=10)[0].numpy()
+        assert (ids[:, 0] == np.arange(16)).mean() >= 0.9
+        d = np.sum((corpus[None] - corpus[:16, None]) ** 2, -1)
+        assert np.mean([(d[i, ids[i]] < 2.0 * np.median(d[i])).mean() for i in range(16)]) > 0.95
+
+    def test_lsh_save_load(self, data, tmp_path):
+        x, _ = data
+        f = vq_tpu_torch.index_factory(D, "LSH8")
+        f.add(x[:200])
+        back = load_index(f.index.save(str(tmp_path / "lsh.npz")))
+        assert torch.equal(f.search(x[:4], k=3)[0], back.search(x[:4], k=3)[0])
+
+
+class TestRefineFactory:
+    @pytest.mark.parametrize("spec,kw", [("IVF8,PQ4+4", {"nprobe": 8}),
+                                         ("IVF8,PQ4,RSQ8", {"nprobe": 8}),
+                                         ("IVF8,Flat,RFlat16", {"nprobe": 8}),
+                                         ("PQ4,RFlat", {}), ("BFlat,RFlat", {})])
+    def test_specs_build_and_beat_chance(self, data, built, spec, kw):
+        x, q = data
+        f = built[spec][1]
+        ids = f.search(q, 5, k_factor=8, **kw)[0].numpy()
+        d = ((q[:, None] - x[None]) ** 2).sum(-1)
+        gt = np.argsort(d, 1, kind="stable")[:, :5]
+        assert np.mean([len(set(a) & set(b)) / 5 for a, b in zip(ids.tolist(), gt.tolist())]) > 0.3
+
+    def test_ivfpqr_dot(self, data):
+        x, q = data
+        f = vq_tpu_torch.index_factory(D, "IVF8,PQ4+4", metric="dot").train(x, max_iters=3)
+        f.add(x)
+        d = f.search(q, 5, k_factor=8, nprobe=8)[1]
+        assert (torch.diff(d, dim=1) <= 1e-5).all()
+
+
+class TestBinaryIVFFactory:
+    def test_factory_spec_and_generic_load(self, data, built, tmp_path):
+        x, q = data
+        f = built["BIVF8"][1]
+        assert tuple(f.search(x[:3], k=4, nprobe=6)[0].shape) == (3, 4)
+        back = load_index(f.save(str(tmp_path / "bivf")))
+        assert type(back).__name__ == "IVFBinaryIndex" and back.ntotal == f.ntotal

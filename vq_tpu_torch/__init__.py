@@ -36,8 +36,13 @@ the faiss-style :class:`Kmeans` trainer, the vector transforms
 :class:`TransformedIndex`, :class:`RefineIndex` (exact re-ranking from a
 flat, SQ8 or residual PQ code), :class:`IdMapIndex` and
 :func:`load_index`, and multi-batch serving (:class:`BatchPipeline`,
-:func:`pipelined_search`), which run the kernels below under new
-callers. Their kernels — assign, Lloyd accumulate, PQ Lloyd
+:func:`pipelined_search`); the navigable graph :class:`GraphIndex`
+(Vamana-style build, batched beam search, ``add`` / ``remove_ids``), the
+faiss-style :func:`index_factory`, runtime-parameter tuning
+(:func:`tune`, :func:`sweep`, :func:`pareto`, :func:`exact_neighbors`,
+:func:`recall_at`) and the k-means variants :func:`lloyd_stepped`
+(logged, checkpointed, resumable) and :func:`lloyd_minibatch`
+(streaming) — all of which run the kernels below under new callers. Their kernels — assign, Lloyd accumulate, PQ Lloyd
 accumulate, PQ encode (exact, bf16 and bf16x3), the ADC scan with
 per-tile top-k, the IVF probe matvec, the IVF ADC probe and the dense ADC
 table sum — are CUDA C++ for ``sm_90a`` in ``vq_tpu_torch/csrc``, built
@@ -78,7 +83,8 @@ from vq_tpu_torch.errors import (
     VqError,
 )
 from vq_tpu_torch.clustering import Kmeans
-from vq_tpu_torch.factory import IdMapIndex, load_index
+from vq_tpu_torch.factory import IdMapIndex, index_factory, load_index
+from vq_tpu_torch.graph import GraphIndex
 from vq_tpu_torch.ivf import IVFPQIndex
 from vq_tpu_torch.ivf_binary import IVFBinaryIndex
 from vq_tpu_torch.ivf_flat import IVFFlatIndex, IVFRQIndex, IVFSQIndex
@@ -110,7 +116,15 @@ from vq_tpu_torch.models.rq import (
 from vq_tpu_torch.models.sq import PerDimScalarQuantizer, ScalarQuantizer
 from vq_tpu_torch.models.tsvq import TSVQ, TSVQTree, tsvq_build
 from vq_tpu_torch.ops.distance import Distance, Metric, distance, nearest, pairwise, rowwise
-from vq_tpu_torch.ops.kmeans import KMeansResult, assign, kmeans_plusplus_init_device, lloyd
+from vq_tpu_torch.ops.kmeans import (
+    KMeansResult,
+    assign,
+    kmeans_plusplus_init_device,
+    lloyd,
+    lloyd_batched,
+)
+from vq_tpu_torch.ops.kmeans_stepped import lloyd_stepped
+from vq_tpu_torch.ops.kmeans_stream import lloyd_minibatch
 from vq_tpu_torch.ops.kmeans_anisotropic import (
     anisotropic_assign,
     anisotropic_eta,
@@ -121,6 +135,14 @@ from vq_tpu_torch.ops.packing import bits_for, pack_codes, unpack_codes
 from vq_tpu_torch.refine import RefineIndex
 from vq_tpu_torch.search import BinaryIndex, FlatIndex, PQIndex, RQIndex, SQIndex
 from vq_tpu_torch.serving import BatchPipeline, pipelined_search
+from vq_tpu_torch.tune import (
+    OperatingPoint,
+    exact_neighbors,
+    pareto,
+    recall_at,
+    sweep,
+    tune,
+)
 from vq_tpu_torch.transforms import (
     CenteringTransform,
     NormalizeTransform,
@@ -192,6 +214,9 @@ __all__ = [
     "KMeansResult",
     "assign",
     "lloyd",
+    "lloyd_batched",
+    "lloyd_stepped",
+    "lloyd_minibatch",
     "kmeans_plusplus_init_device",
     "lloyd_anisotropic",
     "anisotropic_assign",
@@ -207,6 +232,14 @@ __all__ = [
     "RefineIndex",
     "IdMapIndex",
     "load_index",
+    "index_factory",
+    "GraphIndex",
+    "OperatingPoint",
+    "exact_neighbors",
+    "recall_at",
+    "sweep",
+    "pareto",
+    "tune",
     "BatchPipeline",
     "pipelined_search",
     "default_device",

@@ -52,6 +52,10 @@ Kinds ported so far (config; arrays):
   ``max_list_size``, ``keep_corpus``, ``dim``; ``coarse``, ``packed``
   uint32 words, ``lists`` and ``corpus`` in id order, ``corpus`` with no
   rows unless kept);
+* ``"graph_index"`` — :class:`GraphIndex` (``store_dtype``, ``alpha``,
+  ``regime_warning``, empty when none; ``rows`` at stored width, bf16 as
+  their uint16 bits, ``graph`` ``[n, 2*degree]`` int32 with -1 pads,
+  ``entry`` and ``sample`` int32 row ids);
 * ``"kmeans_harness"`` — :class:`Kmeans` (``d``, ``k``, ``niter``,
   ``nredo``, ``seed``, ``spherical``, ``init``,
   ``max_points_per_centroid``, ``obj``, ``all_objs``; ``centroids`` when
@@ -120,6 +124,7 @@ def state_of(obj) -> State:
     wrapper's without its base)."""
     from vq_tpu_torch.clustering import Kmeans, _kmeans_state
     from vq_tpu_torch.factory import IdMapIndex
+    from vq_tpu_torch.graph import GraphIndex, _graph_state
     from vq_tpu_torch.refine import RefineIndex, _refine_state
     from vq_tpu_torch.transforms import TransformedIndex, VectorTransform, _transformed_state
     from vq_tpu_torch.ivf import IVFPQIndex
@@ -136,6 +141,8 @@ def state_of(obj) -> State:
 
     if isinstance(obj, Kmeans):
         return ("kmeans_harness",) + _kmeans_state(obj)
+    if isinstance(obj, GraphIndex):
+        return ("graph_index",) + _graph_state(obj)
     if isinstance(obj, VectorTransform):
         return obj._state()
     if isinstance(obj, TransformedIndex):
@@ -505,6 +512,12 @@ def _kmeans_from(config, arrays, device):
     return _kmeans_from(config, arrays, device)
 
 
+def _graph_from(config, arrays, device):
+    from vq_tpu_torch.graph import _graph_from
+
+    return _graph_from(config, arrays, device)
+
+
 def _transform_from(kind):
     def build(config, arrays, device):
         from vq_tpu_torch.transforms import VectorTransform
@@ -562,6 +575,7 @@ _FROM_STATE = {
     "flat_index": _flat_index_from,
     "sq_index": _sq_index_from,
     "binary_index": _binary_index_from,
+    "graph_index": _graph_from,
 }
 
 

@@ -732,8 +732,10 @@ def _k3_inertia(terms: torch.Tensor) -> torch.Tensor:
     return _k2_inertia(acc[:, 0])
 
 
-def pq_lloyd_accumulate_plain(x: torch.Tensor, codebooks: torch.Tensor):
-    """Plain version of K3 -> ``(sums [m, k, s], counts [m, k], inertia [])``,
+def pq_lloyd_accumulate_plain(x: torch.Tensor, codebooks: torch.Tensor, *,
+                              with_minval: bool = False):
+    """Plain version of K3 -> ``(sums [m, k, s], counts [m, k], inertia [])``
+    (and the scan's minimum scores ``[n, m]`` last, ``with_minval``),
     in the kernel's order: :func:`_pq_scan_plain`; the sums and counts of
     the ``[n·m, s]`` view of ``x`` labelled ``i·k + code`` (entry r·m + i:
     row r's subspace i) over m·k clusters, in the segmented order
@@ -752,7 +754,8 @@ def pq_lloyd_accumulate_plain(x: torch.Tensor, codebooks: torch.Tensor):
         xx = xx + xf[:, e] * xf[:, e]
     t = smin.reshape(-1) + xx
     inertia = _k3_inertia(torch.where(torch.isnan(t), t, t.clamp_min(0.0)))
-    return sums.reshape(m, k, s), counts.reshape(m, k), inertia
+    out = (sums.reshape(m, k, s), counts.reshape(m, k), inertia)
+    return out + (smin,) if with_minval else out
 
 
 def _pq_lloyd_card(x: torch.Tensor, cb: torch.Tensor):
@@ -784,9 +787,12 @@ def _pq_lloyd_card(x: torch.Tensor, cb: torch.Tensor):
     return sums, counts, inertia, minval
 
 
-def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor):
+def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor, *,
+                              with_minval: bool = False):
     """One Lloyd pass over ``x [n, m*s]`` for all m subspaces ->
-    ``(sums [m, k, s], counts [m, k], inertia [])``, all f32.
+    ``(sums [m, k, s], counts [m, k], inertia [])``, all f32; with
+    ``with_minval``, also the scan's minimum score of each (row, subspace)
+    ``[n, m]``, the term the inertia adds ``||x_i||^2`` to.
 
     On the card the result is bit-identical from run to run and to the
     plain version: both sum in one segmented order (``csrc/pq_lloyd.cu``:
@@ -794,8 +800,9 @@ def pq_lloyd_accumulate_fused(x: torch.Tensor, codebooks: torch.Tensor):
     x = x.to(torch.float32)
     cb = codebooks.to(torch.float32)
     if not _on_card(x, cb):
-        return pq_lloyd_accumulate_plain(x, cb)
-    return _pq_lloyd_card(x.contiguous(), cb.contiguous())[:3]
+        return pq_lloyd_accumulate_plain(x, cb, with_minval=with_minval)
+    out = _pq_lloyd_card(x.contiguous(), cb.contiguous())
+    return out if with_minval else out[:3]
 
 
 pq_lloyd_accumulate_fused.launches = 0

@@ -4,7 +4,9 @@ checkpoint written by either package loads in the other: a JSON header
 ``__vq_header__``, then the model's arrays by name. The port carries
 the kinds ``"pq"``, ``"pq_aniso"``, ``"opq"``, ``"sq"``, ``"sq_perdim"``,
 ``"rq"``, ``"bq"``, ``"tsvq"`` (:func:`save` /
-:func:`load`), ``"kmeans_harness"`` (``Kmeans.save`` / ``load``), the
+:func:`load`), ``"kmeans_harness"`` (``Kmeans.save`` / ``load``),
+``"kmeans_state"`` (:func:`save_kmeans_state` /
+:func:`load_kmeans_state`, a resumable Lloyd run), the
 indexes of :data:`INDEX_KINDS` (each index's ``save`` / ``load``, and
 :func:`vq_tpu_torch.factory.load_index`); the layouts are listed in
 :mod:`vq_tpu_torch.convert`.
@@ -18,12 +20,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
+import torch
 
 from vq_tpu_torch.convert import from_state, state_of
 from vq_tpu_torch.errors import InvalidData
+from vq_tpu_torch.models.base import as_tensor
 
 _FORMAT_VERSION = 1
 # Index kinds (what ``load_index`` reads) and, among them, the wrappers
@@ -31,7 +35,7 @@ _FORMAT_VERSION = 1
 WRAPPER_KINDS = ("transformed_index", "refine_index", "idmap_index")
 INDEX_KINDS = ("flat_index", "pq_index", "binary_index", "sq_index", "rq_index",
                "ivfpq_index", "ivfflat_index", "ivfsq_index", "ivfrq_index",
-               "ivfbinary_index") + WRAPPER_KINDS
+               "ivfbinary_index", "graph_index") + WRAPPER_KINDS
 
 
 def _to_npz(path: str, kind: str, config: Dict[str, Any],
@@ -89,3 +93,35 @@ def load(path: str, device=None, *, expect=None):
     if kind in WRAPPER_KINDS:
         base = load(os.path.join(os.path.dirname(path), config["base_file"]), device)
     return from_state(kind, config, arrays, device=device, base=base)
+
+
+class KMeansCheckpoint(NamedTuple):
+    """Mid-training Lloyd state, everything a run needs to resume."""
+
+    centroids: torch.Tensor  # [k, d] or [m, k, d]
+    iteration: int
+    seed: int
+
+
+def save_kmeans_state(path: str, state: KMeansCheckpoint) -> str:
+    """Write an in-progress Lloyd run as a ``kmeans_state`` ``.npz`` (the
+    JAX package's kind, so either package resumes it); returns the path."""
+    c = state.centroids
+    if isinstance(c, torch.Tensor):
+        c = c.detach().cpu().numpy()
+    return _to_npz(path, "kmeans_state",
+                   {"iteration": int(state.iteration), "seed": int(state.seed)},
+                   {"centroids": np.asarray(c, np.float32)})
+
+
+def load_kmeans_state(path: str, device=None) -> KMeansCheckpoint:
+    """Read a ``kmeans_state`` checkpoint written by either package, its
+    centroids on ``device`` (the card by default)."""
+    kind, config, arrays = _from_npz(path)
+    if kind != "kmeans_state":
+        raise InvalidData(f"expected a kmeans_state checkpoint, got {kind!r}")
+    return KMeansCheckpoint(
+        centroids=as_tensor(np.asarray(arrays["centroids"], np.float32), device),
+        iteration=int(config["iteration"]),
+        seed=int(config["seed"]),
+    )
