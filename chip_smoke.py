@@ -186,7 +186,18 @@ Phases, one line each (any failure exits non-zero with no result line):
    for bit; ``lloyd_minibatch`` (K2) and ``pq_minibatch_update`` (K3)
    over one epoch of the 1M rows, against the plain route; seven
    ``index_factory`` pipelines and ``tune`` over two
-   (:func:`phase_last_modules`).
+   (:func:`phase_last_modules`);
+19. sharded — ``vq_tpu_torch.parallel`` in a world of one on NCCL:
+   ``sharded_pq_train`` 8x256 on the 1M rows, ``sharded_lloyd`` k 1024
+   on 200k, ``sharded_pq_encode`` of 1M, ``sharded_pq_minibatch_update``
+   over one epoch of 8192-row batches, ``sharded_opq_train`` on 200k and
+   ``sharded_flat_search`` over the 1M ``PQIndex``, ``RQIndex``,
+   ``FlatIndex`` and ``SQIndex``: launch counts of K2-K5 from that run,
+   each result held to its single-device counterpart bit for bit
+   (``overlap=False``) or within 1e-5 (the overlap's steps); the 2-rank
+   gloo dry run on this card held to the world of one; CUDA-event times
+   of a sharded Lloyd step, its ``all_reduce`` and the sharded search
+   (:func:`phase_sharded`).
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -333,6 +344,7 @@ KERNEL_CALLERS = (
     ("vq_tpu_torch.search", ("adc_scan_topk_fused",)),
     ("vq_tpu_torch.models.pq_anisotropic", ("adc_scan_topk_fused",)),
     ("vq_tpu_torch.ivf", ("ivf_probe_adc_fused",)),
+    ("vq_tpu_torch.parallel.kmeans", ("lloyd_accumulate_fused", "pq_lloyd_accumulate_fused")),
     ("vq_tpu_torch.ivf_flat", ("ivf_probe_matvec_fused", "ivf_probe_adc_fused")),
     ("vq_tpu_torch.benchmarks.mpacked_encode", ("pq_encode_fused",)),
     ("vq_tpu_torch.benchmarks.adc_vmem_bench", ("adc_lookup_fused",)),
@@ -1690,6 +1702,25 @@ def profile_line(smi, name, fn, sort_keys=(), warm=True):
     log("profile", f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, busy {dev / wall:.2f}; "
         + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
         + k2 + k7 + k8 + sorts + f" | {smi}")
+
+
+def host_line(smi, name, fn, top: int = 8):
+    """One warm call of ``fn`` under ``torch.profiler`` on the host: one
+    ``[host]`` line of its wall and the operators that took most of the
+    host's time (self CPU time, with their call counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    log("host", f"{name}: wall {wall:.3f} ms; " + ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in ops) + f" | {smi}")
 
 
 def make_bench_data(device):
@@ -3257,6 +3288,202 @@ def phase_last_modules(smi, corpus, queries, gt, main):
     return dict(paths=paths, by_path=by_path, recall=recall, t=t)
 
 
+def phase_sharded(smi, corpus, queries, main, rqres):
+    """Phase 19, the sharded layer (``vq_tpu_torch.parallel``) on the
+    phase-4 mixture in a world of one on NCCL, where every collective is a
+    real call: ``sharded_pq_train`` 8x256 on the 1M rows, ``sharded_lloyd``
+    k 1024 on the 200k training rows, ``sharded_pq_encode`` of 1M,
+    ``sharded_pq_minibatch_update`` over one epoch of 8192-row batches,
+    ``sharded_opq_train`` on the 200k rows and ``sharded_flat_search`` of
+    the 128 queries over the 1M ``PQIndex``, ``RQIndex``, ``FlatIndex``
+    and ``SQIndex``. Launches read from that run (K2, K3, K4, K5 each at
+    least once); each result held to its single-device counterpart bit for
+    bit with ``overlap=False`` and within 1e-5 with the overlap (one
+    warm-started step). Then ``python -m vq_tpu_torch.parallel.dryrun``
+    as a 2-rank gloo world on this card, held to the same run in this
+    world of one, and CUDA-event times: one sharded Lloyd step beside
+    K3's single-device pass, its ``all_reduce`` alone, and the sharded flat
+    search beside ``PQIndex.search``."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import vq_tpu_torch
+    from vq_tpu_torch import parallel as P
+    from vq_tpu_torch.ops import cuda_kernels as ck
+    from vq_tpu_torch.ops.kmeans import lloyd, lloyd_batched
+    from vq_tpu_torch.ops.kmeans_stream import pq_minibatch_update
+    from vq_tpu_torch.parallel import dryrun
+    from vq_tpu_torch.parallel.kmeans import global_accumulate
+    from vq_tpu_torch.parallel.mesh import all_reduce_sum
+
+    import torch.distributed as dist
+
+    P.init_distributed(device_type="cuda")
+    mesh = P.make_mesh(device_type="cuda")
+    group = mesh.get_group(P.DATA_AXIS)
+    # NCCL makes its communicator at a group's first collective: once here,
+    # outside the path's walls.
+    probe = torch.zeros(1, device=corpus.device)
+    _, t_setup = cuda_once(lambda: (dist.all_reduce(probe, group=group),
+                                    dist.all_gather([torch.empty_like(probe)], probe, group=group)))
+    log("sharded", f"world of one on {dist.get_backend()}: {mesh}; the first collectives "
+        f"{t_setup:.1f} ms (communicator set-up)")
+    by_path, wall = {}, {}
+    counted = _counter(by_path, wall)
+    train_rows = corpus[:N_IVF_TRAIN]
+    pq_index, rq_index = main["index"], rqres["indexes"]["l2"]
+    flat = vq_tpu_torch.FlatIndex.from_data(corpus)
+    sq = vq_tpu_torch.SQIndex.from_data(corpus)
+    indexes = {"pq": pq_index, "rq": rq_index, "flat": flat, "sq": sq}
+    batches = [corpus[i:i + MB_BATCH] for i in range(0, N_CORPUS, MB_BATCH)]
+    torch.cuda.synchronize()
+    reset_counts()  # the sharded main path from here to read_counts()
+    before = read_counts()
+    out = {}
+    out["pq"] = counted("sharded_pq_train", lambda: P.sharded_pq_train(
+        corpus, M, K, 10, seed=0, mesh=mesh, overlap=False))
+    cb = out["pq"].centroids.to_local()
+    out["pq_step"] = counted("sharded_pq_train overlap step", lambda: P.sharded_pq_train(
+        corpus, M, K, 1, mesh=mesh, init_codebooks=cb))
+    out["lloyd"] = counted("sharded_lloyd", lambda: P.sharded_lloyd(
+        train_rows, NLIST, 10, seed=0, mesh=mesh, overlap=False))
+    out["lloyd_step"] = counted("sharded_lloyd overlap step", lambda: P.sharded_lloyd(
+        train_rows, NLIST, 1, seed=0, mesh=mesh))
+    out["codes"] = counted("sharded_pq_encode", lambda: P.sharded_pq_encode(corpus, cb, mesh=mesh))
+
+    def stream(overlap):
+        c, n = cb, torch.zeros((M, K), device=corpus.device)
+        for b in batches:
+            c, n, i = (t.to_local() for t in P.sharded_pq_minibatch_update(c, n, b, mesh=mesh,
+                                                                         overlap=overlap))
+        return c, n, i
+
+    out["stream"] = counted("sharded_pq_minibatch_update", lambda: stream(False))
+    zero = torch.zeros((M, K), device=corpus.device)
+    out["stream_step"] = counted("sharded_pq_minibatch_update overlap step", lambda: [
+        t.to_local() for t in P.sharded_pq_minibatch_update(cb, zero, batches[0], mesh=mesh)])
+    out["opq"] = counted("sharded_opq_train", lambda: P.sharded_opq_train(
+        train_rows, M, K, opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS, mesh=mesh, overlap=False))
+    for kind, idx in indexes.items():
+        out[f"search {kind}"] = counted(f"sharded_flat_search {kind}", lambda idx=idx: (
+            P.sharded_flat_search(idx, queries, 10, mesh=mesh)))
+    after = read_counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    log("sharded", f"launches of the sharded path: {launches}")
+    log("sharded", "host wall by call (ms): " + ", ".join(f"{n} {v:.1f}" for n, v in wall.items()))
+    for kernel in ("lloyd_accumulate_fused", "pq_lloyd_accumulate_fused", "pq_encode_fused",
+                   "adc_scan_topk_fused"):
+        assert launches.get(kernel, 0) > 0, f"sharded path: {kernel} was not launched: {launches}"
+
+    # The single-device counterparts, on the same card.
+    xb = corpus.view(N_CORPUS, M, DIM // M).permute(1, 0, 2)
+    want_cb, want_it, _ = lloyd_batched(xb, K, 10, 0)
+    r = out["pq"]
+    assert torch.equal(cb, want_cb), "sharded_pq_train (overlap=False) != lloyd_batched"
+    assert torch.equal(r.iterations.to_local(), want_it)
+    want_inertia = ck.pq_lloyd_accumulate_fused(corpus, want_cb)[2]
+    assert torch.equal(r.inertia.to_local(), want_inertia), "sharded_pq_train inertia"
+    step_want, _, _ = lloyd_batched(xb, K, 1, 0, init_centroids=cb)
+    step_got = out["pq_step"].centroids.to_local()
+    err = {"pq overlap step": float((step_got - step_want).abs().max())}
+    torch.testing.assert_close(step_got, step_want, rtol=1e-5, atol=1e-5)
+    # sharded_lloyd(seed=s) draws as lloyd(seed=s * 1_000_003): at seed 0, the same stream.
+    ref = lloyd(train_rows, NLIST, 10, seed=0)
+    lr = out["lloyd"]
+    assert torch.equal(lr.centroids.to_local(), ref.centroids), "sharded_lloyd != lloyd"
+    assert int(lr.iterations.to_local()) == int(ref.iterations)
+    torch.testing.assert_close(lr.inertia.to_local(), ref.inertia, rtol=1e-5, atol=0.0)
+    one = lloyd(train_rows, NLIST, 1, seed=0).centroids
+    err["lloyd overlap step"] = float((out["lloyd_step"].centroids.to_local() - one).abs().max())
+    torch.testing.assert_close(out["lloyd_step"].centroids.to_local(), one, rtol=1e-5, atol=1e-5)
+    want_codes = ck.pq_encode_fused(corpus, cb)
+    assert torch.equal(out["codes"].to_local(), want_codes), "sharded_pq_encode != K4"
+    c, n = cb, zero
+    for b in batches:
+        c, n, i = pq_minibatch_update(c, n, b)
+    assert all(torch.equal(a, w) for a, w in zip(out["stream"], (c, n, i))), \
+        "sharded_pq_minibatch_update (overlap=False) != pq_minibatch_update"
+    sw = pq_minibatch_update(cb, zero, batches[0])
+    assert torch.equal(out["stream_step"][1], sw[1])
+    err["stream overlap step"] = float((out["stream_step"][0] - sw[0]).abs().max())
+    torch.testing.assert_close(out["stream_step"][0], sw[0], rtol=1e-5, atol=1e-5)
+    rot1, cb1 = vq_tpu_torch.opq_train(train_rows, M, K, opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS)
+    rot, ocb = (t.to_local() for t in out["opq"])
+    assert torch.equal(rot, rot1) and torch.equal(ocb, cb1), "sharded_opq_train != opq_train"
+    for kind, idx in indexes.items():
+        want = idx.search(queries, 10)
+        got = out[f"search {kind}"]
+        assert all(torch.equal(a, w) for a, w in zip(got, want)), f"sharded_flat_search {kind}"
+    log("sharded", "world of one on NCCL: sharded_pq_train, sharded_lloyd, sharded_pq_encode, "
+        "the minibatch epoch, sharded_opq_train and the four flat searches equal their "
+        f"single-device counterparts bit for bit; the overlap steps' largest gaps {err}")
+
+    # The 2-rank gloo world on this card, held to the same checks in this world of one.
+    work = os.path.join("build", "chip_smoke_phase19")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vq_tpu_torch.parallel.dryrun", "--ranks", "2", "--device", "cuda",
+         "--backend", "gloo", "--out", os.path.join(work, "run2.npz")],
+        capture_output=True, text=True, timeout=300)
+    t_spawn = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit("chip_smoke: the 2-rank dry run failed:\n"
+                         f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    with np.load(os.path.join(work, "run2.npz")) as f:
+        run2 = {k: f[k] for k in f.files}
+    shutil.rmtree(work)
+    inputs = dryrun.make_inputs()
+    small = dryrun.build_indexes(inputs, torch.device("cuda"))
+    run1 = dryrun.run_checks("cuda", small, inputs)
+    n1 = dryrun.check_single_device(run1, inputs, small, torch.device("cuda"))
+    n2 = dryrun.compare_runs(run2, run1)
+    log("sharded", f"{proc.stdout.strip()} ({t_spawn:.1f} s with its spawn); world of one: {n1} "
+        f"results held to the single-device functions; the 2-rank run's {n2} results held to it")
+
+    # CUDA-event times: one Lloyd step (the global accumulate), its all_reduce, the flat search.
+    # On one rank the step is one sweep whatever the overlap asks (its halves
+    # would hide nothing); ``dryrun --full`` times the halves across cards.
+    def step():
+        return global_accumulate(corpus, None, cb, N_CORPUS // 2, False, group)
+
+    sums, counts, inertia = ck.pq_lloyd_accumulate_fused(corpus, cb)
+    t = {
+        "K3 single-device pass": cuda_ms(lambda: ck.pq_lloyd_accumulate_fused(corpus, cb), 5),
+        "sharded step": cuda_ms(step, 5),
+        "its all_reduce alone": cuda_ms(lambda: all_reduce_sum([sums, counts, inertia], group), 20),
+        "PQIndex.search": cuda_ms(lambda: pq_index.search(queries, 10), 5),
+        "sharded_flat_search PQIndex": cuda_ms(
+            lambda: P.sharded_flat_search(pq_index, queries, 10, mesh=mesh), 5),
+        "opq_train 200k, 6 x 3": cuda_ms(lambda: vq_tpu_torch.opq_train(
+            train_rows, M, K, opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS), 1),
+        "sharded_opq_train 200k, 6 x 3": cuda_ms(lambda: P.sharded_opq_train(
+            train_rows, M, K, opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS, mesh=mesh), 1),
+    }
+    log("sharded", "CUDA-event ms (1M x 128, 8x256x16; 128 queries, k 10): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in t.items()) + f" | {smi}")
+    opq_args = dict(opq_iters=OPQ_ITERS, pq_iters=OPQ_PQ_ITERS)
+    profiled = {
+        "sharded Lloyd step, 1M": step,
+        "sharded_opq_train 200k, 6 x 3": lambda: P.sharded_opq_train(train_rows, M, K, mesh=mesh,
+                                                                     **opq_args),
+        "opq_train 200k, 6 x 3": lambda: vq_tpu_torch.opq_train(train_rows, M, K, **opq_args),
+        "sharded_flat_search PQIndex": lambda: P.sharded_flat_search(pq_index, queries, 10,
+                                                                     mesh=mesh),
+    }
+    for name, fn in profiled.items():
+        profile_line(smi, name, fn)
+    host_line(smi, "sharded_opq_train 200k, 6 x 3", profiled["sharded_opq_train 200k, 6 x 3"])
+    host_line(smi, "opq_train 200k, 6 x 3", profiled["opq_train 200k, 6 x 3"])
+    del flat, sq, out
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, by_path=by_path, t=t, err=err, dryrun=(n1, n2))
+
+
 def eval_fields(key, t_eval, bounds, rows):
     """Extra fields of the K3 / K4 rows: their time, plain time and bound
     at the eval harness's shape."""
@@ -3381,6 +3608,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     last = timed("phase_last_modules", phase_last_modules, smi, corpus, queries, main_res["gt"],
                  main_res)
+    torch.cuda.empty_cache()
+    sh = timed("phase_sharded", phase_sharded, smi, corpus, queries, main_res, rqres)
     log("time", f"kernel build {build_s:.2f} s | {smi}")
     log("time", "each phase's host wall: " + ", ".join(f"{n} {v:.1f} s" for n, v in walls.items()))
 
@@ -3427,6 +3656,8 @@ def main() -> None:
         for path, counts in last["paths"].items():  # phase 18's paths
             if counts.get(kernel):
                 paths[path] = counts[kernel]
+        if sh["launches"].get(kernel):  # phase 19's run
+            paths["sharded"] = sh["launches"][kernel]
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     e_m, e_k, e_s = PQ_EVAL
     e_ops = 2.0 * e_m * e_k * e_s

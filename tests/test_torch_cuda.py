@@ -1811,3 +1811,56 @@ def test_kmeans_steps_on_the_card_equal_the_plain_route(card, monkeypatch, tmp_p
                                resume_from=ck_path + "kernel")
     assert ck.lloyd_accumulate_fused.launches == before + 2  # iterations 5 and 6
     assert torch.equal(resumed.centroids, runs["kernel"][0])
+
+
+def test_sharded_layer_on_the_card_equals_the_plain_route(card, monkeypatch):
+    """``vq_tpu_torch.parallel`` in a world of one on NCCL:
+    ``sharded_pq_train`` (K3, and K2 with weights), ``sharded_lloyd``
+    (K2), ``sharded_pq_minibatch_update`` (K3), ``sharded_pq_encode`` (K4)
+    and ``sharded_flat_search`` over a ``PQIndex`` (K5), each bit for bit
+    against the same calls with the kernels swapped for their plain
+    versions, with and without the overlap."""
+    import torch.distributed as dist
+
+    import vq_tpu_torch
+    import vq_tpu_torch.models.pq as tpq
+    import vq_tpu_torch.parallel as P
+    import vq_tpu_torch.ops.kmeans_stream as kst
+    import vq_tpu_torch.parallel.kmeans as pk
+
+    x, q = _flat_data(card)
+    w = torch.rand(x.shape[0], generator=torch.Generator(device=card).manual_seed(2),
+                   device=card) + 1.0
+    index = vq_tpu_torch.PQIndex(vq_tpu_torch.ProductQuantizer(x[:20_000], 8, 64, seed=3))
+    index.add(x)
+    P.init_distributed(device_type="cuda")
+    try:
+        mesh = P.make_mesh(device_type="cuda")
+        runs = {}
+        for route in ("kernel", "plain"):
+            with monkeypatch.context() as m:
+                if route == "plain":
+                    for mod, names in ((pk, ("lloyd_accumulate_fused", "pq_lloyd_accumulate_fused")),
+                                       (kst, ("pq_lloyd_accumulate_fused",)),
+                                       (tpq, ("pq_encode_fused", "adc_scan_topk_fused"))):
+                        for name in names:
+                            m.setattr(mod, name, getattr(ck, name.replace("_fused", "_plain")))
+                out = []
+                for overlap in (False, True):
+                    r = P.sharded_pq_train(x, 8, 64, 4, seed=1, mesh=mesh, overlap=overlap,
+                                           block_rows=1024)
+                    rw = P.sharded_pq_train(x, 8, 64, 2, mesh=mesh, overlap=overlap, weights=w,
+                                            init_codebooks=r.centroids, block_rows=1024)
+                    lr = P.sharded_lloyd(x, 64, 3, seed=1, mesh=mesh, overlap=overlap,
+                                         block_rows=1024)
+                    s = P.sharded_pq_minibatch_update(r.centroids, torch.ones(8, 64, device=card),
+                                                      x[:8192], mesh=mesh, overlap=overlap)
+                    out += [t.to_local() for t in (r.centroids, r.inertia, rw.centroids, lr.centroids,
+                                                   lr.inertia, *s)]
+                out.append(P.sharded_pq_encode(x, out[0], mesh=mesh).to_local())
+                out += list(P.sharded_flat_search(index, q, 10, mesh=mesh))
+                runs[route] = out
+        for a, b in zip(runs["kernel"], runs["plain"]):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

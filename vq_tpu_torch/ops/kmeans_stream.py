@@ -102,6 +102,20 @@ def minibatch_update(centroids, counts, batch, k: Optional[int] = None):
     return new_c, new_counts, inertia
 
 
+def _pq_batch_stats(cb: torch.Tensor, x: torch.Tensor):
+    """``(sums [m, k, s], mass [m, k], inertia [m])`` of the rows ``x [b,
+    m*s]`` against ``cb [m, k, s]``: one K3 pass; subspace i's inertia
+    sums ``max(min_score + ||x_i||^2, 0)`` over rows (``||x_i||^2`` added
+    from +0.0 in ascending element order)."""
+    m, _, s = cb.shape
+    sums, mass, _, minval = pq_lloyd_accumulate_fused(x, cb, with_minval=True)
+    xs = x.reshape(-1, m, s)
+    xx = torch.zeros((xs.shape[0], m), dtype=torch.float32, device=x.device)
+    for e in range(s):
+        xx = xx + xs[..., e] * xs[..., e]
+    return sums, mass, (minval + xx).clamp_min(0.0).sum(0)
+
+
 def pq_minibatch_update(centroids, counts, batch):
     """One mini-batch step over all PQ subspaces at once.
 
@@ -118,12 +132,7 @@ def pq_minibatch_update(centroids, counts, batch):
     x = as_tensor(batch, cb.device).to(torch.float32)
     if x.ndim != 2 or x.shape[1] != m * s:
         raise InvalidParameter("batch", f"expected [b, {m * s}] rows, got {tuple(x.shape)}")
-    sums, mass, _, minval = pq_lloyd_accumulate_fused(x, cb, with_minval=True)
-    xs = x.reshape(-1, m, s)
-    xx = torch.zeros((xs.shape[0], m), dtype=torch.float32, device=x.device)
-    for e in range(s):
-        xx = xx + xs[..., e] * xs[..., e]
-    inertia = (minval + xx).clamp_min(0.0).sum(0)
+    sums, mass, inertia = _pq_batch_stats(cb, x)
     new_c, new_counts = _online_mean(cb, as_tensor(counts, cb.device).to(torch.float32), sums, mass)
     return new_c, new_counts, inertia
 
