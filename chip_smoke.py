@@ -195,9 +195,20 @@ Phases, one line each (any failure exits non-zero with no result line):
    ``FlatIndex`` and ``SQIndex``: launch counts of K2-K5 from that run,
    each result held to its single-device counterpart bit for bit
    (``overlap=False``) or within 1e-5 (the overlap's steps); the 2-rank
-   gloo dry run on this card held to the world of one; CUDA-event times
-   of a sharded Lloyd step, its ``all_reduce`` and the sharded search
-   (:func:`phase_sharded`).
+   gloo dry run on this card (with the serving checks of the dry run)
+   held to the world of one; CUDA-event times of a sharded Lloyd step,
+   its ``all_reduce`` and the sharded search (:func:`phase_sharded`);
+20. sharded serving — in the same world of one: ``sharded_ivf_search``
+   over the 1M IVF-PQ (K7) and ``sharded_ivf_scan_search`` over the 1M
+   IVF-Flat f32 / bf16 and IVF-SQ (K6), IVF-RQ (K7) and a 1M
+   ``IVFBinaryIndex`` at nprobe 8 / 64, ``sharded_graph_search`` over
+   phase 18's graph at beam 16 / 64, ``sharded_refine_search`` over a
+   sharded IVF-PQ base with sq8 codes (its ``BatchPipeline.from_core``
+   over 8 batches) and over a flat ``PQIndex`` base (K5), and the
+   IVF-Flat searched again after a ``remove_ids`` of 1,000 rows: launch
+   counts of K5-K7 from that run, every result bit for bit its
+   single-device search, CUDA-event times beside the single-device ones
+   (:func:`phase_sharded_serving`).
 
 Before the last line it prints a JSON line of per-kernel results (each
 with its launches on its path, its error against the plain version, its
@@ -561,6 +572,21 @@ def phase_device():
         f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    backend = vq_tpu_torch.get_backend()
+    log("device", f"vq_tpu_torch.get_backend(): {backend}")
+    assert backend == f"CUDA ({torch.cuda.get_device_name(0)})", backend
+    # The native C++ oracle (g++ on first use) against the port's CPU route.
+    from vq_tpu_torch import native
+
+    g = torch.Generator().manual_seed(SEED)
+    x, cb = torch.randn(10_000, DIM, generator=g), torch.randn(M, K, DIM // M, generator=g)
+    t0 = time.perf_counter()
+    codes = native.pq_encode(x.numpy(), cb.numpy())
+    secs = time.perf_counter() - t0
+    assert (codes == vq_tpu_torch.pq_encode(x, cb, "squared_euclidean").numpy()).all(), \
+        "native pq_encode differs from the port's CPU route"
+    log("device", f"vq_tpu_torch.native ({native.get_native_backend()}): pq_encode of 10,000 x "
+        f"{DIM} rows ({M}x{K}x{DIM // M}) equals the port's CPU route, {secs:.2f} s with its build")
     return smi
 
 
@@ -2973,7 +2999,7 @@ def phase_transforms_refine_serving(smi, corpus, queries, pipe_q, gt, main, ivf,
     profile_line(smi, f"itq_train to {ITQ_BITS} bits, 1M rows",
                  lambda: vq_tpu_torch.itq_train(corpus, ITQ_BITS, seed=SEED))
 
-    # A stale pipeline after rebalance() (phase 7's IVF-Flat, used by no later phase).
+    # A stale pipeline after rebalance() (phase 7's IVF-Flat; phase 20 serves it rebalanced).
     stale = pipes["ivf-flat"]
     info = counted("ivf-flat rebalance", served["ivf-flat"][0].rebalance)
     try:
@@ -3142,8 +3168,6 @@ def phase_last_modules(smi, corpus, queries, gt, main):
     g = _graph_phase(smi, corpus, queries, gt, counted, recall, t)
     profile_line(smi, "GraphIndex.search 128 q over 1M, k=10, beam=64",
                  lambda: g.search(queries, k=10, beam=64), SORT_KERNELS)
-    del g
-    torch.cuda.empty_cache()
 
     # lloyd_stepped: 20 iterations, and 10 + a resume from the checkpoint at 10.
     train = corpus[:N_IVF_TRAIN]
@@ -3285,7 +3309,7 @@ def phase_last_modules(smi, corpus, queries, gt, main):
                 for kernel, n in calls.items():
                     paths[path][kernel] = paths[path].get(kernel, 0) + n
     log("last", f"launches in phase 18 by path: {paths}")
-    return dict(paths=paths, by_path=by_path, recall=recall, t=t)
+    return dict(paths=paths, by_path=by_path, recall=recall, t=t, graph=g)  # phase 20 serves g
 
 
 def phase_sharded(smi, corpus, queries, main, rqres):
@@ -3479,9 +3503,137 @@ def phase_sharded(smi, corpus, queries, main, rqres):
     host_line(smi, "sharded_opq_train 200k, 6 x 3", profiled["sharded_opq_train 200k, 6 x 3"])
     host_line(smi, "opq_train 200k, 6 x 3", profiled["opq_train 200k, 6 x 3"])
     del flat, sq, out
+    torch.cuda.empty_cache()  # the world of one stays up for phase 20
+    return dict(launches=launches, by_path=by_path, t=t, err=err, dryrun=(n1, n2))
+
+
+def phase_sharded_serving(smi, corpus, queries, pipe_q, main, ivf, flat, rqres, graph):
+    """Phase 20, the sharded serving layer in phase 19's world of one on
+    NCCL, at full width over the indexes earlier phases hold: the 1M
+    IVF-PQ (phase 6), IVF-Flat f32 (rebalanced by phase 17) / bf16 and
+    IVF-SQ (phase 7), IVF-RQ (phase 10), a 1M ``IVFBinaryIndex`` on the
+    IVF-Flat coarse centroids and phase 18's 1M graph.
+    ``sharded_ivf_search`` / ``sharded_ivf_scan_search`` at nprobe 8 and
+    64, ``sharded_graph_search`` at beam 16 and 64, ``sharded_refine_search``
+    over a sharded IVF-PQ base with sq8 codes and over a flat ``PQIndex``
+    base with f32 codes, the sq8 one's ``BatchPipeline.from_core`` over
+    the 8 x 128 pipeline queries, and a ``remove_ids`` of 1,000 rows of the
+    IVF-Flat f32 followed by its sharded search (the blocks must follow the
+    pool: R3). Launches read from that run (K5, K6 and K7 each at least
+    once); every result held bit for bit to the single-device search (a
+    world of one must be exact); CUDA-event times of the sharded IVF-PQ /
+    IVF-Flat searches beside the single-device ones; each block's bytes."""
+    import torch
+    import torch.distributed as dist
+
+    import vq_tpu_torch
+    from vq_tpu_torch import parallel as P
+    from vq_tpu_torch.parallel.ivf_scan import _shard_lists
+
+    mesh = P.make_mesh(device_type="cuda")  # the world of one that phase 19 started
+    flats = flat["indexes"]
+    train = corpus[:N_IVF_TRAIN]
+    # Set-up, outside the path: the binary index and the two refine indexes.
+    binary = vq_tpu_torch.IVFBinaryIndex(flats["flat_bf16"].coarse)
+    binary.add(corpus)
+    ivfpq = ivf["index"]
+    refs = {"sq8 over IVF-PQ": (vq_tpu_torch.RefineIndex(
+                vq_tpu_torch.IVFPQIndex(ivfpq.coarse, ivfpq.pq), "sq8", sq_train_data=train),
+                dict(nprobe=NPROBES[0])),
+            "flat over PQIndex": (vq_tpu_torch.RefineIndex(
+                vq_tpu_torch.PQIndex(main["pq"]), "flat"), {})}
+    for ref, _ in refs.values():
+        ref.add(corpus)
+    indexes = {"ivfpq": (ivfpq, P.sharded_ivf_search),
+               "ivfflat_f32": (flats["flat_f32"], P.sharded_ivf_scan_search),
+               "ivfflat_bf16": (flats["flat_bf16"], P.sharded_ivf_scan_search),
+               "ivfsq": (flats["sq"], P.sharded_ivf_scan_search),
+               "ivfrq": (rqres["ivf"], P.sharded_ivf_scan_search),
+               "ivfbinary": (binary, P.sharded_ivf_scan_search)}
+    by_path, wall = {}, {}
+    counted = _counter(by_path, wall)
+    gone = torch.arange(0, N_CORPUS, N_CORPUS // 1000, device=corpus.device)[:1000]
+    pipe_batches = pipe_q.reshape(-1, PIPE_BATCH, DIM)
+    f32 = flats["flat_f32"]
+    want_f32 = {p: f32.search(queries, 10, nprobe=p) for p in NPROBES}  # before the removal
+    torch.cuda.synchronize()
+    reset_counts()  # the sharded serving path from here to read_counts()
+    before = read_counts()
+    out = {}
+    for name, (idx, fn) in indexes.items():
+        for p in NPROBES:
+            out[(name, p)] = counted(f"{name} nprobe={p}", lambda idx=idx, fn=fn, p=p: fn(
+                idx, queries, 10, nprobe=p, mesh=mesh))
+    for beam in (GRAPH_BEAMS[0], GRAPH_BEAMS[-1]):
+        out[("graph", beam)] = counted(f"graph beam={beam}", lambda beam=beam: (
+            P.sharded_graph_search(graph, queries, 10, beam=beam, mesh=mesh)))
+    for name, (ref, kw) in refs.items():
+        out[name] = counted(f"refine {name}", lambda ref=ref, kw=kw: P.sharded_refine_search(
+            ref, queries, 10, k_factor=K_FACTOR, mesh=mesh, **kw))
+    ref_sq8, kw_sq8 = refs["sq8 over IVF-PQ"]
+    core, arrays = P.sharded_refine_search_core(ref_sq8, 10, k_factor=K_FACTOR, mesh=mesh, **kw_sq8)
+    pipe = vq_tpu_torch.BatchPipeline.from_core(core, arrays, dim=DIM)
+    out["pipeline"] = counted("refine pipeline", lambda: pipe.search(pipe_batches))
+    version = f32._pool.version
+    assert counted("ivfflat_f32 remove_ids", lambda: f32.remove_ids(gone)) == gone.numel()
+    out["after remove"] = counted("ivfflat_f32 after remove_ids nprobe=8", lambda: (
+        P.sharded_ivf_scan_search(f32, queries, 10, nprobe=NPROBES[0], mesh=mesh)))
+    after = read_counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    log("serving", f"launches of the sharded serving path: {launches}")
+    log("serving", "host wall by call (ms): " + ", ".join(f"{n} {v:.1f}" for n, v in wall.items()))
+    for kernel in ("ivf_probe_matvec_fused", "ivf_probe_adc_fused", "adc_scan_topk_fused"):
+        assert launches.get(kernel, 0) > 0, f"sharded serving: {kernel} was not launched: {launches}"
+    assert f32._pool.version != version and f32._shard_cache[2] == f32._pool.version
+
+    # The single-device searches on the same indexes, bit for bit.
+    def same(got, want, name):
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), f"sharded {name} != single device"
+
+    for name, (idx, _) in indexes.items():
+        for p in NPROBES:
+            want = want_f32[p] if name == "ivfflat_f32" else idx.search(queries, 10, nprobe=p)
+            same(out[(name, p)], want, f"{name} nprobe={p}")
+    for beam in (GRAPH_BEAMS[0], GRAPH_BEAMS[-1]):
+        same(out[("graph", beam)], graph.search(queries, 10, beam=beam), f"graph beam={beam}")
+    for name, (ref, kw) in refs.items():
+        same(out[name], ref.search(queries, 10, k_factor=K_FACTOR, **kw), f"refine {name}")
+    for b in range(pipe_batches.shape[0]):
+        same((out["pipeline"][0][b], out["pipeline"][1][b]),
+             ref_sq8.search(pipe_batches[b], 10, k_factor=K_FACTOR, **kw_sq8), f"pipeline batch {b}")
+    same(out["after remove"], f32.search(queries, 10, nprobe=NPROBES[0]), "ivfflat_f32 after remove")
+    log("serving", "world of one on NCCL: the sharded IVF-PQ, IVF-Flat f32 / bf16, IVF-SQ, IVF-RQ "
+        f"and IVF-Binary searches at nprobe {NPROBES}, the graph at beam "
+        f"{(GRAPH_BEAMS[0], GRAPH_BEAMS[-1])}, both refines and the {pipe_batches.shape[0]}-batch "
+        "pipeline equal their single-device searches bit for bit; after remove_ids of "
+        f"{gone.numel()} rows the IVF-Flat blocks were rebuilt (pool version {version} -> "
+        f"{f32._pool.version}) and the sharded search equals the single-device one")
+
+    # CUDA-event times beside the single-device searches, and each block's bytes.
+    t, blocks = {}, {}
+    for name in ("ivfpq", "ivfflat_f32"):
+        idx, fn = indexes[name]
+        b = _shard_lists(mesh, idx, tuple(getattr(idx, "_scan_payloads", ("codes",))))
+        blocks[name] = sum(a.numel() * a.element_size() for a in [b.ids, *b.payloads.values()])
+        for p in NPROBES:
+            core_fn, core_arrays = (P.sharded_ivf_search_core if name == "ivfpq"
+                                    else P.sharded_scan_search_core)(idx, 10, nprobe=p, mesh=mesh)
+            t[f"{name} sharded nprobe={p}"] = cuda_ms(lambda: core_fn(queries, *core_arrays), 10)
+            t[f"{name} single nprobe={p}"] = cuda_ms(lambda: idx.search(queries, 10, nprobe=p), 10)
+    t["graph sharded beam=64"] = cuda_ms(lambda: P.sharded_graph_search(
+        graph, queries, 10, beam=64, mesh=mesh), 3)
+    t["graph single beam=64"] = cuda_ms(lambda: graph.search(queries, 10, beam=64), 3)
+    t["refine sq8 sharded"] = cuda_ms(lambda: core(queries, *arrays), 5)
+    t["refine sq8 single"] = cuda_ms(lambda: ref_sq8.search(queries, 10, k_factor=K_FACTOR,
+                                                            **kw_sq8), 5)
+    log("serving", "CUDA-event ms (128 queries, k 10): " + ", ".join(
+        f"{n} {v:.4f}" for n, v in t.items()) + f"; block bytes {blocks} | {smi}")
+    profile_line(smi, f"sharded_ivf_search IVF-PQ nprobe={NPROBES[0]}", lambda: P.sharded_ivf_search(
+        ivfpq, queries, 10, nprobe=NPROBES[0], mesh=mesh), SORT_KERNELS)
+    del binary, refs, out, pipe, core, arrays
     dist.destroy_process_group()
     torch.cuda.empty_cache()
-    return dict(launches=launches, by_path=by_path, t=t, err=err, dryrun=(n1, n2))
+    return dict(launches=launches, by_path=by_path, t=t, blocks=blocks)
 
 
 def eval_fields(key, t_eval, bounds, rows):
@@ -3610,6 +3762,8 @@ def main() -> None:
                  main_res)
     torch.cuda.empty_cache()
     sh = timed("phase_sharded", phase_sharded, smi, corpus, queries, main_res, rqres)
+    sv = timed("phase_sharded_serving", phase_sharded_serving, smi, corpus, queries, pipe_q,
+               main_res, ivf, flat, rqres, last.pop("graph"))
     log("time", f"kernel build {build_s:.2f} s | {smi}")
     log("time", "each phase's host wall: " + ", ".join(f"{n} {v:.1f} s" for n, v in walls.items()))
 
@@ -3658,6 +3812,8 @@ def main() -> None:
                 paths[path] = counts[kernel]
         if sh["launches"].get(kernel):  # phase 19's run
             paths["sharded"] = sh["launches"][kernel]
+        if sv["launches"].get(kernel):  # phase 20's run
+            paths["sharded_serving"] = sv["launches"][kernel]
     bounds = kernel_bounds(res, kres, ivf, k7_cases, k6_cases, prec, rqres)
     e_m, e_k, e_s = PQ_EVAL
     e_ops = 2.0 * e_m * e_k * e_s

@@ -1864,3 +1864,67 @@ def test_sharded_layer_on_the_card_equals_the_plain_route(card, monkeypatch):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def test_sharded_serving_on_the_card_equals_the_plain_route(card, monkeypatch):
+    """The sharded serving layer in a world of one on NCCL:
+    ``sharded_ivf_search`` (K7, L2 and dot), ``sharded_ivf_scan_search``
+    over IVF-Flat (K6), IVF-SQ (K6), IVF-RQ (K7) and IVF-Binary,
+    ``sharded_graph_search`` and ``sharded_refine_search`` over an IVF-PQ
+    base with sq8 codes, each bit for bit against the same calls with the
+    kernels swapped for their plain versions, and against the indexes'
+    own single-device searches."""
+    import torch.distributed as dist
+
+    import vq_tpu_torch
+    import vq_tpu_torch.ivf as tivf
+    import vq_tpu_torch.ivf_flat as tflat
+    import vq_tpu_torch.parallel as P
+
+    x, q = _flat_data(card)
+    ivf = vq_tpu_torch.IVFPQIndex.train(x[:20_000], 64, 8, 64, max_iters=4, seed=3)
+    indexes = {
+        "ivfpq": ivf,
+        "ivfpq_dot": vq_tpu_torch.IVFPQIndex(ivf.coarse, ivf.pq, metric="dot"),
+        "ivfflat": vq_tpu_torch.IVFFlatIndex(ivf.coarse),
+        "ivfsq": vq_tpu_torch.IVFSQIndex.train(x[:20_000], 64, max_iters=4, seed=3),
+        "ivfrq": vq_tpu_torch.IVFRQIndex.train(x[:20_000], 64, 2, 64, max_iters=4, seed=3),
+        "ivfbinary": vq_tpu_torch.IVFBinaryIndex(ivf.coarse),
+    }
+    for idx in indexes.values():
+        idx.add(x)
+    graph = vq_tpu_torch.GraphIndex.build(x[:5_000], degree=16, seed=0)
+    ref = vq_tpu_torch.RefineIndex(vq_tpu_torch.IVFPQIndex(ivf.coarse, ivf.pq), "sq8",
+                                   sq_train_data=x[:20_000])
+    ref.add(x)
+    P.init_distributed(device_type="cuda")
+    try:
+        mesh = P.make_mesh(device_type="cuda")
+        runs = {}
+        for route in ("kernel", "plain"):
+            with monkeypatch.context() as m:
+                if route == "plain":
+                    for mod, names in ((tivf, ("ivf_probe_adc_fused",)),
+                                       (tflat, ("ivf_probe_matvec_fused", "ivf_probe_adc_fused"))):
+                        for name in names:
+                            m.setattr(mod, name, getattr(ck, name.replace("_fused", "_plain")))
+                before = (ck.ivf_probe_adc_fused.launches, ck.ivf_probe_matvec_fused.launches)
+                out = []
+                for p in (4, 32):
+                    for name, idx in indexes.items():
+                        fn = P.sharded_ivf_search if name.startswith("ivfpq") else (
+                            P.sharded_ivf_scan_search)
+                        got = fn(idx, q, 10, nprobe=p, mesh=mesh)
+                        want = idx.search(q, 10, nprobe=p)
+                        assert all(torch.equal(a, b) for a, b in zip(got, want)), (route, name, p)
+                        out += list(got)
+                out += list(P.sharded_graph_search(graph, q, 10, beam=32, mesh=mesh))
+                out += list(P.sharded_refine_search(ref, q, 10, nprobe=8, mesh=mesh))
+                launched = (ck.ivf_probe_adc_fused.launches - before[0],
+                            ck.ivf_probe_matvec_fused.launches - before[1])
+                assert (min(launched) > 0) == (route == "kernel"), (route, launched)
+                runs[route] = out
+        for a, b in zip(runs["kernel"], runs["plain"]):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -50,6 +50,12 @@ with nvcc on first use. BQ, TSVQ, the distances and the Flat, SQ and
 Binary scans reach no TPU kernel (the JAX package's are XLA products and
 ``lax.top_k``): they are plain PyTorch on every device.
 
+The rest of the JAX package's surface: the sharded layer
+(:mod:`vq_tpu_torch.parallel`: training, encoding, and flat, IVF, graph
+and refine serving on ``torch.distributed``), the native C++ oracle
+(:mod:`vq_tpu_torch.native`), :func:`get_backend`, and the ``pyvq``
+compatibility classes over the port (:mod:`vq_tpu_torch.pyvq`).
+
 Entry points run on the card: input that is not a tensor lands on
 ``cuda`` unless a ``device`` is given (or :func:`default_device` names
 another). On CPU tensors the same functions run their plain PyTorch
@@ -80,6 +86,7 @@ from vq_tpu_torch.errors import (
     EmptyInput,
     InvalidData,
     InvalidParameter,
+    NativeLibraryError,
     VqError,
 )
 from vq_tpu_torch.clustering import Kmeans
@@ -157,12 +164,31 @@ from vq_tpu_torch.utils.serialize import load, save
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+__version__ = "0.1.0"
+
+
+def get_backend() -> str:
+    """The device the port's entry points run on by default:
+    ``"CUDA (<device name>)"`` with a card, else ``"CPU"`` — the JAX
+    package's ``get_backend`` format with the card in the TPU's place (the
+    reference's ``get_simd_backend``)."""
+    if torch.cuda.is_available():
+        return f"CUDA ({torch.cuda.get_device_name()})"
+    return "CPU"
+
+
+# pyvq exposes the same function under this name.
+get_simd_backend = get_backend
+
 __all__ = [
     "VqError",
     "DimensionMismatch",
     "EmptyInput",
     "InvalidParameter",
     "InvalidData",
+    "NativeLibraryError",
+    "get_backend",
+    "get_simd_backend",
     "Quantizer",
     "BinaryQuantizer",
     "packed_width",

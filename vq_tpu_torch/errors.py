@@ -42,3 +42,11 @@ class InvalidData(VqError, ValueError):
 
     def __init__(self, message: str):
         super().__init__(message)
+
+
+class NativeLibraryError(VqError, RuntimeError):
+    """The native (C++) kernel library (:mod:`vq_tpu_torch.native`)
+    failed to build or load."""
+
+    def __init__(self, message: str):
+        super().__init__(message)

@@ -635,6 +635,7 @@ class GraphIndex:
         # Norms of the stored-width rows, as __init__ and load take them.
         xs = x.to(_STORE_DTYPES[self.store_dtype]).to(torch.float32)
         self._sqn = torch.cat([self._sqn, (xs * xs).sum(-1)])
+        self._replica_cache = None  # the sharded search must copy the index again
 
     def merge_from(self, other) -> int:
         """Unsupported: a navigable graph's edges are global, so merging
@@ -695,6 +696,7 @@ class GraphIndex:
         self._rows = self._rows[alive]
         self._sqn = self._sqn[alive]
         self.graph = g_new.to(torch.int32)
+        self._replica_cache = None  # the sharded search must copy the index again
 
         def remap(old, fallback_medoid: bool):
             if alive.shape[0] == 0:

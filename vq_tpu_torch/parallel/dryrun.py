@@ -1,6 +1,6 @@
-"""Multi-rank dry run of the sharded layer — the twin of the training,
-streaming, OPQ and flat-search checks of the JAX package's
-``__graft_entry__.py::dryrun_multichip``.
+"""Multi-rank dry run of the sharded layer — the twin of the JAX
+package's ``__graft_entry__.py::dryrun_multichip``: training, streaming,
+OPQ, and the flat, IVF-PQ, IVF scan-ladder, graph and refine searches.
 
     python -m vq_tpu_torch.parallel.dryrun --ranks 4 --device cpu --out run.npz
     python -m vq_tpu_torch.parallel.dryrun --ranks 2 --device cuda --backend gloo --out run.npz
@@ -14,17 +14,21 @@ holds each result to the port's single-device functions on the same
 inputs (:func:`check_single_device`), writes every result to ``--out``
 (``.npz``, keys ``<function>/<case>/<mesh>/<field>``), and any mismatch
 fails the run. ``--indexes DIR`` searches the indexes saved there
-(``<kind>.npz`` for each of :data:`INDEX_KINDS`, from either package)
-instead of ones built here.
+(``<kind>.npz`` for each kind of :data:`INDEX_KINDS` and
+:data:`SERVING_KINDS` whose file is there, from either package) instead
+of ones built here; a kind missing from the directory is not searched.
 
 ``--full`` (on the card, one card a rank on NCCL) runs the layer at full
 width instead: ``sharded_pq_train`` 8x256 over a 1M x 128 seeded Gaussian
 mixture (the one ``chip_smoke.py`` makes) with and without the overlap,
 one Lloyd step of the global accumulate beside K3's pass on the rank's
-rows and its ``all_reduce`` alone, and ``sharded_flat_search`` of 128
-queries over the 1M ``PQIndex`` beside that index's single-card search,
-each by CUDA events; every result is held to the single-card function
-(:func:`run_full`) and rank 0 prints the times as one JSON object.
+rows and its ``all_reduce`` alone, ``sharded_flat_search`` of 128
+queries over the 1M ``PQIndex``, and ``sharded_ivf_search`` /
+``sharded_ivf_scan_search`` over a 1M IVF1024 IVF-PQ and IVF-Flat f32
+index at nprobe 8 and 64 (each rank's block bytes beside), each beside
+the same index's single-card search, by CUDA events; every result is
+held to the single-card function (:func:`run_full`) and rank 0 prints
+the times as one JSON object.
 
     python -m vq_tpu_torch.parallel.dryrun --ranks 4 --device cuda --full --out full.json
 
@@ -53,6 +57,16 @@ BLOCK_ROWS = 4  # the overlap's half is rounded to this: small, so the tiny shar
 PQ_ITERS, LLOYD_K, LLOYD_ITERS = 2, 8, 3
 CORPUS_ROWS, CORPUS_DIM, CORPUS_CHUNK = 200, 8, 16  # chunks that straddle the shards
 INDEX_KINDS = ("flat", "flat_dot", "pq", "pq_unpacked", "rq", "sq")
+# The sharded serving layer's indexes: IVF-PQ (L2 and dot, by residual or
+# not), the IVF scan ladder, a graph and a refine index (sq8 codes over an
+# IVF-PQ base), over NLIST lists: not a multiple of 4, so a 4-rank data
+# axis pads the lists and its last rank owns none.
+IVF_KINDS = ("ivfpq", "ivfpq_raw", "ivfpq_dot", "ivfpq_dot_res")
+SCAN_KINDS = ("ivfflat", "ivfflat_dot", "ivfsq", "ivfrq", "ivfbinary")
+SERVING_KINDS = IVF_KINDS + SCAN_KINDS + ("graph_index", "refine_index")
+NLIST, NPROBES = 6, (2, 6)
+GRAPH_DEGREE, GRAPH_BEAMS = 8, (8, 16)
+REFINE_K_FACTOR, REFINE_NPROBE, REFINE_BATCHES = 2, 2, 2
 FAR = 100.0  # init centroids this far off the data get no rows: the reseed path
 # Tolerances of a sharded result against the single-device one or another
 # world's (f32 summation order), as ``dryrun_multichip`` holds them.
@@ -63,9 +77,12 @@ OPQ_MSE_RTOL = 2e-2
 # plus isotropic noise, seed 0) and its PQ 8x256, 10 iterations, k 10.
 FULL_ROWS, FULL_QUERIES, FULL_DIM, FULL_CLUSTERS, FULL_LATENT = 1_000_000, 128, 128, 1024, 24
 FULL_M, FULL_K, FULL_ITERS, FULL_TOP_K = 8, 256, 10, 10
+FULL_NLIST, FULL_IVF_TRAIN, FULL_NPROBES = 1024, 200_000, (8, 64)
+SEARCH_FNS = ("flat", "ivf", "scan", "graph", "refine")
 
-__all__ = ["make_inputs", "build_indexes", "run_checks", "check_single_device", "compare_runs",
-           "search_parity", "opq_mse", "mixture", "run_full", "spawn", "main"]
+__all__ = ["make_inputs", "build_indexes", "build_serving_indexes", "run_checks",
+           "serving_checks", "check_single_device", "compare_runs", "search_parity", "opq_mse",
+           "mixture", "run_full", "spawn", "main"]
 
 
 def make_inputs(seed: int = 0) -> Dict[str, np.ndarray]:
@@ -87,8 +104,9 @@ def make_inputs(seed: int = 0) -> Dict[str, np.ndarray]:
 
 
 def build_indexes(inputs, device) -> dict:
-    """One small index of each of :data:`INDEX_KINDS` over the inputs'
-    rows, on ``device``, trained from fixed seeds."""
+    """One small index of each of :data:`INDEX_KINDS` and
+    :data:`SERVING_KINDS` over the inputs' rows, on ``device``, trained
+    from fixed seeds."""
     from vq_tpu_torch.models.pq import ProductQuantizer
     from vq_tpu_torch.models.rq import ResidualQuantizer
     from vq_tpu_torch.search import FlatIndex, PQIndex, RQIndex, SQIndex
@@ -101,14 +119,42 @@ def build_indexes(inputs, device) -> dict:
            "sq": SQIndex.from_data(x)}
     for kind in ("pq", "pq_unpacked", "rq"):
         out[kind].add(x)
+    out.update(build_serving_indexes(x))
+    return out
+
+
+def build_serving_indexes(x: torch.Tensor) -> dict:
+    """One index of each of :data:`SERVING_KINDS` over the rows ``x``, on
+    their device, trained from fixed seeds."""
+    import vq_tpu_torch as V
+
+    ivf = V.IVFPQIndex.train(x, NLIST, M, K, max_iters=PQ_ITERS, seed=0)
+    pq_raw = V.ProductQuantizer(x, M, K, max_iters=PQ_ITERS, seed=1)
+    out = {"ivfpq": ivf,
+           "ivfpq_raw": V.IVFPQIndex(ivf.coarse, pq_raw, by_residual=False),
+           "ivfpq_dot": V.IVFPQIndex(ivf.coarse, pq_raw, by_residual=False, metric="dot"),
+           "ivfpq_dot_res": V.IVFPQIndex(ivf.coarse, ivf.pq, metric="dot"),
+           "ivfflat": V.IVFFlatIndex(ivf.coarse),
+           "ivfflat_dot": V.IVFFlatIndex(ivf.coarse, metric="dot"),
+           "ivfsq": V.IVFSQIndex.train(x, NLIST, max_iters=PQ_ITERS, seed=0),
+           "ivfrq": V.IVFRQIndex.train(x, NLIST, 2, K, max_iters=PQ_ITERS, seed=0),
+           "ivfbinary": V.IVFBinaryIndex(ivf.coarse, threshold=0.5)}
+    for kind in IVF_KINDS + SCAN_KINDS:
+        out[kind].add(x)
+    out["graph_index"] = V.GraphIndex.build(x, degree=GRAPH_DEGREE, seed=0)
+    out["refine_index"] = V.RefineIndex(V.IVFPQIndex(ivf.coarse, ivf.pq), "sq8", sq_train_data=x)
+    out["refine_index"].add(x)
     return out
 
 
 def load_indexes(index_dir: str, device) -> dict:
+    """Every index of :data:`INDEX_KINDS` and :data:`SERVING_KINDS` saved
+    under ``index_dir`` (either package's checkpoints), on ``device``."""
     from vq_tpu_torch.factory import load_index
 
     return {kind: load_index(os.path.join(index_dir, f"{kind}.npz"), device=device)
-            for kind in INDEX_KINDS}
+            for kind in INDEX_KINDS + SERVING_KINDS
+            if os.path.exists(os.path.join(index_dir, f"{kind}.npz"))}
 
 
 def _np(t) -> np.ndarray:
@@ -186,10 +232,77 @@ def run_checks(device: str, indexes: Optional[dict] = None,
         out.update(error_cases(mesh, tag, inputs, indexes))
         q = torch.from_numpy(inputs["queries"]).to(dev)
         for kind in INDEX_KINDS:
+            if kind not in indexes:
+                continue
             ids, vals = P.sharded_flat_search(indexes[kind], q, TOP_K, mesh=mesh)
             out[f"flat/{kind}/{tag}/ids"], out[f"flat/{kind}/{tag}/values"] = _np(ids), _np(vals)
             out[f"blocks/{kind}/{tag}"] = _blocks(indexes[kind], mesh)
+        out.update(serving_checks(mesh, tag, q, indexes))
     return out
+
+
+def serving_checks(mesh, tag: str, q: torch.Tensor, indexes) -> Dict[str, np.ndarray]:
+    """The sharded serving layer on ``mesh`` over the kinds of
+    :data:`SERVING_KINDS` that ``indexes`` holds -> ``{key: result}``:
+    IVF-PQ and the scan ladder at each of :data:`NPROBES` (``ivf/`` and
+    ``scan/<kind>@<nprobe>``, with each rank's block, ``ivfblocks/``),
+    ``shard_buckets``' global view of the IVF-PQ pool (``buckets/``), the
+    graph at each of :data:`GRAPH_BEAMS`, and the refine index eagerly and
+    through ``BatchPipeline.from_core`` over :data:`REFINE_BATCHES`
+    batches (``refine/pipe<b>``)."""
+    from vq_tpu_torch import parallel as P
+    from vq_tpu_torch.serving import BatchPipeline
+
+    out: Dict[str, np.ndarray] = {}
+
+    def put(name, res):
+        out[f"{name}/{tag}/ids"], out[f"{name}/{tag}/values"] = _np(res[0]), _np(res[1])
+
+    for kind in IVF_KINDS + SCAN_KINDS:
+        if kind not in indexes:
+            continue
+        fn, name = ((P.sharded_ivf_search, "ivf") if kind in IVF_KINDS
+                    else (P.sharded_ivf_scan_search, "scan"))
+        for p in NPROBES:
+            put(f"{name}/{kind}@{p}", fn(indexes[kind], q, TOP_K, nprobe=p, mesh=mesh))
+        out[f"ivfblocks/{kind}/{tag}"] = _ivf_blocks(indexes[kind], mesh)
+    if "ivfpq" in indexes:
+        slot_ids, codes, chains, cap, _ = P.shard_buckets(indexes["ivfpq"], mesh)
+        out[f"buckets/ivfpq/{tag}/slot_ids"], out[f"buckets/ivfpq/{tag}/pool_codes"] = (
+            _np(slot_ids), _np(codes))
+        out[f"buckets/ivfpq/{tag}/chains"], out[f"buckets/ivfpq/{tag}/cap"] = _np(chains), np.array(cap)
+    if "graph_index" in indexes:
+        for beam in GRAPH_BEAMS:
+            put(f"graph/beam{beam}", P.sharded_graph_search(indexes["graph_index"], q, TOP_K,
+                                                            beam=beam, mesh=mesh))
+    if "refine_index" in indexes:
+        ref, kw = indexes["refine_index"], dict(k_factor=REFINE_K_FACTOR, nprobe=REFINE_NPROBE)
+        put("refine/eager", P.sharded_refine_search(ref, q, TOP_K, mesh=mesh, **kw))
+        core, arrays = P.sharded_refine_search_core(ref, TOP_K, mesh=mesh, **kw)
+        ids, vals = BatchPipeline.from_core(core, arrays, dim=q.shape[1]).search(
+            q.reshape(REFINE_BATCHES, -1, q.shape[1]))
+        for b in range(REFINE_BATCHES):
+            put(f"refine/pipe{b}", (ids[b], vals[b]))
+    return out
+
+
+def _ivf_blocks(index, mesh) -> np.ndarray:
+    """``[world, 4]``: each rank's block of the list-sharded pool — its
+    chunks, the chunks its ids' and its first payload's storage hold (its
+    block only when equal), and its live chunks (its own lists')."""
+    from vq_tpu_torch import parallel as P
+    from vq_tpu_torch.parallel.ivf_scan import _shard_lists
+
+    b = _shard_lists(mesh, index, tuple(getattr(index, "_scan_payloads", ("codes",))))
+    pay = next(iter(b.payloads.values()))
+    chunk_bytes = pay[0].numel() * pay.element_size()
+    mine = torch.tensor([b.ids.shape[0], b.ids.untyped_storage().nbytes() // (b.ids[0].numel() * 4),
+                         pay.untyped_storage().nbytes() // chunk_bytes,
+                         int((b.chains_local >= 0).sum())],
+                        dtype=torch.int64, device=P.mesh_device(mesh))
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    return torch.stack(parts).cpu().numpy()
 
 
 def _blocks(index, mesh) -> np.ndarray:
@@ -208,13 +321,13 @@ def _blocks(index, mesh) -> np.ndarray:
 
 
 def _raised(fn) -> np.ndarray:
-    """``"<error class>:<parameter>"`` of what ``fn()`` raised, or
-    ``"none"``."""
+    """``"<error class>:<parameter>"`` of what ``fn()`` raised (an error
+    of the package's own or a ``TypeError``), or ``"none"``."""
     from vq_tpu_torch.errors import VqError
 
     try:
         fn()
-    except VqError as e:
+    except (VqError, TypeError) as e:
         return np.array(f"{type(e).__name__}:{getattr(e, 'parameter', '')}")
     return np.array("none")
 
@@ -225,7 +338,7 @@ def error_cases(mesh, tag: str, inputs, indexes) -> Dict[str, np.ndarray]:
     Each raises on every rank before any collective."""
     from vq_tpu_torch import parallel as P
 
-    data, init = inputs["data"], inputs["init"]
+    data, init, queries = inputs["data"], inputs["init"], inputs["queries"]
     cases = {
         "uneven_rows": lambda: P.sharded_pq_train(data[:N_ROWS - 1], M, K, 1, mesh=mesh),
         "uneven_subspaces": lambda: P.sharded_pq_train(data[:, :24], 3, K, 1, mesh=mesh),
@@ -241,12 +354,48 @@ def error_cases(mesh, tag: str, inputs, indexes) -> Dict[str, np.ndarray]:
             init, np.zeros((M, K), np.float32), data[:, :16], mesh=mesh),
         "callback_uneven_rows": lambda: P.sharded_synthetic_corpus(N_ROWS - 1, 4, mesh=mesh),
         "encode_bad_width": lambda: P.sharded_pq_encode(data[:, :16], init, mesh=mesh),
-        "flat_query_width": lambda: P.sharded_flat_search(indexes["pq"], inputs["queries"][:, :16],
+        "flat_query_width": lambda: P.sharded_flat_search(indexes["pq"], queries[:, :16],
                                                           TOP_K, mesh=mesh),
-        "flat_unknown_index": lambda: P.sharded_flat_search(object(), inputs["queries"], TOP_K,
+        "flat_unknown_index": lambda: P.sharded_flat_search(object(), queries, TOP_K,
                                                             mesh=mesh),
     }
+    if "pq" not in indexes:
+        del cases["flat_query_width"]
+    cases.update(serving_error_cases(mesh, queries, indexes))
     return {f"errors/{case}/{tag}/raised": _raised(fn) for case, fn in cases.items()}
+
+
+def serving_error_cases(mesh, queries, indexes) -> dict:
+    """``{case: fn}``: the serving layer's validation cases over the kinds
+    ``indexes`` holds, each raising on every rank before any collective."""
+    import vq_tpu_torch as V
+    from vq_tpu_torch import parallel as P
+
+    cases = {}
+    narrow = queries[:, :16]
+    if "ivfpq" in indexes:
+        ivf = indexes["ivfpq"]
+        cases["ivf_query_width"] = lambda: P.sharded_ivf_search(ivf, narrow, TOP_K, mesh=mesh)
+        cases["ivf_empty"] = lambda: P.sharded_ivf_search(V.IVFPQIndex(ivf.coarse, ivf.pq),
+                                                          queries, TOP_K, mesh=mesh)
+        cases["scan_wrong_kind"] = lambda: P.sharded_ivf_scan_search(ivf, queries, TOP_K,
+                                                                     mesh=mesh)
+    if "ivfflat" in indexes:
+        flat = indexes["ivfflat"]
+        cases["scan_query_width"] = lambda: P.sharded_ivf_scan_search(flat, narrow, TOP_K,
+                                                                      mesh=mesh)
+        cases["scan_empty"] = lambda: P.sharded_ivf_scan_search(V.IVFFlatIndex(flat.coarse),
+                                                                queries, TOP_K, mesh=mesh)
+    if "graph_index" in indexes:
+        cases["graph_query_width"] = lambda: P.sharded_graph_search(indexes["graph_index"], narrow,
+                                                                    TOP_K, mesh=mesh)
+    if "refine_index" in indexes:
+        ref = indexes["refine_index"]
+        cases["refine_query_width"] = lambda: P.sharded_refine_search(ref, narrow, TOP_K,
+                                                                      mesh=mesh)
+        cases["refine_k_factor"] = lambda: P.sharded_refine_search(ref, queries, TOP_K,
+                                                                   k_factor=0.5, mesh=mesh)
+    return cases
 
 
 def opq_mse(data: np.ndarray, rot: np.ndarray, cb: np.ndarray) -> float:
@@ -304,7 +453,7 @@ def _check_single_device(res, inputs, indexes, device) -> int:
     ref["seeded_single"] = ref["seeded"]
     q = torch.from_numpy(inputs["queries"]).to(device)
     want_search = {kind: [a.cpu().numpy() for a in indexes[kind].search(q, TOP_K)]
-                   for kind in INDEX_KINDS}
+                   for kind in INDEX_KINDS if kind in indexes}
     checked = 0
     for key, val in res.items():
         parts = key.split("/")
@@ -342,10 +491,33 @@ def _check_single_device(res, inputs, indexes, device) -> int:
             _close(key, float(val), single, rtol=OPQ_MSE_RTOL, atol=0.0)
         elif fn == "flat" and field == "ids":
             search_parity(key, (val, res[key[:-3] + "values"]), want_search[case])
+        elif fn in SEARCH_FNS and field == "ids":
+            search_parity(key, (val, res[key[:-3] + "values"]),
+                          single_device_search(fn, case, indexes, q), **_tier(case))
         else:
             continue
         checked += 1
     return checked
+
+
+def single_device_search(fn: str, case: str, indexes, q: torch.Tensor):
+    """The single-device search a serving result of ``fn`` / ``case`` is
+    held to, as numpy ``(ids, values)``."""
+    if fn in ("ivf", "scan"):
+        kind, p = case.split("@")
+        res = indexes[kind].search(q, TOP_K, nprobe=int(p))
+    elif fn == "graph":
+        res = indexes["graph_index"].search(q, TOP_K, beam=int(case[len("beam"):]))
+    else:  # refine: eager, or one pipelined batch
+        rows = q if case == "eager" else q.reshape(REFINE_BATCHES, -1, q.shape[1])[int(case[4:])]
+        res = indexes["refine_index"].search(rows, TOP_K, k_factor=REFINE_K_FACTOR,
+                                             nprobe=REFINE_NPROBE)
+    return [a.cpu().numpy() for a in res]
+
+
+def _tier(case: str) -> dict:
+    """Hamming distances are small integers: held exactly."""
+    return dict(atol=0.0, rtol=0.0) if case.startswith("ivfbinary") else {}
 
 
 def _tagless(key: str) -> str:
@@ -375,9 +547,9 @@ def compare_runs(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray]) -> int
             _close(f"{key} vs {other}", val, w)
         elif field == "mse":
             _close(f"{key} vs {other}", float(val), float(w), rtol=OPQ_MSE_RTOL, atol=0.0)
-        elif fn == "flat" and field == "ids":
+        elif fn in SEARCH_FNS and field == "ids":
             search_parity(f"{key} vs {other}", (val, got[key[:-3] + "values"]),
-                          (w, want[other[:-3] + "values"]))
+                          (w, want[other[:-3] + "values"]), **_tier(case))
         else:
             continue
         compared += 1
@@ -491,6 +663,60 @@ def run_full() -> Dict[str, object]:
     res["sharded_flat_search_ms"] = _cuda_ms(
         lambda: P.sharded_flat_search(index, queries, FULL_TOP_K, mesh=mesh), 10)
     res["single_card_search_ms"] = _cuda_ms(lambda: index.search(queries, FULL_TOP_K), 10)
+    del index, fn, arrays
+    res.update(_full_ivf(mesh, corpus, queries, cb))
+    return res
+
+
+def _full_ivf(mesh, corpus, queries, cb) -> Dict[str, object]:
+    """``run_full``'s IVF part: an IVF1024 IVF-PQ (the trained 8x256
+    codebooks, by residual) and IVF-Flat f32 over the 1M rows, the coarse
+    centroids trained on rank 0 and broadcast; ``sharded_ivf_search`` /
+    ``sharded_ivf_scan_search`` at each of :data:`FULL_NPROBES` held to
+    rank 0's single-card search (bit for bit in a world of one), and each
+    rank's block bytes."""
+    import vq_tpu_torch as V
+    from vq_tpu_torch import parallel as P
+    from vq_tpu_torch.ops.kmeans import lloyd
+    from vq_tpu_torch.parallel.ivf_scan import _shard_lists
+
+    dev, world = P.mesh_device(mesh), dist.get_world_size()
+    rank0 = dist.get_rank() == 0
+    coarse = torch.empty((FULL_NLIST, FULL_DIM), device=dev)
+    if rank0:
+        coarse.copy_(lloyd(corpus[:FULL_IVF_TRAIN], FULL_NLIST, max_iters=10, seed=42,
+                           init="kmeans++").centroids)
+    dist.broadcast(coarse, 0)
+    res: Dict[str, object] = {"ivf": f"IVF{FULL_NLIST}"}
+    # The PQ codebooks trained above on the raw rows code the residuals
+    # here: a search's work and its parity do not depend on their fit.
+    indexes = {"ivfpq": (V.IVFPQIndex(coarse, V.ProductQuantizer(codebooks=cb)),
+                         P.sharded_ivf_search_core),
+               "ivfflat": (V.IVFFlatIndex(coarse), P.sharded_scan_search_core)}
+    for name, (index, core) in indexes.items():
+        index.add(corpus)
+        for p in FULL_NPROBES:
+            fn, arrays = core(index, FULL_TOP_K, nprobe=p, mesh=mesh)
+            got = fn(queries, *arrays)
+            if rank0:
+                want = index.search(queries, FULL_TOP_K, nprobe=p)
+                if world == 1:
+                    assert all(torch.equal(a, b) for a, b in zip(got, want)), f"{name} nprobe {p}"
+                else:
+                    search_parity(f"sharded {name} nprobe {p}", [a.cpu().numpy() for a in got],
+                                  [a.cpu().numpy() for a in want])
+            res[f"{name}_sharded_ms_nprobe{p}"] = _cuda_ms(lambda: fn(queries, *arrays), 10)
+            res[f"{name}_single_card_ms_nprobe{p}"] = _cuda_ms(
+                lambda: index.search(queries, FULL_TOP_K, nprobe=p), 10)
+        b = _shard_lists(mesh, index, tuple(getattr(index, "_scan_payloads", ("codes",))))
+        block = sum(t.numel() * t.element_size() for t in [b.ids, *b.payloads.values()])
+        sizes = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(world)]
+        dist.all_gather(sizes, torch.tensor([block], dtype=torch.int64, device=dev))
+        res[f"{name}_block_bytes_by_rank"] = [int(t) for t in sizes]
+        res[f"{name}_pool_bytes"] = sum(t.numel() * t.element_size()
+                                        for t in list(index._pool.data.values())
+                                        + [index._pool.slot_ids])
+        del index
     return res
 
 

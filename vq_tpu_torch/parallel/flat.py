@@ -31,8 +31,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from vq_tpu_torch.errors import DimensionMismatch, EmptyInput, InvalidParameter
 from vq_tpu_torch.models.base import as_batch_f32
-from vq_tpu_torch.models.pq import _smallest
-from vq_tpu_torch.parallel.mesh import DATA_AXIS, _all_gather, _coords, make_mesh, mesh_device
+from vq_tpu_torch.parallel.mesh import DATA_AXIS, _coords, make_mesh, merge_topk, mesh_device
 from vq_tpu_torch.search import FlatIndex, PQIndex, RQIndex, SQIndex
 
 __all__ = ["sharded_flat_search", "sharded_flat_search_core"]
@@ -162,12 +161,7 @@ def sharded_flat_search_core(
             kl = li.shape[1]
             vals[:, :kl] = -lv if dot else lv  # smaller is better
             ids[:, :kl] = torch.where(li >= 0, li.to(torch.int32) + base, -1)
-        packed = torch.stack([vals.view(torch.int32), ids])
-        parts = _all_gather(packed, group)  # [2, Q, k] a rank, in rank order
-        cat = torch.cat(parts, dim=2)
-        cat_v, cat_i = cat[0].view(torch.float32), cat[1]
-        best, pos = _smallest(cat_v, k)
-        out_ids = torch.gather(cat_i, 1, pos)
+        out_ids, best = merge_topk(ids, vals, k, group)
         return out_ids, (-best if dot else best)
 
     return fn, arrays

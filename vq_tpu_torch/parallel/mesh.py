@@ -45,6 +45,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from vq_tpu_torch.errors import EmptyInput, InvalidParameter
 from vq_tpu_torch.models.base import resolve_device
+from vq_tpu_torch.models.pq import _smallest
 
 DATA_AXIS = "data"
 SUBSPACE_AXIS = "sub"
@@ -268,6 +269,18 @@ def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, t.contiguous(), group=group)
     return out
+
+
+def merge_topk(ids: torch.Tensor, vals: torch.Tensor, k: int, group):
+    """The cross-rank merge of local top-k ``(ids [Q, k] i32, vals [Q, k]
+    f32)`` (smaller is better): one ``all_gather`` of both in one int32
+    buffer, then :func:`_smallest` over the concatenation in rank order,
+    so the lowest rank wins exact ties -> ``(ids, vals)`` ``[Q, k]``, the
+    same on every rank of ``group``."""
+    packed = torch.stack([vals.contiguous().view(torch.int32), ids.to(torch.int32)])
+    cat = torch.cat(_all_gather(packed, group), dim=2)
+    best, pos = _smallest(cat[0].view(torch.float32), k)
+    return torch.gather(cat[1], 1, pos), best
 
 
 def gather_global(x) -> torch.Tensor:
