@@ -107,7 +107,8 @@ Phases, one line each (any failure exits non-zero with no result line):
    run at their default sizes, the slice's main path: launch counts read
    from that run, every ``parity`` field true. Then timings: B1's three
    variants beside K4, K4-bf16 and K4-bf16x3 at 1M, and B2, B3, B4 beside
-   K8 and ``embedding_bag`` at [128, 1M];
+   K8 and ``embedding_bag`` at [128, 1M], with B2's design floor and the
+   table bytes it reads a call;
 13. eval path — the four eval harnesses' ``main()``
    (``vq_tpu_torch.cli.eval_{bq,sq,pq,tsvq}``) at the reference grid's
    width, ``--sizes 1000000 --dim 384 --recall`` with every other flag
@@ -3896,6 +3897,12 @@ def main() -> None:
     floor, kt_ms = bbounds["B2_design_floor"], t_bench["B2_adc_kt"][0]
     log("bound", f"adc_kt's own design floor, its three one-hot bf16 products at the tensor-core "
         f"peak: {floor:.4f} ms, {floor / kt_ms:.3f} of its time | {smi}")
+    from vq_tpu_torch.benchmarks.adc_vmem_bench import kt_plan
+
+    plan = kt_plan(N_QUERY, M, K, N_CORPUS)
+    log("bound", f"adc_kt's table parts read from device memory a call: {plan['table_bytes']} B "
+        f"({plan['units']} units x {M} slabs of {plan['slab_bytes']} B, each slab once a unit), "
+        f"{plan['table_bytes'] / kt_ms / 1e6:.1f} GB/s over its time | {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from vq_tpu_torch.benchmarks import mpacked_encode as tmp
 from vq_tpu_torch.errors import InvalidParameter
 from vq_tpu_torch.models.base import default_device
 from vq_tpu_torch.ops import cuda_kernels as ck
+from test_torch_cuda import _ADC
 from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 _SCRIPTS = Path(__file__).resolve().parent.parent / "benchmarks"
@@ -169,6 +170,80 @@ def test_kt_code_out_of_range_adds_zero(jav):
     got = tav.adc_kt(_t(tables), _t(codes_t))
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, ck.adc_lookup_plain(_t(tables), _t(codes_t).T))
+
+
+def _signed_wide(shape, seed):
+    """Signed normal f32 over +-2^[-30, 30), exact zeros and -0.0."""
+    rng = np.random.default_rng(seed)
+    mag = (1.0 + rng.random(shape)) * 2.0 ** rng.integers(-30, 30, shape)
+    t = np.where(rng.random(shape) < 0.5, -mag, mag).astype(np.float32)
+    t[rng.random(shape) < 0.05] = 0.0
+    t[rng.random(shape) < 0.05] = -0.0
+    return t
+
+
+def test_split3_parts_sum_back_exactly():
+    """``(hi + mid) + lo == t`` in f32 for signed, wide-range normal f32
+    (the exactness B2's products rest on), and each part is bf16."""
+    t = torch.from_numpy(_signed_wide((64, 8, 256), 3))
+    hi, mid, lo = tav.split3(t)
+    assert all(p.dtype == torch.bfloat16 for p in (hi, mid, lo))
+    back = (hi.float() + mid.float()) + lo.float()
+    assert torch.equal(back, t.abs() * torch.sign(t) + 0.0)  # -0.0 rebuilds as +0.0
+    assert torch.equal(back[t != 0], t[t != 0])
+
+
+@pytest.mark.parametrize("shape", _ADC, ids=lambda s: "Q%d-m%d-k%d-n%d" % s)
+def test_kt_plan_covers_every_card_shape(shape):
+    """B2's plan at each shape of the card's tests: the groups cover Q,
+    the units n (576 rows each), the k-steps the entries a u8 code can
+    pick, the boxes the k-steps; slabs stay 1024-byte multiples (the
+    swizzle's alignment) and at most 48 KB (three in the kernel's ring);
+    the table bytes are every slab once a unit."""
+    q, m, k, n = shape
+    p = tav.kt_plan(q, m, k, n)
+    assert p["entries"] == min(k, 256)
+    assert p["groups"] * 32 >= q > (p["groups"] - 1) * 32
+    assert p["units"] == -(-n // 576) * p["groups"]
+    assert p["ksteps"] * 16 >= p["entries"] > (p["ksteps"] - 1) * 16
+    assert p["boxes"] * 4 >= p["ksteps"] > (p["boxes"] - 1) * 4
+    assert p["slab_bytes"] == p["boxes"] * 96 * 128 and p["slab_bytes"] % 1024 == 0
+    assert p["slab_bytes"] <= 4 * 96 * 128
+    assert p["table_bytes"] == p["units"] * m * p["slab_bytes"]
+
+
+def test_kt_plan_table_bytes_at_the_script_shape():
+    """At [128, 1M] from 8 x 256 tables: 1,737 units of 576 rows x 4
+    groups, 1.5 MiB of parts a 576-row pass, 2.73 GB a call."""
+    p = tav.kt_plan(128, 8, 256, 1_000_000)
+    assert p["units"] == 1737 * 4
+    assert p["table_bytes"] == 1737 * 3 * 128 * 8 * 256 * 2 == 2_732_064_768
+
+
+@pytest.mark.parametrize("shape", [(5, 4, 256), (33, 2, 40), (64, 1, 16), (3, 3, 300)],
+                         ids=lambda s: "Q%d-m%d-k%d" % s)
+def test_kt_slabs_assemble_back_to_split3(shape):
+    """Every bf16 of :func:`kt_slabs`, read at the address the kernel's
+    wgmma descriptor gives it (16-byte chunk ``c`` of column row ``r`` at
+    ``c ^ (r % 8)``), is the :func:`split3` part it stands for; the rest
+    (queries past Q, entries past min(k, 256)) is zero."""
+    q, m, k = shape
+    tables = torch.from_numpy(_signed_wide(shape, 5))
+    slabs = tav.kt_slabs(tables)
+    p = tav.kt_plan(q, m, k, 1)
+    g, b = p["groups"], p["boxes"]
+    assert slabs.shape == (g, m, b, 96, 8, 8) and slabs.dtype == torch.bfloat16
+    bits = slabs.view(torch.int16).numpy()
+    col = np.arange(96)[:, None]
+    ent = np.arange(64)[None, :]
+    unswizzled = bits[..., col, (ent // 8) ^ (col % 8), ent % 8]  # [g, m, b, 96, 64]
+    got = unswizzled.reshape(g, m, b, 3, 32, 64).transpose(3, 0, 4, 1, 2, 5)
+    got = got.reshape(3, g * 32, m, b * 64)
+    want = np.zeros_like(got)
+    e = p["entries"]
+    for i, part in enumerate(tav.split3(tables)):
+        want[i, :q, :, :e] = part[:, :, :e].view(torch.int16).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_gather_code_out_of_range_adds_zero():

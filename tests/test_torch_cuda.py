@@ -1040,9 +1040,12 @@ def test_mpacked_default_matches_plain(card, shape, bf16_in):
 # (Q, m, k, n): the script's shape at a ragged Q and n; k = 128 with codes
 # up to 255 (out of range: 0); 40 subspaces (one query's B3 table is
 # 40 KB); 100 subspaces (past B3's shared-memory budget: tables read
-# from device memory); Q past one B2 block's 128 queries.
+# from device memory); Q past four B2 query groups of 32; Q = 200 over
+# seven groups, ragged, at an n past two 576-row B2 units and not a
+# multiple of 576 (nor of 64); one subspace of 16 entries (one B2 k-step) at n = 1
+# and 63, under one 64-row m-tile.
 _ADC = [(5, 4, 256, 1001), (20, 8, 128, 4096), (9, 40, 256, 3000), (3, 100, 256, 2002),
-        (130, 8, 256, 999)]
+        (130, 8, 256, 999), (200, 3, 256, 1537), (7, 1, 16, 1), (33, 1, 16, 63)]
 
 
 @pytest.mark.parametrize("shape", _ADC, ids=lambda s: "Q%d-m%d-k%d-n%d" % s)
@@ -1062,6 +1065,30 @@ def test_adc_variants_match_plain_and_k8(card, shape):
         assert torch.equal(av.adc_gather(tables, codes_t, only=only, block_rows=100),
                            av.adc_gather_plain(tables, codes_t, only=only))
     assert torch.equal(av.adc_floor(tables, codes_t), av.adc_floor_plain(tables, codes_t))
+
+
+@pytest.mark.parametrize("shape", [(200, 3, 256, 1537), (33, 1, 16, 63), (40, 5, 100, 700)],
+                         ids=lambda s: "Q%d-m%d-k%d-n%d" % s)
+def test_adc_kt_signed_wide_tables_bit_for_bit(card, shape):
+    """B2's exactness on signs and exponents: entries +-2^[-30, 30) with
+    exact zeros and -0.0, codes in range and past k, held bit for bit to
+    the plain version and to K8."""
+    q, m, k, n = shape
+    rng = np.random.default_rng(26)
+    mag = rng.random((q, m, k)) * 2.0 ** rng.integers(-30, 30, (q, m, k))
+    tab = np.where(rng.random((q, m, k)) < 0.5, -mag, mag).astype(np.float32)
+    tab[rng.random((q, m, k)) < 0.05] = 0.0
+    tab[rng.random((q, m, k)) < 0.05] = -0.0
+    codes = rng.integers(0, k, (m, n))
+    codes[rng.random((m, n)) < 0.1] = 255
+    tables = torch.from_numpy(tab).to(card)
+    codes_t = torch.from_numpy(codes.astype(np.uint8)).to(card)
+    kt = av.adc_kt(tables, codes_t)
+    k8 = ck.adc_lookup_fused(tables, codes_t.T.contiguous())
+    torch.cuda.synchronize()
+    want = av.adc_kt_plain(tables, codes_t)
+    assert torch.equal(kt.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(kt.view(torch.int32), k8.view(torch.int32))
 
 
 def test_bench_launch_counters_count_card_launches(card):

@@ -212,6 +212,15 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
+@pytest.mark.parametrize("sub", ["", ".utils", ".parallel"], ids=["top", "utils", "parallel"])
+def test_port_exports_every_public_name(sub):
+    import importlib
+
+    want = set(importlib.import_module("vq_tpu" + sub).__all__)
+    got = set(importlib.import_module("vq_tpu_torch" + sub).__all__)
+    assert not want - got, sorted(want - got)
+
+
 def test_port_doctests():
     import doctest
     import importlib

@@ -7,11 +7,15 @@ floor of its output. Each wrapper launches its kernel in
 tensors, and counts its launches in ``launches``:
 
 * B2 :func:`adc_kt` replaces ``benchmarks/adc_vmem_bench.py::_adc_kt_kernel``
-  (:55, called at :79): a one-hot matmul on the tensor cores, the tables
-  split into three bf16 parts whose products are exact. Contract: finite
-  tables (the split is exact for finite normal f32); a code >= k adds 0,
-  as on the TPU. Bit-identical to its plain version, and on finite tables
-  to B3 and K8.
+  (:55, called at :79): a one-hot matmul on Hopper's warpgroup tensor
+  cores (``wgmma``), the tables split into three bf16 parts whose
+  products are exact. The one-hot is built in registers from the codes
+  (the A operand); the parts are the B operand, laid out by
+  :func:`kt_slabs` as the kernel's shared-memory image (one slab a group
+  of 32 queries and a subspace) and copied in once a 576-row unit
+  (:func:`kt_plan`). Contract: finite tables (the split is exact for
+  finite normal f32); a code >= k adds 0, as on the TPU. Bit-identical
+  to its plain version, and on finite tables to B3 and K8.
 * B3 :func:`adc_gather` replaces ``::_adc_gather_kernel`` (:99, called at
   :136): per-subspace gathers with the sums in registers; ``only > 0``
   sums just the first ``only`` subspaces. A code >= k adds 0.0, K8's
@@ -62,11 +66,15 @@ __all__ = [
     "adc_gather_plain",
     "adc_kt",
     "adc_kt_plain",
+    "kt_plan",
+    "kt_slabs",
     "main",
     "split3",
 ]
 
-_KT_ROWS = 64  # corpus rows a B2 block (csrc/adc_variants.cu kKtRows)
+_KT_QUERIES = 32  # queries a B2 group (csrc/adc_variants.cu kKtQueries)
+_KT_ROWS = 576  # corpus rows a B2 unit (kKtRows): 3 warpgroups x 3 m-tiles of 64
+_KT_BOX = 64  # table entries a 128-byte swizzled slab row
 _GATHER_MAX = 8  # queries a B3 group, at most (kGatherMax)
 _GATHER_SMEM = 64 * 1024  # shared memory a B3 group's tables may take
 _GATHER_ROWS = 1024  # rows a B3 block step (256 threads x 4 rows)
@@ -108,6 +116,46 @@ def adc_kt_plain(tables: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     return adc_lookup_plain((hi + mid) + lo, codes_t.T)
 
 
+def kt_plan(q: int, m: int, k: int, n: int) -> dict:
+    """B2's launch plan for ``tables [q, m, k]`` over ``n`` rows: the
+    k-steps of 16 entries a subspace, the 64-entry boxes of a slab and its
+    bytes, the query groups, the units (576 rows x one group), and the
+    table bytes the kernel reads from device memory a call (each slab
+    once a unit)."""
+    entries = min(k, 256)  # a u8 code never picks an entry past 255
+    ksteps = -(-entries // 16)
+    boxes = -(-ksteps // 4)
+    groups = -(-q // _KT_QUERIES)
+    slab_bytes = boxes * 3 * _KT_QUERIES * 128
+    units = -(-n // _KT_ROWS) * groups
+    return dict(entries=entries, ksteps=ksteps, boxes=boxes, groups=groups,
+                slab_bytes=slab_bytes, units=units,
+                table_bytes=units * m * slab_bytes)
+
+
+def kt_slabs(tables: torch.Tensor) -> torch.Tensor:
+    """The three :func:`split3` parts of ``tables [Q, m, k]`` as B2's
+    slabs, ``[groups, m, boxes, 96, 8, 8]`` bf16 (a box: 96 column rows
+    of 64 entries, eight 16-byte chunks each): slab ``(g, i)`` holds
+    queries ``32g ..`` of subspace ``i``, column ``32p + q`` part ``p``
+    (hi, mid, lo) of query ``32g + q``, entry ``64b + e`` in box ``b``,
+    and each 128-byte column row is swizzled (16-byte chunk ``c`` stored at
+    ``c ^ (column % 8)``): the shared-memory image of wgmma's K-major B
+    operand. Zero past ``Q`` and past ``k``."""
+    q, m, k = tables.shape
+    plan = kt_plan(q, m, k, 0)
+    groups, boxes, entries = plan["groups"], plan["boxes"], plan["entries"]
+    parts = torch.stack(split3(tables[:, :, :entries]))
+    parts = torch.nn.functional.pad(
+        parts, (0, boxes * _KT_BOX - entries, 0, 0, 0, groups * _KT_QUERIES - q))
+    cols = 3 * _KT_QUERIES
+    slabs = parts.view(3, groups, _KT_QUERIES, m, boxes, 8, 8).permute(1, 3, 4, 0, 2, 5, 6)
+    slabs = slabs.reshape(groups, m, boxes, cols, 8, 8)
+    chunk = torch.arange(8, device=tables.device)
+    swz = chunk[None, :] ^ (torch.arange(cols, device=tables.device) % 8)[:, None]
+    return torch.gather(slabs, 4, swz.view(1, 1, 1, cols, 8, 1).expand(slabs.shape))
+
+
 def adc_kt(tables: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     """B2: ``[Q, n]`` ADC sums of ``tables [Q, m, k]`` over ``codes_t [m,
     n]`` u8 through one-hot products on the tensor cores (finite
@@ -121,16 +169,11 @@ def adc_kt(tables: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     out = torch.empty((q, n), dtype=torch.float32, device=tables.device)
     if q == 0 or n == 0 or m == 0 or k == 0:
         return out.zero_()
-    kk = min(k, 256)  # a u8 code never picks an entry past 255
-    kp, qp = _round_up(kk, 16), _round_up(q, 16)
-    parts = []
-    for part in split3(tables[:, :, :kk]):
-        padded = torch.zeros((qp, m, kp), dtype=torch.bfloat16, device=tables.device)
-        padded[:q, :, :kk] = part
-        parts.append(padded)
+    plan = kt_plan(q, m, k, n)
+    slabs = kt_slabs(tables)
     codes_t = codes_t.contiguous()
-    _launch("vq_adc_kt", *(p.data_ptr() for p in parts), codes_t.data_ptr(), out.data_ptr(),
-            q, qp, m, kk, kp, n)
+    _launch("vq_adc_kt", slabs.data_ptr(), codes_t.data_ptr(), out.data_ptr(), q, m,
+            plan["ksteps"], plan["slab_bytes"], n, plan["groups"], plan["units"])
     adc_kt.launches += 1
     return out
 

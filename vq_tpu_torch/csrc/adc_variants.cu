@@ -13,20 +13,38 @@
 // 16 us at 67 TFLOP/s. B2's one-hot products are 3 * 2*Q*k*n*m = 1.57
 // TFLOP of bf16, so its own design floor is 1.6 ms at 989 TFLOP/s.
 //
-// B2 (adc_kt_kernel), the experiment's matmul design on the tensor cores.
-// The wrapper splits the tables once into three bf16 parts, hi = bf(t),
-// mid = bf(t - hi), lo = bf(t - hi - mid) (exact for finite normal f32),
-// zero-padded to 16 queries and 16 entries. A block owns 64 corpus rows
-// and 128 queries (grid.y covers more); warp w owns the 16-query tile w.
-// For each subspace the block writes the one-hot [64, kp] bf16 operand
-// of its rows into shared memory, and each warp runs three products per
-// 16 x 16 output tile, one a part, into fresh zeroed fragments: a one-hot
-// row picks exactly one entry, so each product is exact. Elementwise,
-// (hi + mid) + lo gives the f32 entry back and acc + entry runs in
-// subspace order, so B2 matches its plain version, B3 and K8 bit for bit
-// on finite tables. A code >= k matches no one-hot column and adds 0, as
-// on the TPU. The tile goes through shared memory to the output, so a
-// ragged Q or n stores only what exists.
+// B2 (adc_kt_kernel), the experiment's matmul design on Hopper's
+// warpgroup tensor cores (wgmma). The wrapper splits the tables once into
+// three bf16 parts, hi = bf(t), mid = bf(t - hi), lo = bf(t - hi - mid)
+// (exact for finite normal f32), and lays them out as slabs: one slab a
+// (group of 32 queries, subspace), [boxes][96 columns][64 entries] bf16,
+// the columns hi q0..q31, mid q0..q31, lo q0..q31, each 128-byte row
+// swizzled (16-byte chunk c at c ^ (row % 8)), zero past k and past Q:
+// exactly the shared-memory image of wgmma's 128-byte-swizzled K-major B
+// operand. A persistent block (one an SM) walks units of 576 corpus rows
+// x one query group. Its producer warpgroup copies the unit's slabs, one
+// a subspace, into a ring of three stages with bulk copies (cp.async.bulk,
+// the TMA engine) behind full / empty mbarriers; each slab is read from
+// device memory once a unit and serves all three consumer warpgroups:
+// 1.5 MiB of table parts a 576-row pass, 2.73 GB a call at [128, 1M].
+// Each consumer warpgroup owns 192 rows, three 64-row m-tiles. For a
+// subspace and an m-tile it runs one m64n96k16 wgmma a 16-entry k-step:
+// A, the one-hot of the tile's codes, is built in registers (a thread
+// compares the codes of its two fragment rows with the step's entries:
+// no one-hot in shared memory, no barrier), B is the slab; the first step
+// starts a fresh accumulator (scale-d 0), so the three parts' products
+// land in separate columns, each one bf16 entry plus zeros, exact in f32.
+// Then, elementwise and in subspace order, acc = acc + ((hi + mid) + lo)
+// with __fadd_rn: B2 matches its plain version, B3 and K8 bit for bit on
+// finite tables. A code >= k picks a zero column or none and adds 0, as
+// on the TPU. A finished 192-row x 32-query tile goes through shared
+// memory into whole rows of out[q, :] (16 bytes a thread where n % 4 ==
+// 0), so a ragged Q or n stores only what exists. Registers: 48 of acc
+// (3 tiles x 16) and 48 of the accumulator a thread, 152 a consumer
+// thread after setmaxnreg (the producer keeps 40). Three consumer
+// warpgroups keep the tensor cores fed while one adds its parts; two
+// warpgroups of four tiles ran slower, and more wgmmas in flight slower
+// still (ptxas serializes them).
 //
 // B3 (adc_gather_kernel), the gather design. The tables of a group of at
 // most 8 queries sit in shared memory, as in K8 (read from device memory
@@ -42,13 +60,22 @@
 // output.
 #include "common.cuh"
 
-#include <mma.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kKtRows = 64;     // corpus rows a B2 block
-constexpr int kKtWarps = 8;     // 16-query tiles a B2 block
-constexpr int kKtStage = 16 * kKtRows;  // f32 staging a warp
+constexpr int kKtQueries = 32;                 // queries a B2 group
+constexpr int kKtN = 3 * kKtQueries;           // wgmma N: hi, mid, lo columns
+constexpr int kKtTiles = 3;                    // 64-row m-tiles a consumer warpgroup
+constexpr int kKtConsumers = 3;                // consumer warpgroups a block
+constexpr int kKtWgRows = 64 * kKtTiles;       // rows a consumer warpgroup
+constexpr int kKtRows = kKtConsumers * kKtWgRows;  // rows a unit
+constexpr int kKtBox = kKtN * 128;             // bytes of a [96, 64] bf16 box
+constexpr int kKtStages = 3;                   // slabs in the ring
+constexpr int kKtPitch = kKtWgRows + 4;        // staging row pitch (floats)
+constexpr int kKtThreads = 128 * (kKtConsumers + 1);  // + the producer warpgroup
+// Registers a thread after setmaxnreg: 3 x 128 x 152 + 128 x 40 <= 65,536.
+constexpr int kKtConsumerRegs = 152, kKtProducerRegs = 40;
 constexpr int kGatherMax = 8;   // queries a B3 group, at most
 constexpr int kRowsPerThread = 4;
 
@@ -75,84 +102,224 @@ __device__ __forceinline__ void store4(float* __restrict__ out, long long j, lon
   }
 }
 
-__global__ void __launch_bounds__(256, 2)
-    adc_kt_kernel(const __nv_bfloat16* __restrict__ hi, const __nv_bfloat16* __restrict__ mid,
-                  const __nv_bfloat16* __restrict__ lo, const unsigned char* __restrict__ codes_t,
-                  float* __restrict__ out, int nq, int m, int k, int kp, long long n) {
-  using namespace nvcuda;
-  using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-  using CFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldo = kp + 8;  // one-hot row pitch (bf16)
-  __nv_bfloat16* onehot = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* stage = reinterpret_cast<float*>(smem + (size_t)kKtRows * ldo * 2);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long j0 = (long long)blockIdx.x * kKtRows;
-  const int qt = blockIdx.y * kKtWarps + warp;
-  const bool active = qt * 16 < nq;
-  const long long ldt = (long long)m * kp;  // query pitch of a table part
-  const __nv_bfloat16* parts[3] = {hi, mid, lo};
-  CFrag acc[kKtRows / 16];
-#pragma unroll
-  for (int t = 0; t < kKtRows / 16; ++t) wmma::fill_fragment(acc[t], 0.f);
-  const int chunks = kp / 8;  // 16-byte chunks a one-hot row
-  for (int i = 0; i < m; ++i) {
-    __syncthreads();
-    for (int t = threadIdx.x; t < kKtRows * chunks; t += blockDim.x) {
-      const int r = t / chunks, c0 = (t % chunks) * 8;
-      const long long j = j0 + r;
-      const int code = j < n ? (int)codes_t[(long long)i * n + j] : -1;
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = __float2bfloat16_rn(code == c0 + e && code < k ? 1.f : 0.f);
-      *reinterpret_cast<uint4*>(onehot + r * ldo + c0) = *reinterpret_cast<const uint4*>(v);
-    }
-    __syncthreads();
-    if (!active) continue;
-    CFrag sum[kKtRows / 16], part[kKtRows / 16];
-    for (int p = 0; p < 3; ++p) {
-      const __nv_bfloat16* tab = parts[p] + (long long)qt * 16 * ldt + (long long)i * kp;
-#pragma unroll
-      for (int t = 0; t < kKtRows / 16; ++t) wmma::fill_fragment(part[t], 0.f);
-      for (int kk = 0; kk < kp; kk += 16) {
-        AFrag af;
-        wmma::load_matrix_sync(af, tab + kk, (unsigned)ldt);
-#pragma unroll
-        for (int t = 0; t < kKtRows / 16; ++t) {
-          BFrag bf;
-          wmma::load_matrix_sync(bf, onehot + t * 16 * ldo + kk, ldo);
-          wmma::mma_sync(part[t], af, bf, part[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < kKtRows / 16; ++t) {
-        if (p == 0) {
-          sum[t] = part[t];
-        } else {
-#pragma unroll
-          for (int e = 0; e < sum[t].num_elements; ++e)
-            sum[t].x[e] = __fadd_rn(sum[t].x[e], part[t].x[e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kKtRows / 16; ++t)
-#pragma unroll
-      for (int e = 0; e < acc[t].num_elements; ++e)
-        acc[t].x[e] = __fadd_rn(acc[t].x[e], sum[t].x[e]);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
-  if (!active) return;
-  float* st = stage + warp * kKtStage;
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16) into shared memory; the
+// copy completes its bytes on `bar`, which this thread's arrival arms.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major B operand with the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (the leading offset is not
+// read in this mode).
+__device__ __forceinline__ unsigned long long kt_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A (4 registers of the m64k16 bf16 fragment) x B (desc); a fresh
+// accumulator where `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n96k16(float d[48], const unsigned a[4],
+                                                unsigned long long desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %52, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %53, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate), "l"(desc));
+}
+
+// The accumulator's registers stay put across a wait (the compiler may
+// not move their reads above it).
+__device__ __forceinline__ void hold(float d[48]) {
 #pragma unroll
-  for (int t = 0; t < kKtRows / 16; ++t)
-    wmma::store_matrix_sync(st + t * 16, acc[t], kKtRows, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < kKtStage; e += 32) {
-    const int q = qt * 16 + e / kKtRows;
-    const long long j = j0 + e % kKtRows;
-    if (q < nq && j < n) out[(long long)q * n + j] = st[e];
+  for (int x = 0; x < 48; ++x) asm volatile("" : "+f"(d[x])::"memory");
+}
+
+// acc += (hi + mid) + lo, elementwise: columns 8j + fc (+1) of n8-chunk j
+// hold hi in chunks 0-3, mid in 4-7, lo in 8-11.
+__device__ __forceinline__ void add_parts(float acc[16], const float d[48]) {
+#pragma unroll
+  for (int x = 0; x < 16; ++x)
+    acc[x] = __fadd_rn(acc[x], __fadd_rn(__fadd_rn(d[x], d[x + 16]), d[x + 32]));
+}
+
+__global__ void __launch_bounds__(kKtThreads, 1)
+    adc_kt_kernel(const unsigned char* __restrict__ slabs,
+                  const unsigned char* __restrict__ codes_t, float* __restrict__ out, int nq,
+                  int m, int ksteps, int slab_bytes, long long n, int groups,
+                  long long units) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;  // the swizzle wants 1024-byte boxes
+  float* staging = reinterpret_cast<float*>(smem_raw + (base - raw) + kKtStages * slab_bytes);
+  const unsigned full = smem_u32(staging + kKtConsumers * kKtQueries * kKtPitch);
+  const unsigned empty = full + 8 * kKtStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kKtStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kKtConsumers);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kKtConsumers) {  // the producer warpgroup: one slab a (unit, subspace)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kKtProducerRegs) : "memory");
+    if (warp == 4 * kKtConsumers && lane == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const long long g = u % groups;
+        for (int i = 0; i < m; ++i) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          bulk_load(base + stage * slab_bytes, slabs + (g * m + i) * slab_bytes, slab_bytes,
+                    full + 8 * stage);
+          if (++stage == kKtStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kKtConsumerRegs) : "memory");
+
+  // A consumer warpgroup: rows j0 + [0, 192) of a unit, m-tile t's rows
+  // 64t + 16 * (warp % 4) + lane / 4 (+ 8) in this thread's fragments.
+  const int wg = warp >> 2, fr = 16 * (warp & 3) + (lane >> 2), fc = 2 * (lane & 3);
+  float* stg = staging + wg * kKtQueries * kKtPitch;
+  int stage = 0;
+  unsigned phase = 0;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const int q0 = (int)(u % groups) * kKtQueries;
+    const long long j0 = (u / groups) * kKtRows + wg * kKtWgRows;
+    float acc[kKtTiles][16];
+#pragma unroll
+    for (int t = 0; t < kKtTiles; ++t)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) acc[t][x] = 0.f;
+    int next[kKtTiles][2];
+    auto load_codes = [&](int i) {
+#pragma unroll
+      for (int t = 0; t < kKtTiles; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long j = j0 + 64 * t + fr + 8 * h;
+          next[t][h] = j < n ? (int)__ldg(codes_t + (long long)i * n + j) : 0x7FFF;
+        }
+    };
+    load_codes(0);
+    for (int i = 0; i < m; ++i) {
+      int code[kKtTiles][2];
+#pragma unroll
+      for (int t = 0; t < kKtTiles; ++t) code[t][0] = next[t][0], code[t][1] = next[t][1];
+      if (i + 1 < m) load_codes(i + 1);
+      mbar_wait(full + 8 * stage, phase);
+      const unsigned slab = base + stage * slab_bytes;
+#pragma unroll
+      for (int t = 0; t < kKtTiles; ++t) {
+        // Row h's one-hot entry code sits in the fragment's columns
+        // fc, fc + 1 (register h) or fc + 8, fc + 9 (register 2 + h) of
+        // k-step code / 16 only when (code - fc) % 16 is 0, 1, 8 or 9.
+        int hit[2];
+        unsigned lo[2], hi[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = code[t][h] - fc;
+          hit[h] = r >= 0 && (r & 6) == 0 ? r >> 4 : -1;
+          const unsigned one = 0x3F80u << ((r & 1) << 4);  // bf16 1.0, low or high half
+          lo[h] = (r & 8) ? 0u : one;
+          hi[h] = (r & 8) ? one : 0u;
+        }
+        // One k-step in flight while the next one's A is built: ptxas
+        // serializes the wgmmas when an A register is written with more
+        // in flight, or an accumulator read with any (C7513, C7514).
+        float d[48];
+        for (int s = 0; s < ksteps; ++s) {
+          const unsigned a[4] = {hit[0] == s ? lo[0] : 0u, hit[1] == s ? lo[1] : 0u,
+                                 hit[0] == s ? hi[0] : 0u, hit[1] == s ? hi[1] : 0u};
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+          wgmma_m64n96k16(d, a, kt_desc(slab + (s >> 2) * kKtBox + (s & 3) * 32), s);
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        hold(d);
+        add_parts(acc[t], d);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      if (++stage == kKtStages) stage = 0, phase ^= 1;
+    }
+
+    // The tile through shared memory, [32 queries][192 rows], then whole
+    // rows of out[q, :].
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int t = 0; t < kKtTiles; ++t)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int q = 8 * (x >> 2) + fc + (x & 1), row = 64 * t + fr + 8 * ((x >> 1) & 1);
+        stg[q * kKtPitch + row] = acc[t][x];
+      }
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    constexpr int kVecs = kKtWgRows / 4;  // float4s a query row
+    for (int e = threadIdx.x & 127; e < kKtQueries * kVecs; e += 128) {
+      const int q = e / kVecs, r = 4 * (e % kVecs);
+      const long long j = j0 + r;
+      if (q0 + q >= nq || j >= n) continue;
+      const float4 v = *reinterpret_cast<const float4*>(stg + q * kKtPitch + r);
+      float* o = out + (long long)(q0 + q) * n + j;
+      if ((n & 3) == 0) {  // out is the wrapper's: rows start 16-byte aligned
+        *reinterpret_cast<float4*>(o) = v;
+      } else {
+        const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (j + c < n) o[c] = w[c];
+      }
+    }
   }
 }
 
@@ -217,20 +384,25 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// hi, mid, lo: [qp, m, kp] bf16, qp and kp multiples of 16.
-extern "C" int vq_adc_kt(const void* hi, const void* mid, const void* lo,
-                         const unsigned char* codes_t, float* out, int nq, int qp, int m,
-                         int k, int kp, long long n, void* stream) {
+// slabs: [groups, m, slab_bytes / 12288, 96, 64] bf16, the wrapper's
+// swizzled layout (adc_vmem_bench.kt_slabs); ksteps: 16-entry k-steps a
+// subspace (ceil(min(k, 256) / 16)); units: ceil(n / 576) * groups.
+extern "C" int vq_adc_kt(const void* slabs, const unsigned char* codes_t, float* out, int nq,
+                         int m, int ksteps, int slab_bytes, long long n, int groups,
+                         long long units, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)kKtRows * (kp + 8) * 2 + (size_t)kKtWarps * kKtStage * 4;
+  const int smem = 1024 + kKtStages * slab_bytes +
+                   kKtConsumers * kKtQueries * kKtPitch * 4 + 16 * kKtStages;
   int err = (int)cudaFuncSetAttribute(adc_kt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem);
+                                      smem);
   if (err != 0) return err;
-  const dim3 grid((unsigned)((n + kKtRows - 1) / kKtRows),
-                  (unsigned)((qp + 16 * kKtWarps - 1) / (16 * kKtWarps)));
-  using bf = __nv_bfloat16;
-  adc_kt_kernel<<<grid, 256, smem, st>>>(static_cast<const bf*>(hi), static_cast<const bf*>(mid),
-                                         static_cast<const bf*>(lo), codes_t, out, nq, m, k, kp, n);
+  int dev = 0, sms = 0;
+  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+    return err;
+  const unsigned grid = (unsigned)(units < sms ? units : sms);
+  adc_kt_kernel<<<grid, kKtThreads, smem, st>>>(static_cast<const unsigned char*>(slabs), codes_t,
+                                               out, nq, m, ksteps, slab_bytes, n, groups, units);
   return (int)cudaGetLastError();
 }
 

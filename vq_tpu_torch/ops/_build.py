@@ -84,8 +84,9 @@ _SIGNATURES = {
     # x, x_is_bf16, w, w_is_bf16, cc, codes, n, d, m, tensor_cores,
     # rows_per_block, stream
     "vq_mpacked_encode": (_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P),
-    # hi, mid, lo, codes_t, out, nq, qp, m, k, kp, n, stream
-    "vq_adc_kt": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P),
+    # slabs, codes_t, out, nq, m, ksteps, slab_bytes, n, groups, units,
+    # stream
+    "vq_adc_kt": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _LL, _P),
     # tables, codes_t, out, nq, m, k, n, group, tab_in_smem, subspaces,
     # rows_per_block, vec, stream
     "vq_adc_gather": (_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _LL, _I, _P),
