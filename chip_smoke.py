@@ -108,7 +108,9 @@ Phases, one line each (any failure exits non-zero with no result line):
    from that run, every ``parity`` field true. Then timings: B1's three
    variants beside K4, K4-bf16 and K4-bf16x3 at 1M, and B2, B3, B4 beside
    K8 and ``embedding_bag`` at [128, 1M], with B2's design floor and the
-   table bytes it reads a call;
+   table bytes it reads a call, and B1's bounds, its "highest" floor
+   under the no-FMA rule, its "default" plan (R, slots, ring) and the W
+   bytes each body reads a call;
 13. eval path — the four eval harnesses' ``main()``
    (``vq_tpu_torch.cli.eval_{bq,sq,pq,tsvq}``) at the reference grid's
    width, ``--sizes 1000000 --dim 384 --recall`` with every other flag
@@ -3894,6 +3896,23 @@ def main() -> None:
     b8, ms8 = bounds["K8_rq_chunk"], t_new["K8_rq_chunk"][0]
     log("bound", f"adc_lookup_fused on one RQ chunk {tuple(rqres['k8_args'][1].shape)}: {ms8:.4f} ms "
         f"against a bound of {b8[0]:.4f} ms ({b8[1]}), {b8[0] / ms8:.3f} of it | {smi}")
+    from vq_tpu_torch.benchmarks.mpacked_encode import mpacked_plan
+
+    mplan, (sms, mhz) = mpacked_plan(N_CORPUS, DIM, M), sm_rate()
+    hi_ms, lo_ms = t_bench["B1_highest"][0], t_bench["B1_default"][0]
+    hi_floor = 2.0 * N_CORPUS * DIM * M * K / (sms * 128 * mhz * 1e6) * 1e3
+    log("bound", f"mpacked_encode highest: {hi_ms:.4f} ms against a bound of "
+        f"{bbounds['B1_highest'][0]:.4f} ms (operations, FMAs at the fp32 peak) and a floor of "
+        f"{hi_floor:.4f} ms under its no-FMA contract ({sms} SMs x 128 lanes x {mhz:.0f} MHz), "
+        f"{hi_floor / hi_ms:.3f} of the floor; W transposed read a call {mplan['hi_w_bytes']} B "
+        f"({mplan['hi_tiles']} tiles of 128 rows) | {smi}")
+    log("bound", f"mpacked_encode default: {lo_ms:.4f} ms against a bound of "
+        f"{bbounds['B1_default'][0]:.4f} ms (operations, bf16), "
+        f"{bbounds['B1_default'][0] / lo_ms:.3f} of it; R {mplan['rows']} rows "
+        f"({'streamed' if mplan['streamed'] else 'resident'} x, {mplan['x_slots']} x slots, a ring "
+        f"of {mplan['stages']} W boxes), {mplan['units']} units x {M} subspaces x "
+        f"{mplan['boxes']} boxes of 32768 B: W image read a call {mplan['w_bytes']} B, "
+        f"{mplan['w_bytes'] / lo_ms / 1e6:.1f} GB/s over its time | {smi}")
     floor, kt_ms = bbounds["B2_design_floor"], t_bench["B2_adc_kt"][0]
     log("bound", f"adc_kt's own design floor, its three one-hot bf16 products at the tensor-core "
         f"peak: {floor:.4f} ms, {floor / kt_ms:.3f} of its time | {smi}")

@@ -31,7 +31,7 @@ from vq_tpu_torch.benchmarks import mpacked_encode as tmp
 from vq_tpu_torch.errors import InvalidParameter
 from vq_tpu_torch.models.base import default_device
 from vq_tpu_torch.ops import cuda_kernels as ck
-from test_torch_cuda import _ADC
+from test_torch_cuda import _ADC, _MPACKED
 from test_torch_pq import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 _SCRIPTS = Path(__file__).resolve().parent.parent / "benchmarks"
@@ -127,6 +127,150 @@ def test_mpacked_default_matches_jax(jmp, enc, dtype):
         tx, tw = _t(xv), _t(wv)
     got = tmp.mpacked_encode(tx, tw, _t(cc), "default")
     _assert_codes(got.numpy(), want, tx.float().numpy(), tw.float().numpy(), cc, "default")
+
+
+@pytest.mark.parametrize("block_rows", [192, 256, 512])
+@pytest.mark.parametrize("shape", _MPACKED, ids=lambda s: "n%d-d%d-m%d-%s" % s)
+def test_mpacked_plan_covers_every_card_shape(shape, block_rows):
+    """B1's plans at each shape of the card's tests: the units cover n,
+    the boxes d; a resident plan keeps a unit's four m-tiles and a whole
+    subspace's boxes in shared memory, a streamed one four stages of one
+    W box and two x boxes; both fit 227 KiB; a block's rows round
+    ``block_rows`` up to the row unit; W is read once a unit (a tile)."""
+    n, d, m, _ = shape
+    p = tmp.mpacked_plan(n, d, m, block_rows)
+    assert p["boxes"] * 64 == p["d_pad"] >= d > p["d_pad"] - 64
+    assert p["units"] * p["rows"] >= n > (p["units"] - 1) * p["rows"]
+    assert p["streamed"] == (p["d_pad"] > 192)
+    if p["streamed"]:
+        assert (p["rows"], p["stages"], p["x_slots"]) == (128, 4, 0)
+        assert p["smem"] == 1024 + 4 * (32768 + 2 * 8192) + 16 * 4
+    else:
+        assert p["rows"] == 256 and p["x_slots"] in (4, 8) and p["stages"] == p["boxes"] + 1
+        assert p["smem"] == (1024 + p["stages"] * 32768 + p["x_slots"] * p["boxes"] * 8192
+                             + 16 * (p["stages"] + p["x_slots"]))
+    assert p["smem"] <= 232_448
+    assert p["group_units"] * p["rows"] >= block_rows > (p["group_units"] - 1) * p["rows"]
+    assert p["hi_rows"] % 128 == 0 and p["hi_rows"] >= block_rows > p["hi_rows"] - 128
+    assert p["image_bytes"] == m * p["boxes"] * 256 * 64 * 2
+    assert p["w_bytes"] == p["units"] * p["image_bytes"]
+    assert p["hi_w_bytes"] == -(-n // 128) * m * 256 * d * 4
+
+
+def test_mpacked_plan_w_bytes_at_the_script_shape():
+    """At 1M x 128 against 8 x 256: "default" reads the 512 KiB image
+    once a 256-row unit, 3,907 x 512 KiB = 2.05 GB a call, with eight x
+    slots (two units' m-tiles) and a ring of three boxes (a subspace and
+    one ahead); "highest" reads the 1 MiB of W transposed once a 128-row
+    tile, 7,813 x 1 MiB = 8.19 GB."""
+    p = tmp.mpacked_plan(1_000_000, 128, 8)
+    assert (p["rows"], p["x_slots"], p["stages"], p["streamed"]) == (256, 8, 3, False)
+    assert p["w_bytes"] == 3907 * 8 * 2 * 32768 == 2_048_393_216
+    assert p["hi_w_bytes"] == 7813 * 2048 * 128 * 4 == 8_192_524_288
+
+
+@pytest.mark.parametrize("shape", [(128, 8), (40, 3), (16, 1), (300, 2)], ids=lambda s: "d%d-m%d" % s)
+def test_mpacked_image_assembles_back_to_w(shape):
+    """Every bf16 of :func:`mpacked_image`, read at the address the
+    kernel's wgmma descriptor gives it (16-byte chunk ``p`` of column row
+    ``j`` at ``p ^ (j % 8)``), is W's entry rounded to bf16; zero past d."""
+    d, m = shape
+    w = torch.from_numpy(_signed_wide((d, m * 256), 7))
+    img = tmp.mpacked_image(w)
+    boxes = -(-d // 64)
+    assert img.shape == (m, boxes, 256, 8, 8) and img.dtype == torch.bfloat16
+    bits = img.view(torch.int16).numpy()
+    col = np.arange(256)[:, None]
+    dep = np.arange(64)[None, :]
+    logical = bits[:, :, col, (dep // 8) ^ (col % 8), dep % 8]  # [m, boxes, 256, 64]
+    got = logical.transpose(1, 3, 0, 2).reshape(boxes * 64, m * 256)
+    want = np.zeros_like(got)
+    want[:d] = w.to(torch.bfloat16).view(torch.int16).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _acc_map():
+    """wgmma m64n256k16's f32 accumulator: thread ``t`` of the warpgroup
+    (warp ``t // 32``, lane ``l``), register ``x`` -> (row, column):
+    row 16 (t // 32) + l // 4 + 8 ((x // 2) % 2), column 8 (x // 4) +
+    2 (l % 4) + x % 2 (csrc/mpacked_encode.cu, mtile_codes)."""
+    t, x = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    lane = t % 32
+    rows = 16 * (t // 32) + lane // 4 + 8 * ((x // 2) % 2)
+    cols = 8 * (x // 4) + 2 * (lane % 4) + x % 2
+    return rows, cols
+
+
+def test_wgmma_accumulator_map_covers_every_cell_once():
+    rows, cols = _acc_map()
+    cells = rows * 256 + cols
+    assert rows.min() == 0 and rows.max() == 63 and cols.min() == 0 and cols.max() == 255
+    np.testing.assert_array_equal(np.sort(cells.ravel()), np.arange(64 * 256))
+    # each thread holds 64 columns of each of its two rows, ascending in x
+    for t in (0, 5, 37, 127):
+        for h in (0, 1):
+            mine = cols[t][(np.arange(128) // 2) % 2 == h]
+            assert len(mine) == 64 and np.all(np.diff(mine) > 0)
+            assert np.unique(rows[t][(np.arange(128) // 2) % 2 == h]).size == 1
+
+
+def _quad_argmin(acc, cc):
+    """The kernel's argmin of one m-tile, in numpy: each thread folds
+    acc + cc over its columns 8j + fc (+1) from (NaN, 0) (the pair's
+    fmin, its lower column unless only the upper is a number, taken where
+    not >= the best and a number), then the quad (lanes 4g .. 4g + 3)
+    keeps the lexicographic (orderable key, column) minimum."""
+    rows, cols = _acc_map()
+    scores = (acc + cc[None, :]).astype(np.float32)
+    best = np.full((128, 2), np.nan, np.float32)
+    bi = np.zeros((128, 2), np.int64)
+    for t in range(128):
+        for j in range(32):
+            for h in range(2):
+                x0 = 4 * j + 2 * h
+                s0, s1 = scores[rows[t, x0], cols[t, x0]], scores[rows[t, x0 + 1], cols[t, x0 + 1]]
+                lo = np.fmin(s0, s1)
+                at = 8 * j if lo == s0 else 8 * j + 1
+                if not (lo >= best[t, h]) and lo == lo:
+                    best[t, h], bi[t, h] = lo, at
+    key = ck.orderable_key(torch.from_numpy(best)).numpy()
+    col = bi + 2 * (np.arange(128) % 4)[:, None]
+    out = np.zeros(64, np.int64)
+    for t in range(0, 128, 4):
+        for h in range(2):
+            k, c = min((key[q, h], col[q, h]) for q in range(t, t + 4))
+            out[rows[t, 2 * h]] = c
+    return out
+
+
+@pytest.mark.parametrize("case", ["uniform", "ties", "nan", "signed"])
+def test_quad_argmin_model_equals_int_argmin(case):
+    """The register argmin over the accumulator map gives ``int_argmin``'s
+    column on every row: ties (lowest column), +-0.0, NaN scores (never
+    win; an all-NaN row gives 0), +-inf."""
+    rng = np.random.default_rng(28)
+    acc = rng.random((64, 256), dtype=np.float32)
+    cc = rng.random(256, dtype=np.float32)
+    if case == "ties":
+        acc = np.round(acc * 4).astype(np.float32)
+        cc = np.zeros(256, np.float32)
+        acc[3] = 1.0
+        acc[4, 200:] = -1.0
+    elif case == "nan":
+        acc[rng.random((64, 256)) < 0.3] = np.nan
+        acc[5] = np.nan
+        acc[6] = np.nan
+        acc[6, 131] = np.inf
+        acc[7, :] = np.inf
+        acc[7, 9] = np.nan
+    elif case == "signed":
+        acc = np.where(rng.random((64, 256)) < 0.5, -acc, acc).astype(np.float32)
+        acc[8] = 0.0
+        acc[8, 17] = -0.0
+        acc[9, 40] = -np.inf
+        cc[:] = 0.0
+    want = ck.int_argmin(torch.from_numpy(acc + cc[None, :]))[1].numpy()
+    np.testing.assert_array_equal(_quad_argmin(acc, cc), want)
 
 
 def _adc_inputs(k, q=5, m=4, n=1000):

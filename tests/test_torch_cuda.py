@@ -988,9 +988,13 @@ def test_seeded_weighted_lloyd_is_reproducible(card):
 
 
 # (n, d, m, W): the script's shape (build_w), a dense W, a depth that is
-# no multiple of the 16 / 32-deep chunks, one subspace, a ragged tile.
+# no multiple of the 16 / 32-deep chunks, one subspace, a ragged tile;
+# ragged past several 128- and 256-row units; past "highest"'s resident-x
+# budget (d > 244) and "default"'s 256-row unit (x streamed), d no
+# multiple of 64; one k-step and one m-tile.
 _MPACKED = [(5000, 128, 8, "build_w"), (3001, 128, 8, "dense"), (1000, 40, 3, "dense"),
-            (130, 16, 1, "build_w")]
+            (130, 16, 1, "build_w"), (1025, 128, 8, "dense"), (700, 300, 2, "dense"),
+            (64, 16, 1, "build_w")]
 
 
 def _mpacked_inputs(card, n, d, m, kind):
@@ -1033,6 +1037,27 @@ def test_mpacked_default_matches_plain(card, shape, bf16_in):
     if bf16_in:
         x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
     got = mp.mpacked_encode(x, w, cc, "default", block_rows=192)
+    par = mp.kernel_parity(x, w, cc, got, "default")
+    assert par.ok, par
+
+
+@pytest.mark.parametrize("shape", [(4096, 128, 8), (700, 300, 2)], ids=lambda s: "n%d-d%d-m%d" % s)
+def test_mpacked_default_signed_wide_operands(card, shape):
+    """B1 "default" on x and W of either sign over +-2^[-30, 30), exact
+    zeros among them: held to its plain version by the near-tie rule, on
+    the resident and the streamed plan."""
+    n, d, m = shape
+    rng = np.random.default_rng(27)
+
+    def signed_wide(size):
+        mag = rng.random(size) * 2.0 ** rng.integers(-30, 30, size)
+        v = np.where(rng.random(size) < 0.5, -mag, mag).astype(np.float32)
+        v[rng.random(size) < 0.05] = 0.0
+        return torch.from_numpy(v).to(card)
+
+    x, w = signed_wide((n, d)), signed_wide((d, m * 256))
+    cc = torch.from_numpy(rng.random(m * 256, dtype=np.float32)).to(card)
+    got = mp.mpacked_encode(x, w, cc, "default")
     par = mp.kernel_parity(x, w, cc, got, "default")
     assert par.ok, par
 

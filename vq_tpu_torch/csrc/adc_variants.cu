@@ -59,8 +59,11 @@
 // of codes read and float4s written: the card's practical floor for K8's
 // output.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cstdint>
+
+using namespace vqk;
 
 namespace {
 
@@ -100,52 +103,6 @@ __device__ __forceinline__ void store4(float* __restrict__ out, long long j, lon
     for (int e = 0; e < 4; ++e)
       if (j + e < n) out[j + e] = v[e];
   }
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// One bulk copy of `bytes` (a multiple of 16) into shared memory; the
-// copy completes its bytes on `bar`, which this thread's arrival arms.
-__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major B operand with the 128-byte swizzle: rows
-// of 128 bytes, 8-row groups 1024 bytes apart (the leading offset is not
-// read in this mode).
-__device__ __forceinline__ unsigned long long kt_desc(unsigned addr) {
-  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // d (+)= A (4 registers of the m64k16 bf16 fragment) x B (desc); a fresh
@@ -280,7 +237,7 @@ __global__ void __launch_bounds__(kKtThreads, 1)
           const unsigned a[4] = {hit[0] == s ? lo[0] : 0u, hit[1] == s ? lo[1] : 0u,
                                  hit[0] == s ? hi[0] : 0u, hit[1] == s ? hi[1] : 0u};
           asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-          wgmma_m64n96k16(d, a, kt_desc(slab + (s >> 2) * kKtBox + (s & 3) * 32), s);
+          wgmma_m64n96k16(d, a, sw128_desc(slab + (s >> 2) * kKtBox + (s & 3) * 32), s);
           asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
           asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
         }

@@ -81,9 +81,11 @@ _SIGNATURES = {
     # lhs, chunks, payload, payload_type, out, scratch, pairs, d, nc, ch,
     # n_chunks, cap, seg_len, segs, vec, qvec, stream
     "vq_ivf_matvec": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _I, _I, _I, _P),
-    # x, x_is_bf16, w, w_is_bf16, cc, codes, n, d, m, tensor_cores,
-    # rows_per_block, stream
-    "vq_mpacked_encode": (_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _LL, _P),
+    # x, x_is_bf16, wt, cc, codes, n, d, m, rows_per_block, stream
+    "vq_mpacked_highest": (_P, _I, _P, _P, _P, _LL, _I, _I, _LL, _P),
+    # x, x_is_bf16, img, cc, codes, n, d, m, kb, streamed, stages, xslots,
+    # group, units, stream
+    "vq_mpacked_default": (_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
     # slabs, codes_t, out, nq, m, ksteps, slab_bytes, n, groups, units,
     # stream
     "vq_adc_kt": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _LL, _P),
