@@ -107,8 +107,11 @@ Phases, one line each (any failure exits non-zero with no result line):
    run at their default sizes, the slice's main path: launch counts read
    from that run, every ``parity`` field true. Then timings: B1's three
    variants beside K4, K4-bf16 and K4-bf16x3 at 1M, and B2, B3, B4 beside
-   K8 and ``embedding_bag`` at [128, 1M], with B2's design floor and the
-   table bytes it reads a call, and B1's bounds, its "highest" floor
+   K8 and ``embedding_bag`` at [128, 1M] (B3 also beside phase 11's K8 on
+   codes that cost one wavefront a phase), with B2's design floor and the
+   table bytes it reads a call, B3's shared-memory floor by its wavefront
+   model (``adc_vmem_bench.gather_wavefronts``) beside K8's 16-byte
+   design on the same codes, and B1's bounds, its "highest" floor
    under the no-FMA rule, its "default" plan (R, slots, ring) and the W
    bytes each body reads a call;
 13. eval path — the four eval harnesses' ``main()``
@@ -1863,9 +1866,11 @@ def phase_bench_path():
     return launches
 
 
-def phase_bench_timings(smi, bd):
+def phase_bench_timings(smi, bd, k8_calm):
     """B1 beside K4 / K4-bf16 / K4-bf16x3 at 1M; B2, B3, B4 beside K8 and
-    ``embedding_bag`` at [128, 1M]; plain versions at their checks' sizes."""
+    ``embedding_bag`` at [128, 1M], B3 also beside ``k8_calm`` (K8 on
+    codes that cost one wavefront a phase, :func:`k8_floors`); plain
+    versions at their checks' sizes."""
     import torch
 
     from vq_tpu_torch.benchmarks import adc_vmem_bench as av
@@ -1904,7 +1909,43 @@ def phase_bench_timings(smi, bd):
         t[name] = (cuda_ms(fn, 20), cuda_ms(plain_fn, 2), lib)
         log("time", f"{name} [{q}, {N_CORPUS}] from {m}x{k} tables: kernel {t[name][0]:.4f} ms, plain "
             f"{t[name][1]:.4f} ms, embedding_bag {lib:.4f} ms | {smi}")
+    t["B3_only1"] = (cuda_ms(lambda: av.adc_gather(tables, codes_t, only=1), 20), None)
+    calm = ", ".join(f"{c} {v:.4f} ms" for c, v in k8_calm.items())
+    log("time", f"B3_adc_gather [{q}, {N_CORPUS}]: {t['B3_adc_gather'][0]:.4f} ms (only=1 "
+        f"{t['B3_only1'][0]:.4f} ms) beside K8 {t['K8@bench'][0]:.4f} ms on the same operands, K8 on "
+        f"codes that cost one wavefront a phase ({calm}; phase 11's tables) and embedding_bag "
+        f"{lib:.4f} ms | {smi}")
     return t
+
+
+def gather_floor(smi, bd, ms):
+    """B3's shared-memory floor at the twin's shape: the wavefronts its
+    lane map takes on this run's codes (:func:`adc_vmem_bench.gather_wavefronts`,
+    one block's schedule over all rows, a query group's lookups) times the
+    query groups, at one a clock an SM; beside K8's 16-byte design on the
+    same codes by the same count. Returns the floor in ms."""
+    import torch
+
+    from vq_tpu_torch.benchmarks import adc_vmem_bench as av
+
+    tables, codes_t = bd["tables"], bd["codes_t"]
+    q, m, k = tables.shape
+    plan = av.gather_plan(q, m, k, codes_t.shape[1])
+    waves = av.gather_wavefronts(codes_t, plan)
+    k8 = av.gather_wavefronts(codes_t, plan, lane_map="k8")
+    sms, mhz = sm_rate()
+    total = float(waves.sum()) * plan["groups"]
+    total8 = float(k8.sum()) * -(-q // 4)
+    floor, floor8 = total / (sms * mhz * 1e6) * 1e3, total8 / (sms * mhz * 1e6) * 1e3
+    log("bound", f"adc_gather's shared-memory floor by its wavefront model: {plan['groups']} query "
+        f"groups of {plan['queries']} x {waves.numel()} phases, {float(waves.double().mean()):.4f} "
+        f"wavefronts a phase (most {int(waves.max())}), {total:.6g} wavefronts at one a clock an SM, "
+        f"{sms} SMs x {mhz:.0f} MHz = {floor:.4f} ms, B3 at {floor / ms:.3f} of it; K8's lane map on "
+        f"the same codes {float(k8.double().mean()):.4f} a phase, {total8:.6g} wavefronts = "
+        f"{floor8:.4f} ms | {smi}")
+    del waves, k8
+    torch.cuda.empty_cache()
+    return floor
 
 
 EVAL_CLIS = ("bq", "sq", "pq", "tsvq")
@@ -3746,7 +3787,8 @@ def main() -> None:
     bd = timed("make_bench_data", make_bench_data, "cuda")
     b_err = timed("phase_bench_kernels", phase_bench_kernels, bd, corpus, kres)
     bl = timed("phase_bench_path", phase_bench_path)
-    t_bench = timed("phase_bench_timings", phase_bench_timings, smi, bd)
+    t_bench = timed("phase_bench_timings", phase_bench_timings, smi, bd, k8["K8"])
+    b3_floor = timed("gather_floor", gather_floor, smi, bd, t_bench["B3_adc_gather"][0])
     del bd
     ev = timed("phase_eval_path", phase_eval_path, smi)
     ev_checks = timed("phase_eval_checks", phase_eval_checks, smi, ev)
@@ -3886,7 +3928,8 @@ def main() -> None:
         row("adc_kt", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:55", bl["adc_kt"], 0.0, "B2",
             t_bench["B2_adc_kt"]),
         row("adc_gather", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:99", bl["adc_gather"], 0.0,
-            "B3", t_bench["B3_adc_gather"]),
+            "B3", t_bench["B3_adc_gather"], {"only1_ms": t_bench["B3_only1"][0],
+                                            "lookup_floor_ms": b3_floor}),
         row("adc_floor", "adc_variants.cu", "benchmarks/adc_vmem_bench.py:156", bl["adc_floor"], 0.0,
             "B4", t_bench["B4_adc_floor"][:2]),
     ]

@@ -405,6 +405,91 @@ def test_gather_code_out_of_range_adds_zero():
     assert torch.equal(got, ck.adc_lookup_plain(_t(tables), _t(codes_t).T))
 
 
+def _wavefront_codes(kind, m, n, k=256):
+    """``codes_t [m, n]``: random; all one code; or adversarial for a
+    16-byte-entry layout like K8's: the 32 rows of every phase on distinct
+    codes that are multiples of 8, so in one subspace all 8 lanes' entries
+    fall in one 16-byte slot column of the banks."""
+    rng = np.random.default_rng(28)
+    if kind == "random":
+        codes = rng.integers(0, k, (m, n))
+    elif kind == "equal":
+        codes = np.full((m, n), 7)
+    else:
+        codes = np.broadcast_to(8 * (np.arange(n) // 4 % 8) + 64 * (np.arange(n) // 32 % 4), (m, n))
+    return torch.from_numpy(np.ascontiguousarray(codes).astype(np.uint8))
+
+
+@pytest.mark.parametrize("m, only", [(8, 0), (8, 1), (8, 2), (7, 0), (7, 2), (3, 0), (3, 1),
+                                     (1, 0)], ids=lambda v: str(v))
+@pytest.mark.parametrize("kind", ["random", "equal", "adversarial"])
+def test_gather_costs_one_wavefront_a_phase(kind, m, only):
+    """B3's lane map at the paired tier: the two groups of a quarter-warp
+    one subspace apart read opposite halves of the banks, so every phase
+    of every 16-byte load takes one wavefront on any codes, odd subspace
+    counts included (their idle step a row set); n = 2,053 leaves a
+    ragged block step and row set."""
+    n = 2053
+    plan = tav.gather_plan(16, m, 256, n, only)
+    assert plan["tier"] == "paired"
+    waves = tav.gather_wavefronts(_wavefront_codes(kind, m, n), plan)
+    s = only or m
+    steps = plan["tiles"] * plan["steps"] + (s % 2 == 0)  # group 1's extra last step
+    assert waves.numel() == steps * 16 * 4 * 4  # (step, warp, quarter, row) phases
+    assert torch.equal(waves, torch.ones_like(waves))
+
+
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_k8_lane_map_costs_more_than_two_wavefronts(kind):
+    """The same count on K8's lane map (8 row sets of 4 rows a phase, one
+    quad's 16-byte entries at a time) gives ~2.5 wavefronts a phase on
+    random codes and 8 on the adversarial ones: the model tells the two
+    layouts apart."""
+    m, n = 8, 4096
+    codes_t = _wavefront_codes(kind, m, n)
+    plan = tav.gather_plan(128, m, 256, n)
+    k8 = tav.gather_wavefronts(codes_t, plan, lane_map="k8")
+    assert k8.numel() == n // 32 * m * 4
+    mean = float(k8.double().mean())
+    assert (2.0 < mean < 3.0) if kind == "random" else mean == 8.0
+    b3 = tav.gather_wavefronts(codes_t, plan)
+    assert torch.equal(b3, torch.ones_like(b3))
+
+
+def test_gather_plan_at_the_twin_shape():
+    """[128, 1M] from 8 x 256 tables: 16 queries a block in 8 groups, the
+    paired tier, 4 lines of 256 x 128 bytes (128 KB, in the 227 KB
+    window); only = 1 fills one subspace's half-lines, 32 KB."""
+    p = tav.gather_plan(128, 8, 256, 1_000_000)
+    assert (p["tier"], p["queries"], p["groups"], p["steps"]) == ("paired", 16, 8, 8)
+    assert p["smem_bytes"] == 4 * 256 * 128 == 131_072 <= 227 * 1024
+    assert p["tiles"] == -(-1_000_000 // 512)
+    one = tav.gather_plan(128, 8, 256, 1_000_000, only=1)
+    want = ("paired", 1, 2, 32_768)
+    assert (one["tier"], one["subspaces"], one["steps"], one["smem_bytes"]) == want
+
+
+@pytest.mark.parametrize("only", [0, 1], ids=lambda o: f"only{o}")
+@pytest.mark.parametrize("shape", _ADC, ids=lambda s: "Q%d-m%d-k%d-n%d" % s)
+def test_gather_plan_covers_every_card_shape(shape, only):
+    """B3's plan at each shape of the card's tests: the groups cover Q in
+    blocks of a multiple of 4 queries, at most 16; the paired tier
+    wherever (subspaces + 1) / 2 lines of kp x 128 bytes fit the opt-in
+    window (kp = k + 1 below k = 256), the device-memory tier (no shared
+    bytes) elsewhere: m = 40 and 100 at k = 256, summed over all."""
+    q, m, k, n = shape
+    p = tav.gather_plan(q, m, k, n, only)
+    s = only or m
+    assert p["subspaces"] == s and p["steps"] == s + s % 2
+    assert p["queries"] % 4 == 0 and 4 <= p["queries"] <= 16
+    assert p["groups"] * p["queries"] >= q > (p["groups"] - 1) * p["queries"]
+    assert p["kp"] == (k + 1 if k < 256 else 256)
+    paired = -(-s // 2) * p["kp"] * 128
+    assert p["tier"] == ("paired" if paired <= ck.SMEM_OPTIN else "device")
+    assert p["smem_bytes"] == (paired if p["tier"] == "paired" else 0)
+    assert (p["tier"] == "device") == (only == 0 and m in (40, 100))
+
+
 def _json_lines(text):
     return [json.loads(line) for line in text.splitlines() if line.strip()]
 

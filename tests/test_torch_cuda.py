@@ -1063,12 +1063,11 @@ def test_mpacked_default_signed_wide_operands(card, shape):
 
 
 # (Q, m, k, n): the script's shape at a ragged Q and n; k = 128 with codes
-# up to 255 (out of range: 0); 40 subspaces (one query's B3 table is
-# 40 KB); 100 subspaces (past B3's shared-memory budget: tables read
-# from device memory); Q past four B2 query groups of 32; Q = 200 over
-# seven groups, ragged, at an n past two 576-row B2 units and not a
-# multiple of 576 (nor of 64); one subspace of 16 entries (one B2 k-step) at n = 1
-# and 63, under one 64-row m-tile.
+# up to 255 (out of range: 0); 40 and 100 subspaces (16 queries' B3
+# lines pass the 227 KB window: its device-memory tier); Q past four B2
+# query groups of 32; Q = 200 over seven groups, ragged, at an n past two
+# 576-row B2 units and not a multiple of 576 (nor of 64); one subspace of
+# 16 entries (one B2 k-step) at n = 1 and 63, under one 64-row m-tile.
 _ADC = [(5, 4, 256, 1001), (20, 8, 128, 4096), (9, 40, 256, 3000), (3, 100, 256, 2002),
         (130, 8, 256, 999), (200, 3, 256, 1537), (7, 1, 16, 1), (33, 1, 16, 63)]
 
@@ -1087,7 +1086,7 @@ def test_adc_variants_match_plain_and_k8(card, shape):
     assert torch.equal(gather, av.adc_gather_plain(tables, codes_t))
     assert torch.equal(kt, k8) and torch.equal(gather, k8)
     for only in (1, m):
-        assert torch.equal(av.adc_gather(tables, codes_t, only=only, block_rows=100),
+        assert torch.equal(av.adc_gather(tables, codes_t, only=only),
                            av.adc_gather_plain(tables, codes_t, only=only))
     assert torch.equal(av.adc_floor(tables, codes_t), av.adc_floor_plain(tables, codes_t))
 
@@ -1114,6 +1113,66 @@ def test_adc_kt_signed_wide_tables_bit_for_bit(card, shape):
     want = av.adc_kt_plain(tables, codes_t)
     assert torch.equal(kt.view(torch.int32), want.view(torch.int32))
     assert torch.equal(kt.view(torch.int32), k8.view(torch.int32))
+
+
+def _signed_wide_tables(q, m, k, seed):
+    """Entries +-2^[-30, 30) with exact zeros and -0.0."""
+    rng = np.random.default_rng(seed)
+    mag = rng.random((q, m, k)) * 2.0 ** rng.integers(-30, 30, (q, m, k))
+    tab = np.where(rng.random((q, m, k)) < 0.5, -mag, mag).astype(np.float32)
+    tab[rng.random((q, m, k)) < 0.05] = 0.0
+    tab[rng.random((q, m, k)) < 0.05] = -0.0
+    return tab
+
+
+# (Q, m, k, n) for B3: Q of 1, 15, 17 and 130 (one quad, a ragged group,
+# a group and one query, nine groups); odd m; codes past k at k = 100 and
+# 128; n of 1, 3, 5 (under one row set, ragged), 4097 (past 8 block steps,
+# not a multiple of 4) and 300,000 / 300,001 (several block steps a
+# block, with and without u32 code words).
+_GATHER = [(1, 1, 256, 1), (15, 3, 100, 3), (17, 5, 128, 5), (130, 7, 256, 4097),
+           (17, 8, 100, 4097), (130, 2, 128, 5), (15, 6, 256, 4096), (16, 8, 256, 300_000),
+           (17, 5, 100, 300_001)]
+
+
+@pytest.mark.parametrize("shape, only", [(s, o) for s in _GATHER for o in sorted({1, min(2, s[1]), s[1]})],
+                         ids=lambda v: "Q%d-m%d-k%d-n%d" % v if isinstance(v, tuple) else f"only{v}")
+def test_adc_gather_signed_wide_tables_bit_for_bit(card, shape, only):
+    """B3's paired layout, skew and bubble on signs and exponents: tables
+    +-2^[-30, 30) with exact zeros and -0.0, codes in range and past k,
+    the first ``only`` subspaces (1, 2 and m), held bit for bit (int32
+    views) to ``adc_gather_plain`` and to K8 over the same subspaces."""
+    q, m, k, n = shape
+    rng = np.random.default_rng(28)
+    codes = rng.integers(0, k, (m, n))
+    codes[rng.random((m, n)) < 0.1] = 255
+    tables = torch.from_numpy(_signed_wide_tables(q, m, k, 28)).to(card)
+    codes_t = torch.from_numpy(codes.astype(np.uint8)).to(card)
+    got = av.adc_gather(tables, codes_t, only=only)
+    k8 = ck.adc_lookup_fused(tables[:, :only].contiguous(), codes_t[:only].T.contiguous())
+    torch.cuda.synchronize()
+    want = av.adc_gather_plain(tables, codes_t, only=only)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), k8.view(torch.int32))
+
+
+def test_adc_gather_refuses_a_plan_that_does_not_fit(card):
+    """The launcher checks the wrapper's plan and returns an error, never
+    falling back: shared bytes other than the paired layout's, shared
+    bytes past the opt-in window, or more than 16 queries a block."""
+    from vq_tpu_torch.ops.cuda_kernels import _launch
+
+    q, m, k, n = 16, 40, 256, 64
+    tables = torch.rand(q, m, k, device=card)
+    codes_t = torch.zeros(m, n, dtype=torch.uint8, device=card)
+    out = torch.empty(q, n, device=card)
+    plan = av.gather_plan(q, m, k, n)
+    assert plan["tier"] == "device"
+    for subspaces, queries, smem in ((m, 16, 20 * 256 * 128), (2, 16, 256 * 128 + 16),
+                                     (2, 20, 256 * 128)):
+        with pytest.raises(RuntimeError, match="vq_adc_gather"):
+            _launch("vq_adc_gather", tables.data_ptr(), codes_t.data_ptr(), out.data_ptr(), q, m,
+                    k, n, subspaces, queries, smem, 1)
 
 
 def test_bench_launch_counters_count_card_launches(card):

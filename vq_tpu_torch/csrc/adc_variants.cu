@@ -46,13 +46,49 @@
 // warpgroups of four tiles ran slower, and more wgmmas in flight slower
 // still (ptxas serializes them).
 //
-// B3 (adc_gather_kernel), the gather design. The tables of a group of at
-// most 8 queries sit in shared memory, as in K8 (read from device memory
-// when one query's table does not fit). Each thread owns 4 consecutive
-// rows: it reads one u32 of codes_t a subspace (coalesced, thanks to the
-// [m, n] layout), keeps 4 x group sums in registers, added from +0.0 in
-// subspace order, and writes float4s. `subspaces` < m stops early (the
-// script's `only`). A code >= k adds 0.0, K8's rule.
+// B3 (adc_gather_kernel), the gather design, laid out for the card's
+// shared memory. Besides the output, Q*n*m random table lookups set its
+// time: one 4-byte shared load a lookup costs ~3.5 wavefronts a warp on
+// random codes, and K8's 16-byte load of 4 queries still lets the 8
+// lanes of a quarter-warp (one phase of the load) hit 8 random 16-byte
+// slots of the 32 banks, ~2.5 wavefronts a phase. Here every phase costs
+// one wavefront on any codes:
+//  * Tables. A block holds the tables of up to 16 queries (4 quads) in
+//    shared memory as 128-byte lines, line (p, c) = [entry(2p, c) |
+//    entry(2p + 1, c)], an entry (subspace i, code c) 64 bytes: one
+//    float4 of 4 queries a quad. Subspace parity picks the half of the
+//    banks, the quad the 16-byte slot within it. 128 KB at 8 x 256. The
+//    block's own fill builds them; an absent query or an odd subspace
+//    count leaves zeros. Where a u8 code can reach k (k < 256) each
+//    subspace gets a zero entry at index k and a code is clamped to it
+//    once a (row, subspace), not once a query (K8's rule); at k >= 256
+//    there is no check.
+//  * Lanes. A quarter-warp is two groups of 4 lanes; a group covers a row
+//    set of 4 consecutive rows, lane l of it quad l, and keeps 4 rows x 4
+//    queries = 16 sums in registers, each (query, row) sum formed by one
+//    lane from +0.0 in ascending subspace order with __fadd_rn: B3
+//    matches its plain version and K8 bit for bit.
+//  * Skew. The second group runs one subspace behind the first, so at
+//    every load the two groups read opposite halves: 8 distinct slots,
+//    one wavefront a phase. The lag is carried across a thread's whole
+//    row loop (one step a thread); an odd subspace count gets one idle
+//    step a row set (a bubble), so the parities alternate across row sets
+//    too.
+//  * Codes: the 4 rows' codes of a subspace are one u32 of codes_t [m, n]
+//    (the 4 lanes of a group load the same word), loaded a pass of 4
+//    steps ahead. Output: a float4 of 4 rows a query, streamed past L2
+//    (st.global.cs) so the codes stay there. Where the subspace count is
+//    even, group 0 holds its finished sums one step, so that both groups
+//    store at once: a warp's store writes whole 128-byte lines.
+//  * One wave: as many blocks as the card holds (occupancy calculator),
+//    the rows spread evenly over the blocks of a query group, so each
+//    block fills its tables once. Where 16 queries' tables do not fit the
+//    opt-in window (m = 40 at k = 256), the entries are read from device
+//    memory through L1 / L2, 4 loads an entry: right, not fast. The plan
+//    (tier, queries a block, shared bytes) is the wrapper's
+//    (adc_vmem_bench.gather_plan); the launcher checks it and never falls
+//    back. `subspaces` < m sums the first ones only (the script's `only`)
+//    and fills only those.
 //
 // B4 (adc_floor_kernel): the same I/O with no lookup,
 // out[q, j] = f32(codes_t[0, j]) + tables[0, 0, 0] for every q, one u32
@@ -79,8 +115,13 @@ constexpr int kKtPitch = kKtWgRows + 4;        // staging row pitch (floats)
 constexpr int kKtThreads = 128 * (kKtConsumers + 1);  // + the producer warpgroup
 // Registers a thread after setmaxnreg: 3 x 128 x 152 + 128 x 40 <= 65,536.
 constexpr int kKtConsumerRegs = 152, kKtProducerRegs = 40;
-constexpr int kGatherMax = 8;   // queries a B3 group, at most
 constexpr int kRowsPerThread = 4;
+constexpr int kGQueries = 16;     // queries a B3 block, at most: 4 quads
+constexpr int kGThreads = 512;    // threads a B3 block: 16 warps of 32 rows
+constexpr int kGTile = kGThreads; // rows a B3 block step (8 row sets a warp)
+constexpr int kGChunk = 4;        // steps whose code words a B3 thread loads ahead
+constexpr int kGLine = 128;       // bytes a B3 table line: 2 subspaces x 4 quads
+constexpr int kGFill = 4;         // table slots a thread loads at a B3 fill step
 
 __device__ __forceinline__ void load4(const unsigned char* __restrict__ row, long long j,
                                       long long n, bool vec, int c[4]) {
@@ -280,46 +321,198 @@ __global__ void __launch_bounds__(kKtThreads, 1)
   }
 }
 
-template <bool kSmem>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void add4(float4& a, const float4 v) {
+  a.x = __fadd_rn(a.x, v.x);
+  a.y = __fadd_rn(a.y, v.y);
+  a.z = __fadd_rn(a.z, v.z);
+  a.w = __fadd_rn(a.w, v.w);
+}
+
+__device__ __forceinline__ float comp(const float4 a, int l) {
+  return l == 0 ? a.x : l == 1 ? a.y : l == 2 ? a.z : a.w;
+}
+
+// Block (g, b): queries [g queries, (g + 1) queries) against rows
+// [b rows_per_block, (b + 1) rows_per_block), rows_per_block a multiple
+// of kGTile. kSmem: the paired tier, the first `subspaces` tables as
+// 128-byte lines in shared memory ((subspaces + 1) / 2 * kp * 128 bytes,
+// kp = k + 1 where kClamp, else 256); otherwise the entries are read
+// from device memory. kFast: a row set's steps fill whole passes and the
+// codes load as u32 words (vec), so a pass runs its steps unchecked.
+//
+// A lane's steps: a row set takes `steps` (the subspaces, and a bubble
+// where their count is odd), run in passes of kGChunk unrolled steps
+// whose code words are loaded a pass ahead. Group 1 is one step behind
+// group 0 throughout: at a row set's first step it is still on its
+// previous row set's last step, with that step's word (`last`). No step
+// is skipped: a bubble reads the zero half of the last line, a row set
+// past the block's rows reads code 0, and the sums a lane makes before
+// its first row set are dropped when it starts afresh.
+template <bool kSmem, bool kClamp, bool kFast>
+__global__ void __launch_bounds__(kGThreads)
     adc_gather_kernel(const float* __restrict__ tables, const unsigned char* __restrict__ codes_t,
-                      float* __restrict__ out, int nq, int m, int k, long long n, int group,
-                      int subspaces, long long rows_per_block, int vec) {
-  extern __shared__ float tab_s[];
-  const int q0 = blockIdx.y * group;
-  const int gq = min(group, nq - q0);
-  const float* tab = tables + (size_t)q0 * m * k;
+                      float* __restrict__ out, int nq, int m, int k, long long n, int subspaces,
+                      int queries, long long rows_per_block, int vec) {
+  extern __shared__ float4 lines_s[];
+  const int kp = kClamp ? k + 1 : 256;
+  const int q0 = blockIdx.x * queries;
+  const int qn = min(queries, nq - q0);  // queries of this block
+  const int steps = subspaces + (subspaces & 1);
   if (kSmem) {
-    const int cells = gq * m * k;
-    for (int t = threadIdx.x; t < cells; t += blockDim.x) tab_s[t] = tab[t];
+    // The fill: slot s of line (p, c) holds quad s % 4 of subspace
+    // 2p + s / 4; kGFill slots a thread at a step, their loads issued
+    // before the stores.
+    const int cells = steps / 2 * kp * 8;
+    for (int t0 = threadIdx.x; t0 < cells; t0 += kGFill * kGThreads) {
+      float4 v[kGFill];
+#pragma unroll
+      for (int b = 0; b < kGFill; ++b) {
+        const int t = t0 + b * kGThreads, line = t >> 3, p = line / kp, c = line - p * kp;
+        const int i = 2 * p + ((t >> 2) & 1), quad = t & 3;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = 4 * quad + e;
+          x[e] = (t < cells && i < subspaces && c < k && q < qn)
+                     ? __ldg(tables + ((size_t)(q0 + q) * m + i) * k + c)
+                     : 0.f;
+        }
+        v[b] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+#pragma unroll
+      for (int b = 0; b < kGFill; ++b)
+        if (t0 + b * kGThreads < cells) lines_s[t0 + b * kGThreads] = v[b];
+    }
     __syncthreads();
-    tab = tab_s;
   }
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
+
+  // Lane 8h + 4g + l of a warp: quarter h, group g, quad l; the group's
+  // row set is rows 4 (4g + h) .. + 3 of the warp's 32 in a block step.
+  const int lane = threadIdx.x & 31, g = (lane >> 2) & 1, l = lane & 3;
+  const int row_off = 32 * (threadIdx.x >> 5) + 4 * (4 * g + (lane >> 3));
+  const long long r0 = (long long)blockIdx.y * rows_per_block;
   const long long r1 = min(n, r0 + rows_per_block);
-  for (long long j = r0 + (long long)kRowsPerThread * threadIdx.x; j < r1;
-       j += (long long)kRowsPerThread * blockDim.x) {
-    float acc[kGatherMax][kRowsPerThread];
+  const int tiles = (int)((r1 - r0 + kGTile - 1) / kGTile);
+  const int passes = (steps + kGChunk - 1) / kGChunk;
+  const int line_stride = kp * kGLine;  // bytes from line (p, c) to (p + 1, c)
+  const bool even = (subspaces & 1) == 0;
+  // off[s]: this lane's float4 at step s of a pass, past the pass's
+  // first line: subspace s - g of the pass, its line (subspace / 2), half
+  // (subspace % 2) and slot l; at a row set's first step group 1 reads
+  // the last line's second half (`first`).
+  int off[kGChunk];
 #pragma unroll
-    for (int g = 0; g < kGatherMax; ++g)
+  for (int s = 0; s < kGChunk; ++s)
+    off[s] = ((s - g) >> 1) * line_stride + (((s - g) & 1) << 6) + (l << 4);
+  const int first = g ? (steps / 2 - 1) * line_stride + 64 + (l << 4) : off[0];
+  const char* tab = reinterpret_cast<const char*>(lines_s);
+  const float* tq[4];  // device-memory tier: the tables of the quad's queries
 #pragma unroll
-      for (int e = 0; e < kRowsPerThread; ++e) acc[g][e] = 0.f;
-    for (int i = 0; i < subspaces; ++i) {
-      int c[kRowsPerThread];
-      load4(codes_t + (long long)i * n, j, n, vec, c);
+  for (int e = 0; e < 4; ++e) tq[e] = tables + (size_t)(q0 + min(4 * l + e, qn - 1)) * m * k;
+
+  float4 acc[4];
 #pragma unroll
-      for (int g = 0; g < kGatherMax; ++g) {
-        if (g < gq) {
-          const float* tq = tab + ((size_t)g * m + i) * k;
+  for (int e = 0; e < 4; ++e) acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // The codes of pass p of block step t: one u32 a subspace (0 past the
+  // subspaces and the block's rows).
+  auto load_pass = [&](int t, int p, unsigned w[kGChunk]) {
+    const long long j = r0 + (long long)t * kGTile + row_off;
+    const bool ok = t < tiles && j < r1;
 #pragma unroll
-          for (int e = 0; e < kRowsPerThread; ++e)
-            acc[g][e] = __fadd_rn(acc[g][e], c[e] < k ? tq[c[e]] : 0.f);
+    for (int u = 0; u < kGChunk; ++u) {
+      w[u] = 0;
+      if (ok && kGChunk * p + u < subspaces) {
+        const unsigned char* c = codes_t + (long long)(kGChunk * p + u) * n + j;
+        if (kFast || vec) {
+          w[u] = __ldg(reinterpret_cast<const unsigned*>(c));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j + e < n) w[u] |= (unsigned)__ldg(c + e) << (8 * e);
         }
       }
     }
+  };
+  // One step: the 4 rows' entries of subspace i (codes w) at `sub`.
+  auto lookup = [&](unsigned w, int sub, int i) {
 #pragma unroll
-    for (int g = 0; g < kGatherMax; ++g)
-      if (g < gq) store4(out + (long long)(q0 + g) * n, j, n, vec, acc[g]);
+    for (int e = 0; e < 4; ++e) {
+      unsigned c = (w >> (8 * e)) & 0xFF;
+      if (kSmem) {
+        if (kClamp) c = min(c, (unsigned)k);
+        add4(acc[e], *reinterpret_cast<const float4*>(tab + sub + (c << 7)));
+      } else if (i < subspaces && c < (unsigned)k) {
+        const int at = i * k + (int)c;
+        add4(acc[e], make_float4(__ldg(tq[0] + at), __ldg(tq[1] + at), __ldg(tq[2] + at),
+                                 __ldg(tq[3] + at)));
+      } else {
+        add4(acc[e], make_float4(0.f, 0.f, 0.f, 0.f));
+      }
+    }
+  };
+  // The sums of the row set at block step t (where it holds rows of the
+  // block) to out, both groups at once: group 0's from `done` where the
+  // count is even (it finished a step before group 1 and started its next
+  // row set), else from acc; a lane that stored from acc starts afresh.
+  float4 done[4];
+  auto store = [&](int t) {
+    const bool held = even && !g;
+    float4 v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = held ? done[e] : acc[e];
+    const long long j = r0 + (long long)t * kGTile + row_off;
+    if (t >= 0 && j < r1) {
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        if (4 * l + qq >= qn) break;
+        float* o = out + (size_t)(q0 + 4 * l + qq) * n + j;
+        if (kFast || (vec && j + 4 <= n)) {
+          __stcs(reinterpret_cast<float4*>(o), make_float4(comp(v[0], qq), comp(v[1], qq),
+                                                           comp(v[2], qq), comp(v[3], qq)));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j + e < n) __stcs(o + e, comp(v[e], qq));
+        }
+      }
+    }
+    if (!held) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  unsigned cur[kGChunk], last = 0;
+  load_pass(0, 0, cur);
+  for (int t = 0; t < tiles; ++t) {
+    for (int p = 0; p < passes; ++p) {
+      unsigned nxt[kGChunk];
+      if (p + 1 < passes) load_pass(t, p + 1, nxt);
+      else load_pass(t + 1, 0, nxt);
+      const int base = kGChunk / 2 * p * line_stride;
+#pragma unroll
+      for (int s = 0; s < kGChunk; ++s) {
+        const int sigma = kGChunk * p + s;
+        if (!kFast && sigma >= steps) break;
+        const bool wrap = s == 0 && p == 0;
+        const unsigned w = g ? (s == 0 ? last : cur[s > 0 ? s - 1 : 0]) : cur[s];
+        lookup(w, wrap ? first : base + off[s], wrap && g ? steps - 1 : sigma - g);
+        if (wrap && even) store(t - 1);  // group 1 ends its previous row set
+        last = cur[s];
+      }
+#pragma unroll
+      for (int u = 0; u < kGChunk; ++u) cur[u] = nxt[u];
+    }
+    if (!even) {
+      store(t);  // an odd count ends both groups' row sets on the bubble
+    } else if (!g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) done[e] = acc[e], acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if (even) {  // group 1's last step: the block's last row set, last subspace
+    lookup(g ? last : 0u, first, steps - 1);
+    store(tiles - 1);
   }
 }
 
@@ -337,6 +530,32 @@ __global__ void __launch_bounds__(256)
   const int q1 = min(nq, (int)(blockIdx.y + 1) * q_per_block);
   for (int q = blockIdx.y * q_per_block; q < q1; ++q)
     store4(out + (long long)q * n, j, n, vec, v);
+}
+
+// One wave of B3 blocks: as many as the card holds at once (by the
+// occupancy calculator), the rows spread evenly over the blocks of a
+// query group in whole block steps of kGTile rows.
+using GatherKernel = void (*)(const float*, const unsigned char*, float*, int, int, int, long long,
+                              int, int, long long, int);
+
+int launch_gather(GatherKernel kernel, const float* tables, const unsigned char* codes_t,
+                  float* out, int nq, int m, int k, long long n, int subspaces, int queries,
+                  int smem, int vec, int sms, cudaStream_t st) {
+  int err = 0, per_sm = 0;
+  if (smem > 48 * 1024)
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGThreads, smem);
+  if (err != 0) return err;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (nq + queries - 1) / queries;
+  const long long tiles = (n + kGTile - 1) / kGTile;
+  const long long row_blocks = max(1LL, min(tiles, (long long)per_sm * sms / groups));
+  const long long rows_per_block = (tiles + row_blocks - 1) / row_blocks * kGTile;
+  const dim3 grid((unsigned)groups, (unsigned)((n + rows_per_block - 1) / rows_per_block));
+  kernel<<<grid, kGThreads, smem, st>>>(tables, codes_t, out, nq, m, k, n, subspaces, queries,
+                                        rows_per_block, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -363,26 +582,34 @@ extern "C" int vq_adc_kt(const void* slabs, const unsigned char* codes_t, float*
   return (int)cudaGetLastError();
 }
 
-// group <= 8 queries a block; tab_in_smem: the group's tables fit
-// `smem` bytes; vec: n % 4 == 0 (u32 code loads, float4 stores).
+// B3's plan (adc_vmem_bench.gather_plan): `queries` a block (a multiple
+// of 4, at most kGQueries), the paired tier's shared bytes, (subspaces +
+// 1) / 2 lines of kp * 128 bytes (kp = k + 1 where k < 256, else 256), or
+// 0 for the device-memory tier; vec: n % 4 == 0 (u32 code loads, float4
+// stores). A plan that does not fit the card returns an error.
 extern "C" int vq_adc_gather(const float* tables, const unsigned char* codes_t, float* out,
-                             int nq, int m, int k, long long n, int group, int tab_in_smem,
-                             int subspaces, long long rows_per_block, int vec, void* stream) {
+                             int nq, int m, int k, long long n, int subspaces, int queries,
+                             int smem, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((n + rows_per_block - 1) / rows_per_block),
-                  (unsigned)((nq + group - 1) / group));
-  if (tab_in_smem) {
-    const size_t smem = (size_t)group * m * k * sizeof(float);
-    const int err = (int)cudaFuncSetAttribute(
-        adc_gather_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != 0) return err;
-    adc_gather_kernel<true><<<grid, 256, smem, st>>>(tables, codes_t, out, nq, m, k, n, group,
-                                                     subspaces, rows_per_block, vec);
-  } else {
-    adc_gather_kernel<false><<<grid, 256, 0, st>>>(tables, codes_t, out, nq, m, k, n, group,
-                                                   subspaces, rows_per_block, vec);
-  }
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0, optin = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != 0) return err;
+  const bool clamp = k < 256;
+  const long long paired = (long long)((subspaces + 1) / 2) * (clamp ? k + 1 : 256) * kGLine;
+  if (queries < 4 || queries > kGQueries || queries % 4 != 0 || subspaces < 1 || subspaces > m ||
+      (smem != 0 && (smem != paired || smem > optin)))
+    return (int)cudaErrorInvalidValue;
+  const bool fast = vec && (subspaces + (subspaces & 1)) % kGChunk == 0;
+  GatherKernel kernel = adc_gather_kernel<false, false, false>;  // the device-memory tier
+  if (smem != 0 && clamp)
+    kernel = fast ? adc_gather_kernel<true, true, true> : adc_gather_kernel<true, true, false>;
+  else if (smem != 0)
+    kernel = fast ? adc_gather_kernel<true, false, true> : adc_gather_kernel<true, false, false>;
+  return launch_gather(kernel, tables, codes_t, out, nq, m, k, n, subspaces, queries, smem, vec,
+                       sms, st);
 }
 
 extern "C" int vq_adc_floor(const float* tables, const unsigned char* codes_t, float* out,

@@ -89,9 +89,9 @@ _SIGNATURES = {
     # slabs, codes_t, out, nq, m, ksteps, slab_bytes, n, groups, units,
     # stream
     "vq_adc_kt": (_P, _P, _P, _I, _I, _I, _I, _LL, _I, _LL, _P),
-    # tables, codes_t, out, nq, m, k, n, group, tab_in_smem, subspaces,
-    # rows_per_block, vec, stream
-    "vq_adc_gather": (_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _LL, _I, _P),
+    # tables, codes_t, out, nq, m, k, n, subspaces, queries, smem, vec,
+    # stream
+    "vq_adc_gather": (_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _P),
     # tables, codes_t, out, nq, n, q_per_block, vec, stream
     "vq_adc_floor": (_P, _P, _P, _I, _LL, _I, _I, _P),
 }
